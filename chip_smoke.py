@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""chip_smoke.py — drive the PyTorch/CUDA port's verify plane on one card.
+"""chip_smoke.py — drive the PyTorch/CUDA port's paths on one card.
 
     python3 chip_smoke.py
 
@@ -7,13 +7,21 @@ Phases (each prints one JSON line; any failure exits non-zero, and no
 phase's failure is caught while the run carries on):
 
 1. device   — the card's name, and its name and power limit from nvidia-smi;
-2. build    — seconds to build the CUDA kernel library and the C host stage
-              from the sources in this checkout;
-3. kernels  — each ported kernel on the card at the main path's shape
-              (4096 packed lanes of mixed valid/invalid/raw classes), held
+2. build    — seconds to build the three CUDA kernel libraries (one nvcc
+              each, all started together) and the C host stage from the
+              sources in this checkout, with each kernel's ptxas report;
+3. kernels  — each ported kernel on the card at its path's shapes, held
               against its plain PyTorch version on the same inputs on the
-              card: zero mismatches, both verdict classes present; times by
-              CUDA events;
+              card with zero mismatches; times by CUDA events:
+              - ed25519_verify: 4096 packed lanes of mixed valid/invalid/
+                raw classes, both verdict classes present;
+              - sha512_h: 4096 device-hash lanes (every single-block
+                message length 0-47, host-hashed longer messages, gate-
+                rejected inert lanes), into a new tensor and in place; an
+                all-flag-0 chunk must come back unchanged;
+              - sha256_frames: a 4 MB BucketHasher flush (~40,000 frames)
+                and the whole two-block class of the 10^6-record bucket,
+                with the padding-boundary lengths among the messages;
 4. main path — ``make_backend("gpu")`` in a fresh verify cache (the
               node's composition with its defaults; the default cutover is
               0, so every batch goes to the card):
@@ -29,14 +37,29 @@ phase's failure is caught while the run carries on):
               are set to 0 just before and read just after: the kernel must
               have launched, the plain version must not have run, no item
               may have gone to the host and no dispatch may have stalled;
-5. torsion  — ``torsion_check`` on 512 encodings against
-              ``ref25519.is_torsion_free``.
+5. main path, device hash — loads (a)-(c) again through a second
+              ``make_backend("gpu", device_hash=True)`` in a fresh cache:
+              the 32-byte tx hashes are hashed on the card by the SHA-512
+              kernel, the SCP statements (multi-block) on the host by
+              ``stage_raw`` and merged through the flag row.  Same verdict
+              checks; both kernels must have launched and neither plain
+              version run; span sums beside the host-hash run's;
+6. torsion  — ``torsion_check`` on 512 encodings against
+              ``ref25519.is_torsion_free``;
+7. bucket hash — the port's ``bucket/hashplane`` on a seeded framed
+              buffer of 10^6 records (~108 MB, the 10^6-account rung of
+              STATE_LADDER_r22.json): ``hash_frames`` over the whole buffer
+              and ``BucketHasher`` frame by frame, each through the device,
+              native and hashlib backends — all six hashes equal; the
+              SHA-256 kernel launched and its plain version did not run; MB/s
+              per backend and the device backend's stage spans.
 
 Then, on lines of their own: the kernels' JSON line, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 rest of the repository beside it, the script exits non-zero and prints no
-result.  Keys and messages come from a seed; signatures from libsodium when
-the port's ``crypto.sodium`` loads it, else from ref25519 in a process pool.
+result.  Keys, messages and bucket records come from a seed; signatures
+from libsodium when the port's ``crypto.sodium`` loads it, else from
+ref25519 in a process pool.
 """
 
 from __future__ import annotations
@@ -48,9 +71,11 @@ import random
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 SEED = 20261016
 LANES = 4096  # the main path's chunk: SIG_BATCH_MAX
@@ -69,10 +94,42 @@ FIELD_SQRS_PER_VERIFY = 64 * 16 + 255 + 254
 FIELD_MULS_PER_VERIFY = 64 * 28 + 142 + 18 + 13
 IMAD_PER_FIELD_SQR = 2 * 36 + 2 * 8
 IMAD_PER_FIELD_MUL = 2 * 64 + 2 * 8
+# bound of the SHA-512 mod L kernel (csrc/sha512_h.cu header note), in
+# 32-bit integer instructions per hashed lane: 80 rounds x 28, 64 schedule
+# words x 20, feed-forward 16, block assembly 210, mod L 510; bytes moved
+# per hashed lane (rows 0:64 and 96:146 read, h written) and per
+# passthrough lane (flag and host h read, h written)
+SHA512_OPS_PER_LANE = 80 * 28 + 64 * 20 + 16 + 210 + 510
+SHA512_BYTES_HASHED = 114 + 32
+SHA512_BYTES_PASS = 33 + 32
+# bound of the SHA-256 kernel (csrc/sha256_frames.cu header note): 32-bit
+# integer instructions per compressed block (64 rounds x 14, 48 schedule
+# words x 10, feed-forward 8, 64 bytes merged) and per lane (32 digest
+# bytes); bytes: a lane's own blocks, its count and its digest
+SHA256_OPS_PER_BLOCK = 64 * 14 + 48 * 10 + 8 + 64
+SHA256_OPS_PER_LANE = 32
 # H100 SXM: 132 SMs x 64 INT32 lanes x 1.98 GHz boost (Hopper white paper);
 # 3.35 TB/s HBM3 (data sheet) — both at the full 700 W power limit
 H100_IMAD_PER_S = 132 * 64 * 1.98e9
 H100_BYTES_PER_S = 3.35e12
+# the bucket-hash phase: 10^6 records, as STATE_LADDER_r22.json's
+# 10^6-account rung (100,008,100 bucket bytes, ~100 bytes a record)
+BUCKET_RECORDS = 1_000_000
+# Frame sizes (4-byte header + XDR) of live BucketEntry records as the JAX
+# package's codec writes them (stellar_tpu/xdr/entries.py, ledger.py): an
+# AccountEntry with no signers and no home domain 100 bytes (the ladder's
+# account, profile_system.py::_ladder_account), each signer +40; a
+# TrustLineEntry 124 (alphanum4 asset) or 132 (alphanum12); an OfferEntry
+# 136 (native/alphanum4), 184 (alphanum4/alphanum12), 192 (alphanum12
+# both).  Weights: mostly plain accounts, as the ladder's state.
+BUCKET_FRAME_MIX = (
+    (100, 0.86), (140, 0.02), (180, 0.01), (260, 0.01),
+    (124, 0.03), (132, 0.02), (136, 0.02), (184, 0.02), (192, 0.01),
+)
+SPILL_FRAMES = 8  # 5004-byte frames: 79 SHA blocks, past DEVICE_MAX_BLOCKS
+SPILL_BODY = 5000
+# the padding-boundary message lengths of the SHA-256 kernel check
+SHA256_BOUNDARY = (0, 55, 56, 63, 64, 65, 119, 120)
 
 
 def emit(obj) -> None:
@@ -307,6 +364,188 @@ def phase_kernels(rng, ledger_items):
     return row
 
 
+def sha512_lanes(rng, ledger_items, n=LANES):
+    """(160, n) device-hash lanes staged by the port's ``stage_raw``:
+    message lengths 0..59 in turn — 0..47 upload raw with flag 1, 48..59 are
+    hashed on the host with flag 0 — and every 16th lane gate-rejected
+    (s := L: an inert zero lane).  Returns the lanes, the items and the
+    gate verdicts."""
+    import numpy as np
+
+    from stellar_tpu_torch import native
+    from stellar_tpu_torch.ops import ed25519 as ed
+    from stellar_tpu_torch.ops import sha512 as tsha
+
+    items = []
+    for i in range(n):
+        pk, _, sig = ledger_items[i]
+        if i % 16 == 15:
+            sig = sig[:32] + tsha.L.to_bytes(32, "little")
+        items.append((pk, rng.randbytes(i % 60), sig))
+    packed = np.zeros((tsha.DH_ROWS, n), dtype=np.uint8)
+    ok = np.zeros(n, dtype=np.uint8)
+    native.load_sighash().stage_raw(items, 0, n, packed, ok, ed._BLACKLIST, 0)
+    return packed, items, ok
+
+
+def phase_kernel_sha512(rng, ledger_items):
+    import torch
+
+    from stellar_tpu_torch.ops import sha512 as tsha
+    from stellar_tpu_torch.ops import sha512_cuda as sc
+
+    packed, items, ok = sha512_lanes(rng, ledger_items)
+    p = torch.from_numpy(packed).cuda()
+    got = sc.h_rows(p)
+    torch.cuda.synchronize()
+    plain = tsha.h_rows_from_packed(p).to(torch.uint8)
+    mismatches = int((got != plain).any(dim=0).sum())
+    max_abs_err = int((got.to(torch.int32) - plain.to(torch.int32)).abs().max())
+    assert mismatches == 0, f"sha512_h disagrees with the plain version on {mismatches} lanes"
+    # in place, as the verify plane calls it: h in rows 96:128, nothing else moves
+    q = p.clone()
+    sc.hash_in_place(q)
+    torch.cuda.synchronize()
+    assert torch.equal(q[96:128], plain), "in-place h differs"
+    assert torch.equal(q[:96], p[:96]) and torch.equal(q[128:], p[128:]), "in place moved other rows"
+    # a chunk with no flag-1 lane: rows 96:128 (the host h) come back as they were
+    flag0 = p.clone()
+    flag0[tsha.ROW_FLAG] = 0
+    before = flag0.clone()
+    sc.hash_in_place(flag0)
+    torch.cuda.synchronize()
+    assert torch.equal(flag0, before), "an all-flag-0 chunk changed"
+    host = got.t().contiguous().cpu().numpy()
+    for j, (pk, msg, sig) in enumerate(items):
+        if ok[j]:
+            want = tsha.reduce_digest(hashlib.sha512(sig[:32] + pk + msg).digest())
+            assert host[j].tobytes() == want, f"lane {j}: h is not SHA-512(R||A||M) mod L"
+    flags = packed[tsha.ROW_FLAG]
+    hashed = int((flags != 0).sum())
+    lanes = {
+        "flag1": hashed,
+        "flag0_host_h": int(((flags == 0) & (ok == 1)).sum()),
+        "rejected": int((ok == 0).sum()),
+    }
+    assert min(lanes.values()) > 0, lanes
+    sc.h_rows(p)  # warm-up
+    ms = cuda_ms(lambda: sc.h_rows(p), 21)
+    in_place_ms = cuda_ms(lambda: sc.hash_in_place(q), 21)
+    plain_ms = cuda_ms(lambda: tsha.h_rows_from_packed(p), 3)
+    ops_s = hashed * SHA512_OPS_PER_LANE / H100_IMAD_PER_S
+    bytes_s = (hashed * SHA512_BYTES_HASHED + (LANES - hashed) * SHA512_BYTES_PASS) / H100_BYTES_PER_S
+    row = {
+        "name": "sha512_h",
+        "route": "cuda",
+        "source": "stellar_tpu_torch/csrc/sha512_h.cu",
+        "replaces": "stellar_tpu/ops/sha512.py:533",
+        "lanes": LANES,
+        "lane_classes": lanes,
+        "mismatches": mismatches,
+        "max_abs_err": max_abs_err,
+        "ms": ms,
+        "in_place_ms": in_place_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": 1e3 * max(ops_s, bytes_s),
+        "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+        "library_ms": None,
+    }
+    emit({"phase": "kernels", **row})
+    return row
+
+
+def sha256_shapes(frames, frame_len):
+    """The bucket path's two kernel shapes, as (name, messages, max_blocks):
+    the frames of the first 4 MB BucketHasher flush that fit in 4 blocks,
+    and the two-block class of the whole buffer — each with the padding-
+    boundary messages that fit."""
+    import numpy as np
+
+    from stellar_tpu_torch.bucket import hashplane as hp
+    from stellar_tpu_torch.ops import sha256 as t256
+
+    rng = random.Random(SEED + 2)
+    boundary = [rng.randbytes(n) for n in SHA256_BOUNDARY]
+    flush = int(np.searchsorted(np.cumsum(frame_len), hp._FLUSH_BYTES)) + 1
+    nblocks = (frame_len + 8) // 64 + 1
+    fit4 = [frames[i] for i in np.flatnonzero(nblocks[:flush] <= 4)]
+    two = [frames[i] for i in np.flatnonzero(nblocks == 2)]
+    return [
+        ("flush_4MB", fit4 + boundary, 4),
+        ("class_2_blocks", two + [m for m in boundary if t256.blocks_for(len(m)) <= 2], 2),
+    ]
+
+
+def pack_frames_loop(items, max_blocks):
+    """The JAX package's per-item packer (``ops/sha256.py::pack_frames``),
+    copied to time it beside the port's vectorised one on the same frames."""
+    import numpy as np
+
+    counts = np.asarray([(len(it) + 8) // 64 + 1 for it in items], np.int32)
+    packed = np.zeros((max_blocks * 64, max(len(items), 1)), dtype=np.uint8)
+    for i, it in enumerate(items):
+        ln = len(it)
+        end = int(counts[i]) * 64
+        if ln:
+            packed[:ln, i] = np.frombuffer(it, dtype=np.uint8)
+        packed[ln, i] = 0x80
+        packed[end - 8 : end, i] = np.frombuffer(struct.pack(">Q", ln * 8), dtype=np.uint8)
+    return packed, counts
+
+
+def phase_kernel_sha256(frames, frame_len):
+    import torch
+
+    from stellar_tpu_torch.ops import sha256 as t256
+    from stellar_tpu_torch.ops import sha256_cuda as c256
+
+    shapes = []
+    for name, msgs, max_blocks in sha256_shapes(frames, frame_len):
+        t0 = time.perf_counter()
+        packed, counts = t256.pack_frames(msgs, max_blocks)
+        pack_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loop_packed, loop_counts = pack_frames_loop(msgs, max_blocks)
+        pack_loop_s = time.perf_counter() - t0
+        assert (loop_packed == packed).all() and (loop_counts == counts).all(), name
+        del loop_packed
+        p, nb = torch.from_numpy(packed).cuda(), torch.from_numpy(counts).cuda()
+        got = c256.digest_rows(p, nb)
+        torch.cuda.synchronize()
+        plain = t256.sha256_rows_from_packed(p, nb).to(torch.uint8)
+        mismatches = int((got != plain).any(dim=0).sum())
+        max_abs_err = int((got.to(torch.int32) - plain.to(torch.int32)).abs().max())
+        assert mismatches == 0, f"sha256_frames ({name}) disagrees on {mismatches} lanes"
+        host = got.t().contiguous().cpu().numpy()
+        n = len(msgs)
+        check = list(range(n - len(SHA256_BOUNDARY), n)) + random.Random(SEED).sample(range(n), 1000)
+        for j in check:
+            assert host[j].tobytes() == hashlib.sha256(msgs[j]).digest(), f"{name} lane {j}"
+        c256.digest_rows(p, nb)  # warm-up
+        ms = cuda_ms(lambda: c256.digest_rows(p, nb), 11)
+        plain_ms = cuda_ms(lambda: t256.sha256_rows_from_packed(p, nb), 2)
+        blocks = int(counts.sum())
+        ops_s = (blocks * SHA256_OPS_PER_BLOCK + n * SHA256_OPS_PER_LANE) / H100_IMAD_PER_S
+        bytes_s = (64 * blocks + 36 * n) / H100_BYTES_PER_S
+        shape = {
+            "shape": name, "lanes": n, "max_blocks": max_blocks, "blocks": blocks,
+            "pack_s": pack_s, "pack_loop_s": pack_loop_s, "mismatches": mismatches, "max_abs_err": max_abs_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": 1e3 * max(ops_s, bytes_s),
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+        }
+        emit({"phase": "kernels", "name": "sha256_frames", **shape})
+        shapes.append(shape)
+    main = shapes[-1]  # the whole two-block class of the 10^6-record bucket
+    return {
+        "name": "sha256_frames",
+        "route": "cuda",
+        "source": "stellar_tpu_torch/csrc/sha256_frames.cu",
+        "replaces": "stellar_tpu/ops/sha256.py:183",
+        **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+    }
+
+
 # -- phase 4: the main path ---------------------------------------------------
 
 
@@ -366,42 +605,63 @@ def check_load(fx, rng, name, items, want, got):
         assert sod == want, f"{name}: libsodium disagrees"
 
 
-def phase_main(fx, rng, loads):
+def phase_main(fx, rng, loads, device_hash=False):
+    """The loads through a fresh ``make_backend("gpu")``; returns the
+    backend, the main path's launch counts and each load's (ms, spans)."""
     from stellar_tpu_torch.crypto import make_backend
     from stellar_tpu_torch.crypto.sigcache import VerifySigCache
     from stellar_tpu_torch.ops import ed25519 as ed
     from stellar_tpu_torch.ops import ed25519_cuda as ec
+    from stellar_tpu_torch.ops import sha512 as tsha
+    from stellar_tpu_torch.ops import sha512_cuda as sc
 
     tracer = SpanSums()
-    backend = make_backend("gpu", cache=VerifySigCache(), tracer=tracer)
+    backend = make_backend("gpu", cache=VerifySigCache(), tracer=tracer, device_hash=device_hash)
+    phase = "main_path_device_hash" if device_hash else "main_path"
     results = []
-    ec.launches = 0
-    ed.plain_calls = 0
+    ec.launches = sc.launches = 0
+    ed.plain_calls = tsha.plain_calls = 0
     for name, caller, items, want, run in loads(backend):
+        before = (ec.launches, sc.launches)
         t0 = time.perf_counter()
         got = run(backend, items, caller)
         sec = time.perf_counter() - t0
-        results.append((name, caller, items, want, got, sec, tracer.take_ms()))
-    launches, plain_calls = ec.launches, ed.plain_calls
+        launched = {"ed25519_verify": ec.launches - before[0], "sha512_h": sc.launches - before[1]}
+        results.append((name, caller, items, want, got, sec, tracer.take_ms(), launched))
+    launches = {"ed25519_verify": ec.launches, "sha512_h": sc.launches}
+    plain_calls = {"ed25519": ed.plain_calls, "sha512": tsha.plain_calls}
     stats = backend.stats()
-    for name, caller, items, want, got, sec, spans in results:
+    per_load = {}
+    for name, caller, items, want, got, sec, spans, launched in results:
         check_load(fx, rng, name, items, want, got)
         emit({
-            "phase": "main_path", "load": name, "caller": caller,
+            "phase": phase, "load": name, "caller": caller,
             "signatures": len(items), "invalid": want.count(False),
             "ms": sec * 1e3, "verifies_per_s": len(items) / sec,
-            "span_ms": spans,
+            "launches": launched, "span_ms": spans,
         })
-    assert launches > 0, "the main path never launched the CUDA kernel"
-    assert plain_calls == 0, f"the plain version ran {plain_calls} times on the main path"
+        per_load[name] = {"ms": sec * 1e3, "span_ms": spans}
+        assert launched["ed25519_verify"] > 0, f"{name}: the verify kernel never launched"
+        if device_hash:
+            # tx hashes (32 bytes) hash on the card; SCP statements (100-300
+            # bytes) are multi-block, hashed by stage_raw: a flag-0-only load
+            single_block = all(len(m) <= tsha.MAX_DEVICE_MSG for _, m, _ in items)
+            assert (launched["sha512_h"] > 0) == single_block, (name, launched)
+    assert launches["ed25519_verify"] > 0, "the main path never launched the CUDA kernel"
+    if device_hash:
+        assert launches["sha512_h"] > 0, "the device-hash path never launched the SHA-512 kernel"
+    else:
+        assert launches["sha512_h"] == 0, "the host-hash path launched the SHA-512 kernel"
+    assert plain_calls == {"ed25519": 0, "sha512": 0}, f"plain versions ran on the main path: {plain_calls}"
+    assert stats["device_hash"] is device_hash, stats["device_hash"]
     for key in ("cpu_cutover_items", "stall_rejected_items", "host_assist_items"):
         assert stats[key] == 0, f"{key} = {stats[key]}: items left the device"
     assert stats["wedge_latch_flips"] == {}, f"device stalls: {stats['wedge_latch_flips']}"
     emit({
-        "phase": "main_path", "launches": launches, "plain_calls": plain_calls,
+        "phase": phase, "launches": launches, "plain_calls": plain_calls,
         "libsodium_checked": fx.sodium, "stats": stats,
     })
-    return backend, launches
+    return backend, launches, per_load
 
 
 def phase_torsion(fx, rng, backend, pks):
@@ -447,6 +707,92 @@ def phase_torsion(fx, rng, backend, pks):
     })
 
 
+class _BucketKnob:
+    """The config surface ``hashplane.get_backend`` reads."""
+
+    def __init__(self, on):
+        self.DEVICE_BUCKET_HASH = on
+
+
+def bucket_buffer(seed):
+    """A framed record buffer of BUCKET_RECORDS frames: seeded body bytes,
+    frame sizes drawn from BUCKET_FRAME_MIX in a seeded order, and
+    SPILL_FRAMES oversized frames among them.  Returns (buffer, frame
+    lengths)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sizes = np.array([size for size, _ in BUCKET_FRAME_MIX], dtype=np.int64)
+    weights = np.array([w for _, w in BUCKET_FRAME_MIX])
+    frame_len = rng.choice(sizes, size=BUCKET_RECORDS, p=weights / weights.sum())
+    frame_len[rng.choice(BUCKET_RECORDS, SPILL_FRAMES, replace=False)] = SPILL_BODY + 4
+    offsets = np.concatenate([[0], np.cumsum(frame_len)])
+    buf = rng.integers(0, 256, int(offsets[-1]), dtype=np.uint8)
+    hdr = ((frame_len - 4) | 0x80000000).astype(">u4").view(np.uint8).reshape(-1, 4)
+    buf[offsets[:-1, None] + np.arange(4)] = hdr
+    return buf.tobytes(), frame_len
+
+
+def phase_bucket(buf, frames):
+    """``hash_frames`` and ``BucketHasher`` through the device, native and
+    hashlib backends, resolved as a node resolves them (the config knob,
+    the no-native environment variable).  Returns the SHA-256 kernel's
+    launches over the whole bucket."""
+    from stellar_tpu_torch.bucket import hashplane as hp
+    from stellar_tpu_torch.ops import sha256 as t256
+    from stellar_tpu_torch.ops import sha256_cuda as c256
+
+    mb = len(buf) / 1e6
+    hashes = {}
+    device_launches = None
+    for name, knob, no_native in (("device", True, False), ("native", False, False),
+                                  ("hashlib", False, True)):
+        if no_native:
+            os.environ["STELLAR_TPU_NO_NATIVE_HASH"] = "1"
+        else:
+            os.environ.pop("STELLAR_TPU_NO_NATIVE_HASH", None)
+        hp.reset_backend_cache()
+        cfg = _BucketKnob(knob)
+        backend = hp.get_backend(cfg)
+        assert backend.name == ("device-cuda" if knob else name), backend.name
+        spans = SpanSums()
+        if knob:
+            backend.tracer = spans
+        c256.launches = 0
+        t256.plain_calls = 0
+        t0 = time.perf_counter()
+        whole = hp.hash_frames(buf, cfg)
+        whole_s = time.perf_counter() - t0
+        whole_launches, whole_spans = c256.launches, spans.take_ms()
+        t0 = time.perf_counter()
+        hasher = hp.BucketHasher(cfg)
+        for fr in frames:
+            hasher.add(fr)
+        streamed = (hasher.finish(), hasher.count)
+        streamed_s = time.perf_counter() - t0
+        launches, plain_calls = c256.launches, t256.plain_calls
+        line = {
+            "phase": "bucket_hash", "backend": backend.name, "records": whole[1],
+            "mb": mb, "hash": whole[0].hex(),
+            "hash_frames_s": whole_s, "hash_frames_mb_per_s": mb / whole_s,
+            "bucket_hasher_s": streamed_s, "bucket_hasher_mb_per_s": mb / streamed_s,
+            "launches": {"hash_frames": whole_launches, "bucket_hasher": launches - whole_launches},
+            "plain_calls": plain_calls,
+        }
+        if knob:
+            assert whole_launches > 0 and launches > whole_launches, "the SHA-256 kernel never launched"
+            assert plain_calls == 0, f"the plain SHA-256 ran {plain_calls} times"
+            line["span_ms"] = {"hash_frames": whole_spans, "bucket_hasher": spans.take_ms()}
+            device_launches = whole_launches
+        emit(line)
+        hashes[name] = (whole, streamed)
+    os.environ.pop("STELLAR_TPU_NO_NATIVE_HASH", None)
+    hp.reset_backend_cache()
+    results = {r for pair in hashes.values() for r in pair}
+    assert len(results) == 1 and next(iter(results))[1] == BUCKET_RECORDS, hashes
+    return device_launches
+
+
 def sass_instructions(lib: str):
     """Machine instructions in the built library (cuobjdump), or None where
     the toolkit has no cuobjdump."""
@@ -458,6 +804,34 @@ def sass_instructions(lib: str):
     return len(re.findall(r"^\s*/\*[0-9a-f]{4,}\*/", r.stdout, re.M))
 
 
+def phase_build():
+    """Build the three kernel libraries and the C host stage, all at once."""
+    from stellar_tpu_torch import native
+    from stellar_tpu_torch.ops import ed25519_cuda, sha256_cuda, sha512_cuda
+
+    mods = {"ed25519_verify": ed25519_cuda, "sha512_h": sha512_cuda, "sha256_frames": sha256_cuda}
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(mods) + 1) as ex:
+        futs = {name: ex.submit(timed, m.load_library) for name, m in mods.items()}
+        host = ex.submit(timed, native.load_sighash)
+        secs = {name: f.result() for name, f in futs.items()}
+        sighash_s = host.result()
+    kernels = {}
+    for name, m in mods.items():
+        with open(m.library_path()[:-3] + ".log") as f:
+            ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
+        kernels[name] = {"s": secs[name], "ptxas": ptxas,
+                         "sass_instructions": sass_instructions(m.library_path())}
+    emit({"phase": "build", "wall_s": time.perf_counter() - t0, "sighash_s": sighash_s,
+          "kernels": kernels})
+
+
 def main() -> int:
     import torch
 
@@ -465,6 +839,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     try:
+        from stellar_tpu_torch.bucket import hashplane
         from stellar_tpu_torch.crypto import sodium  # noqa: F401
         from stellar_tpu_torch.ops import ed25519 as ed
         from stellar_tpu_torch.ops import ed25519_cuda as ec
@@ -482,18 +857,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(), "nvidia_smi": smi})
 
-    from stellar_tpu_torch import native
-
-    t0 = time.perf_counter()
-    ec.load_library()
-    t_cuda = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    native.load_sighash()
-    t_host = time.perf_counter() - t0
-    with open(ec.library_path()[:-3] + ".log") as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "cuda_s": t_cuda, "sighash_s": t_host, "ptxas": ptxas,
-          "sass_instructions": sass_instructions(ec.library_path())})
+    phase_build()
 
     rng = random.Random(SEED)
     with ProcessPoolExecutor(
@@ -520,10 +884,18 @@ def main() -> int:
             for _ in range(SCP_ENVELOPES)
         ]
         scp = make_load(fx, rng, "validator", SCP_ENVELOPES, lambda k: [scp_msgs[k]])
+        t1 = time.perf_counter()
+        buf, frame_len = bucket_buffer(SEED)
+        frames = hashplane.split_frames(buf)
         emit({"phase": "fixtures", "seconds": time.perf_counter() - t0,
-              "libsodium": fx.sodium})
+              "libsodium": fx.sodium, "bucket_seconds": time.perf_counter() - t1,
+              "bucket_bytes": len(buf), "bucket_records": len(frames)})
 
-        row = phase_kernels(rng, ledger1[0])
+        rows = [
+            phase_kernels(rng, ledger1[0]),
+            phase_kernel_sha512(rng, ledger1[0]),
+            phase_kernel_sha256(frames, frame_len),
+        ]
 
         def sync(backend, items, caller):
             return backend.verify_batch(items, caller=caller)
@@ -539,7 +911,7 @@ def main() -> int:
             yield ("multisig_1000tx_3of5", "close", *multisig, sync)
             yield ("scp_300", "overlay", *scp, sync)
 
-        backend, launches = phase_main(fx, rng, loads)
+        backend, launches, host_loads = phase_main(fx, rng, loads)
         # (d): ledger (a)'s valid signatures again — the cache latches valid
         # verdicts only, so every lane is a hit and nothing launches
         ec.launches = 0
@@ -551,12 +923,21 @@ def main() -> int:
         emit({"phase": "main_path", "load": "ledger_5000tx_replay", "signatures": len(valid1),
               "cache_hits": len(valid1), "launches": ec.launches, "ms": sec * 1e3})
 
+        _, dh_launches, dh_loads = phase_main(fx, rng, loads, device_hash=True)
+        for name, host in host_loads.items():
+            emit({"phase": "main_path_compare", "load": name,
+                  "host_hash": host, "device_hash": dh_loads[name]})
+
         phase_torsion(fx, rng, backend, [it[0] for it in ledger1[0][:TORSION_ENCS]])
 
-    row["launches"] = launches
+    bucket_launches = phase_bucket(buf, frames)
+
+    rows[0]["launches"] = launches["ed25519_verify"]
+    rows[1]["launches"] = dh_launches["sha512_h"]
+    rows[2]["launches"] = bucket_launches
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: row[k] for k in keys}]}))
+    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -392,6 +392,11 @@ class GpuSigBackend(SigBackend):
     double-scalar-mult) in the CUDA kernel.  Bit-exact with libsodium by
     construction + the differential tests (tests/test_torch_*.py).
 
+    ``device_hash`` (the JAX package's ``Config.DEVICE_HASH``; None defers
+    to ``STELLAR_TPU_DEVICE_HASH``, default off) moves the SHA-512 mod L of
+    single-block messages onto the card, fused ahead of the verify kernel
+    (``BatchVerifier``).
+
     ``device="cpu"`` runs the kernel's plain PyTorch version instead (the
     tests); without CUDA and without ``device="cpu"`` construction raises.
     The CUDA library and the C host stage are built here, never inside a
@@ -415,13 +420,18 @@ class GpuSigBackend(SigBackend):
         cpu_cutover: int = DEFAULT_GPU_CPU_CUTOVER,
         streams: int = 1,
         device="cuda",
+        device_hash: Optional[bool] = None,
         tracer=None,
     ):
         from ..ops.ed25519 import BatchVerifier
 
         self._tracer = tracer if tracer is not None else NULL_TRACER
         self._verifier = BatchVerifier(
-            max_batch=max_batch, device=device, streams=streams, tracer=tracer
+            max_batch=max_batch,
+            device=device,
+            streams=streams,
+            device_hash=device_hash,
+            tracer=tracer,
         )
         # batches below this many cache misses loop libsodium on host
         # (see DEFAULT_GPU_CPU_CUTOVER; 0 sends every batch to the card)
@@ -569,7 +579,8 @@ def make_backend(
 ) -> SigBackend:
     """The node's verify backend, wrapped in the verify cache (the global
     one unless ``cache`` is given).  ``kw`` goes to GpuSigBackend —
-    ``device="cpu"`` runs the plain PyTorch version."""
+    ``device="cpu"`` runs the plain PyTorch version, ``device_hash=True``
+    hashes single-block messages on the card."""
     if kind == "cpu":
         inner: SigBackend = CpuSigBackend()
     elif kind == "gpu":

@@ -1,10 +1,11 @@
 /* sighash — CPython extension: the ed25519 batch-verify HOST STAGE in C.
  *
- * A copy of the JAX package's native/sighash.c, cut to the two entry
- * points the verify plane calls — stage() and sodium_verify() — and built
- * by stellar_tpu_torch/native into the port's own build directory.  The
- * device-hash staging, the SHA-256 bucket-hash batch and the test hooks
- * come back with the slices that need them.
+ * A copy of the JAX package's native/sighash.c without its two test
+ * hooks (_sha512_rax, _reduce512), built by stellar_tpu_torch/native into
+ * the port's own build directory.  Entry points: stage() and stage_raw()
+ * (the verify plane's host-hash and device-hash staging), sodium_verify(),
+ * and sha256_batch() / bucket_hash_frames() (the bucket-hash plane's
+ * native backend, bucket/hashplane.py).
  *
  * The verify kernel needs four byte columns per item (A, R, s, and
  * h = SHA-512(R‖A‖M) mod L); producing them in Python costs per-item
@@ -32,8 +33,10 @@
  * SHA-512 is FIPS 180-4 from scratch (same policy as bucketmerge.c's
  * SHA-256); the mod-L reduction folds at the 2^252 boundary against the
  * 125-bit tail c = L - 2^252, shrinking ≥127 bits per fold (3 folds from
- * 512 bits).  tests/test_torch_sigbackend.py holds stage() byte for byte
- * against the JAX package's build of the same stage.
+ * 512 bits).  tests/test_torch_sigbackend.py and test_torch_sha512.py
+ * hold stage() and stage_raw() byte for byte against the JAX package's
+ * build of the same stage; test_torch_hashplane.py holds the SHA-256
+ * entries against hashlib.
  */
 
 #define PY_SSIZE_T_CLEAN
@@ -398,9 +401,20 @@ gate_ok(const uint8_t *pk, const uint8_t *sig, const uint8_t *bl, int nbl)
 /* the batch job: gate + hash + transposed staging, tile-parallel      */
 /* ------------------------------------------------------------------ */
 
-#define TILE 64       /* items per transpose tile (8 KB scratch) */
+#define TILE 64       /* items per transpose tile (8/10 KB scratch) */
 #define PAR_MIN 2048  /* below this the fanout overhead isn't worth it */
 #define MAX_WORKERS 8
+
+/* device-hash staging layout (ops/sha512.py DH_ROWS): the device runs
+ * the SHA-512 stage, so single-block items upload RAW message bytes and
+ * the host keeps only the gate.  Multi-block (>111-byte preimage)
+ * residuals ride the existing C hash path right here and merge via the
+ * flag row. */
+#define DH_ROWS 160
+#define DH_ROW_M 96
+#define DH_ROW_MLEN 144
+#define DH_ROW_FLAG 145
+#define DH_MAX_MSG 47 /* 64 + mlen <= 111: single padded block */
 
 typedef struct {
     const uint8_t *pk; Py_ssize_t pk_len;
@@ -412,8 +426,10 @@ typedef struct {
 typedef struct {
     const Item *items;
     size_t n;
-    uint8_t *out;   /* (128, stride) row-major */
+    uint8_t *out;   /* (rowsz, stride) row-major */
     size_t stride;
+    size_t rowsz;   /* 128 (host-hash) or DH_ROWS (device-hash raw) */
+    int raw;        /* 1 = device-hash staging (gate only, raw M) */
     uint8_t *ok;    /* n bytes */
     const uint8_t *bl;
     int nbl;
@@ -444,13 +460,50 @@ item_row(const Item *it, uint8_t row[128], const uint8_t *bl, int nbl)
     return 1;
 }
 
+/* device-hash row (DH_ROWS wide): the host runs ONLY the strict gate.
+ * Single-block items (mlen <= 47, the dominant 96-byte R‖A‖M class)
+ * carry raw message bytes + mlen with flag = 1 — the device hashes;
+ * multi-block residuals keep the existing C hash path (flag = 0, h in
+ * rows 96:128) and merge at the same kernel. */
+static int
+item_row_raw(const Item *it, uint8_t row[DH_ROWS], const uint8_t *bl,
+             int nbl)
+{
+    uint8_t digest[64];
+    memset(row + 96, 0, DH_ROWS - 96);
+    if (it->pk_len != 32 || it->sig_len != 64) {
+        memset(row, 0, 96);
+        return 0;
+    }
+    memcpy(row, it->pk, 32);
+    memcpy(row + 32, it->sig, 32);
+    memcpy(row + 64, it->sig + 32, 32);
+    if (!gate_ok(it->pk, it->sig, bl, nbl)) {
+        /* fully inert lane: byte-identical with the Python staging twin
+         * (and no hostile bytes ride the upload) */
+        memset(row, 0, 96);
+        return 0;
+    }
+    if (it->msg_len <= DH_MAX_MSG) {
+        if (it->msg_len)
+            memcpy(row + DH_ROW_M, it->msg, (size_t)it->msg_len);
+        row[DH_ROW_MLEN] = (uint8_t)it->msg_len;
+        row[DH_ROW_FLAG] = 1;
+    } else {
+        sha512_rax(it->sig, it->pk, it->msg, (size_t)it->msg_len, digest);
+        reduce512_le(digest, row + 96);
+        /* mlen/flag stay 0: the device selects the uploaded h */
+    }
+    return 1;
+}
+
 static void
 run_job_tiles(void *arg)
 {
     Job *j = arg;
-    uint8_t rows[TILE][128];
+    uint8_t rows[TILE][DH_ROWS];
     size_t ntiles = (j->n + TILE - 1) / TILE;
-    size_t rej = 0, t;
+    size_t rej = 0, t, rowsz = j->rowsz;
     while ((t = __atomic_fetch_add(&j->next_tile, 1, __ATOMIC_RELAXED)) <
            ntiles) {
         size_t lo = t * TILE;
@@ -460,14 +513,16 @@ run_job_tiles(void *arg)
             hi = j->n;
         cnt = hi - lo;
         for (i = lo; i < hi; i++) {
-            int ok = item_row(&j->items[i], rows[i - lo], j->bl, j->nbl);
+            int ok = j->raw
+                ? item_row_raw(&j->items[i], rows[i - lo], j->bl, j->nbl)
+                : item_row(&j->items[i], rows[i - lo], j->bl, j->nbl);
             j->ok[i] = (uint8_t)ok;
             if (!ok)
                 rej++;
         }
         /* transpose the tile: rows[k][r] -> out[r][lo + k]; reads stay in
          * the 10 KB scratch, writes are 64-byte contiguous runs per row */
-        for (r = 0; r < 128; r++) {
+        for (r = 0; r < rowsz; r++) {
             uint8_t *dst = j->out + (size_t)r * j->stride + lo;
             for (i = 0; i < cnt; i++)
                 dst[i] = rows[i][r];
@@ -613,6 +668,181 @@ run_verify_tiles(void *arg)
 }
 
 /* ------------------------------------------------------------------ */
+/* SHA-256 (FIPS 180-4) + the bucket-hash batch tiles                 */
+/*                                                                     */
+/* The state plane's per-record bucket digests (bucket/hashplane.py)   */
+/* ride the SAME worker pool as the verify staging: each tile digests  */
+/* a run of frames with the GIL released, so a million-entry bucket    */
+/* re-hash fans across every core with one Python call.                */
+/* ------------------------------------------------------------------ */
+
+typedef struct {
+    uint32_t h[8];
+    uint64_t len;
+    unsigned char buf[64];
+    size_t buflen;
+} sha256_ctx;
+
+static const uint32_t K256[64] = {
+    0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5, 0x3956c25b, 0x59f111f1,
+    0x923f82a4, 0xab1c5ed5, 0xd807aa98, 0x12835b01, 0x243185be, 0x550c7dc3,
+    0x72be5d74, 0x80deb1fe, 0x9bdc06a7, 0xc19bf174, 0xe49b69c1, 0xefbe4786,
+    0x0fc19dc6, 0x240ca1cc, 0x2de92c6f, 0x4a7484aa, 0x5cb0a9dc, 0x76f988da,
+    0x983e5152, 0xa831c66d, 0xb00327c8, 0xbf597fc7, 0xc6e00bf3, 0xd5a79147,
+    0x06ca6351, 0x14292967, 0x27b70a85, 0x2e1b2138, 0x4d2c6dfc, 0x53380d13,
+    0x650a7354, 0x766a0abb, 0x81c2c92e, 0x92722c85, 0xa2bfe8a1, 0xa81a664b,
+    0xc24b8b70, 0xc76c51a3, 0xd192e819, 0xd6990624, 0xf40e3585, 0x106aa070,
+    0x19a4c116, 0x1e376c08, 0x2748774c, 0x34b0bcb5, 0x391c0cb3, 0x4ed8aa4a,
+    0x5b9cca4f, 0x682e6ff3, 0x748f82ee, 0x78a5636f, 0x84c87814, 0x8cc70208,
+    0x90befffa, 0xa4506ceb, 0xbef9a3f7, 0xc67178f2};
+
+#define ROR32(x, n) (((x) >> (n)) | ((x) << (32 - (n))))
+
+static void
+sha256_init(sha256_ctx *c)
+{
+    static const uint32_t h0[8] = {0x6a09e667, 0xbb67ae85, 0x3c6ef372,
+                                   0xa54ff53a, 0x510e527f, 0x9b05688c,
+                                   0x1f83d9ab, 0x5be0cd19};
+    memcpy(c->h, h0, sizeof h0);
+    c->len = 0;
+    c->buflen = 0;
+}
+
+static void
+sha256_block(sha256_ctx *c, const unsigned char *p)
+{
+    uint32_t w[64], a, b, d, e, f, g, h, t1, t2, s0, s1, ch, maj, hh;
+    int i;
+    for (i = 0; i < 16; i++)
+        w[i] = ((uint32_t)p[4 * i] << 24) | ((uint32_t)p[4 * i + 1] << 16) |
+               ((uint32_t)p[4 * i + 2] << 8) | p[4 * i + 3];
+    for (i = 16; i < 64; i++) {
+        s0 = ROR32(w[i - 15], 7) ^ ROR32(w[i - 15], 18) ^ (w[i - 15] >> 3);
+        s1 = ROR32(w[i - 2], 17) ^ ROR32(w[i - 2], 19) ^ (w[i - 2] >> 10);
+        w[i] = w[i - 16] + s0 + w[i - 7] + s1;
+    }
+    a = c->h[0]; b = c->h[1]; hh = c->h[2]; d = c->h[3];
+    e = c->h[4]; f = c->h[5]; g = c->h[6]; h = c->h[7];
+    for (i = 0; i < 64; i++) {
+        s1 = ROR32(e, 6) ^ ROR32(e, 11) ^ ROR32(e, 25);
+        ch = (e & f) ^ (~e & g);
+        t1 = h + s1 + ch + K256[i] + w[i];
+        s0 = ROR32(a, 2) ^ ROR32(a, 13) ^ ROR32(a, 22);
+        maj = (a & b) ^ (a & hh) ^ (b & hh);
+        t2 = s0 + maj;
+        h = g; g = f; f = e; e = d + t1;
+        d = hh; hh = b; b = a; a = t1 + t2;
+    }
+    c->h[0] += a; c->h[1] += b; c->h[2] += hh; c->h[3] += d;
+    c->h[4] += e; c->h[5] += f; c->h[6] += g; c->h[7] += h;
+}
+
+static void
+sha256_update(sha256_ctx *c, const unsigned char *p, size_t n)
+{
+    c->len += n;
+    if (c->buflen) {
+        size_t take = 64 - c->buflen;
+        if (take > n) take = n;
+        memcpy(c->buf + c->buflen, p, take);
+        c->buflen += take;
+        p += take;
+        n -= take;
+        if (c->buflen == 64) {
+            sha256_block(c, c->buf);
+            c->buflen = 0;
+        }
+    }
+    while (n >= 64) {
+        sha256_block(c, p);
+        p += 64;
+        n -= 64;
+    }
+    if (n) {
+        memcpy(c->buf, p, n);
+        c->buflen = n;
+    }
+}
+
+static void
+sha256_final(sha256_ctx *c, unsigned char out[32])
+{
+    uint64_t bitlen = c->len * 8;
+    unsigned char pad = 0x80;
+    unsigned char z = 0;
+    unsigned char lenb[8];
+    int i;
+    sha256_update(c, &pad, 1);
+    while (c->buflen != 56) sha256_update(c, &z, 1);
+    for (i = 0; i < 8; i++)
+        lenb[i] = (unsigned char)(bitlen >> (56 - 8 * i));
+    sha256_update(c, lenb, 8);
+    for (i = 0; i < 8; i++) {
+        out[4 * i] = (unsigned char)(c->h[i] >> 24);
+        out[4 * i + 1] = (unsigned char)(c->h[i] >> 16);
+        out[4 * i + 2] = (unsigned char)(c->h[i] >> 8);
+        out[4 * i + 3] = (unsigned char)(c->h[i]);
+    }
+}
+
+/* items are (pointer, length) spans — either borrowed bytes objects
+ * (sha256_batch) or frame spans inside one pinned buffer
+ * (bucket_hash_frames); out is the n*32 digest array */
+typedef struct {
+    const uint8_t *p;
+    Py_ssize_t len;
+    PyObject *o; /* strong ref, NULL for in-buffer spans */
+} HSpan;
+
+typedef struct {
+    const HSpan *spans;
+    size_t n;
+    uint8_t *out;     /* n * 32, row i = digest of span i */
+    size_t next_tile; /* atomic work counter */
+} HJob;
+
+/* bucket frames average a few hundred bytes (~1 us/digest): big tiles
+ * keep the atomic counter cold, and fanout pays off quickly */
+#define HTILE 128
+#define HPAR_MIN 512
+
+static void
+run_hash_tiles(void *arg)
+{
+    HJob *j = arg;
+    size_t ntiles = (j->n + HTILE - 1) / HTILE, t;
+    while ((t = __atomic_fetch_add(&j->next_tile, 1, __ATOMIC_RELAXED)) <
+           ntiles) {
+        size_t lo = t * HTILE;
+        size_t hi = lo + HTILE;
+        size_t i;
+        if (hi > j->n)
+            hi = j->n;
+        for (i = lo; i < hi; i++) {
+            sha256_ctx c;
+            sha256_init(&c);
+            sha256_update(&c, j->spans[i].p, (size_t)j->spans[i].len);
+            sha256_final(&c, j->out + 32 * i);
+        }
+    }
+}
+
+static void
+run_hash_job(HJob *job, size_t n, int threads)
+{
+    if (threads == 1 || n < HPAR_MIN || hw_threads() < 2) {
+        run_hash_tiles(job);
+    } else if (pthread_mutex_trylock(&pool_busy) == 0) {
+        run_parallel(run_hash_tiles, job);
+        pthread_mutex_unlock(&pool_busy);
+    } else {
+        /* the pool is mid-job for another caller: run inline */
+        run_hash_tiles(job);
+    }
+}
+
+/* ------------------------------------------------------------------ */
 /* Python entry points                                                 */
 /* ------------------------------------------------------------------ */
 
@@ -640,15 +870,16 @@ borrow_bytes(PyObject *o, const uint8_t **p, Py_ssize_t *len)
  *
  * items     sequence of (pk, msg, sig) tuples — the LAST three slots are
  *           used, so the verifier's (idx, pk, msg, sig) tuples work too
- * out       writable C-contiguous uint8 buffer of 128*stride bytes;
- *           the (128, stride) transposed staging layout (stride >=
- *           count); columns [count, stride) are zeroed (padding).
+ * out       writable C-contiguous uint8 buffer of rowsz*stride bytes;
+ *           the (rowsz, stride) transposed staging layout (stride >=
+ *           count); columns [count, stride) are zeroed (bucket padding).
+ *           rowsz = 128 for stage(), DH_ROWS for stage_raw().
  * ok        writable uint8 buffer, >= count: per-item gate verdicts
  * blacklist k*32 bytes of sign-masked small-order encodings
  * threads   0 = auto (pool when count >= 2048 and >1 core), 1 = inline
  */
 static PyObject *
-sighash_stage(PyObject *self, PyObject *args)
+stage_common(PyObject *args, int raw)
 {
     PyObject *seq, *fast = NULL;
     Py_ssize_t start, count, stride;
@@ -656,10 +887,9 @@ sighash_stage(PyObject *self, PyObject *args)
     int threads = 0;
     Item *items = NULL;
     size_t rejects = 0;
-    const size_t rowsz = 128;
+    size_t rowsz = raw ? DH_ROWS : 128;
     Py_ssize_t j;
     size_t r;
-    (void)self;
 
     if (!PyArg_ParseTuple(args, "Onnw*w*y*|i", &seq, &start, &count, &out,
                           &okb, &bl, &threads))
@@ -717,6 +947,8 @@ sighash_stage(PyObject *self, PyObject *args)
         job.n = (size_t)count;
         job.out = (uint8_t *)out.buf;
         job.stride = (size_t)stride;
+        job.rowsz = rowsz;
+        job.raw = raw;
         job.ok = (uint8_t *)okb.buf;
         job.bl = (const uint8_t *)bl.buf;
         job.nbl = (int)(bl.len / 32);
@@ -771,11 +1003,30 @@ fail:
     return NULL;
 }
 
+static PyObject *
+sighash_stage(PyObject *self, PyObject *args)
+{
+    (void)self;
+    return stage_common(args, 0);
+}
+
+/* stage_raw(items, start, count, out, ok, blacklist, threads=0) ->
+ * rejects — the DEVICE-HASH staging pass: same strict gate, but the
+ * (DH_ROWS, stride) layout carries raw single-block message bytes for
+ * the device SHA-512 stage (ops/sha512.py); only multi-block residuals
+ * are hashed here.  Host cost per item drops to gate + memcpy. */
+static PyObject *
+sighash_stage_raw(PyObject *self, PyObject *args)
+{
+    (void)self;
+    return stage_common(args, 1);
+}
+
 /* sodium_verify(fn_addr, items, ok, threads=0) -> None
  *
  * fn_addr   address of libsodium's crypto_sign_verify_detached (the
  *           caller resolves it via ctypes from the SAME library object
- *           the serial path calls — one verifier, two callers)
+ *           the serial path calls — one verifier, two drivers)
  * items     sequence of (pk, msg, sig) bytes tuples (the LAST three
  *           slots are used, like stage())
  * ok        writable uint8 buffer, >= len(items): per-item verdicts
@@ -876,14 +1127,195 @@ fail:
     return NULL;
 }
 
+/* sha256_batch(items, out, threads=0) -> None
+ *
+ * items     sequence of immutable bytes objects
+ * out       writable buffer >= len(items)*32: digest i lands at 32*i
+ * threads   0 = auto (pool when n >= 512 and >1 core), 1 = inline
+ *
+ * The per-item digest batch of the state-plane hash pipeline
+ * (bucket/hashplane.py): the whole pass runs with the GIL released,
+ * tile-fanned over the worker pool. */
+static PyObject *
+sighash_sha256_batch(PyObject *self, PyObject *args)
+{
+    PyObject *seq, *fast = NULL;
+    Py_buffer outb = {0};
+    int threads = 0;
+    HSpan *spans = NULL;
+    Py_ssize_t n = 0, j;
+    (void)self;
+
+    if (!PyArg_ParseTuple(args, "Ow*|i", &seq, &outb, &threads))
+        return NULL;
+    fast = PySequence_Fast(seq, "sha256_batch needs a sequence of bytes");
+    if (fast == NULL)
+        goto fail;
+    n = PySequence_Fast_GET_SIZE(fast);
+    if (outb.len < n * 32) {
+        PyErr_SetString(PyExc_ValueError, "out buffer too small (n*32)");
+        goto fail;
+    }
+    spans = PyMem_Malloc((n ? n : 1) * sizeof(HSpan));
+    if (spans == NULL) {
+        PyErr_NoMemory();
+        goto fail;
+    }
+    memset(spans, 0, (n ? n : 1) * sizeof(HSpan));
+    for (j = 0; j < n; j++) {
+        spans[j].o = borrow_bytes(PySequence_Fast_GET_ITEM(fast, j),
+                                  &spans[j].p, &spans[j].len);
+        if (!spans[j].o)
+            goto fail;
+    }
+
+    {
+        HJob job;
+        job.spans = spans;
+        job.n = (size_t)n;
+        job.out = (uint8_t *)outb.buf;
+        job.next_tile = 0;
+        Py_BEGIN_ALLOW_THREADS
+        run_hash_job(&job, (size_t)n, threads);
+        Py_END_ALLOW_THREADS
+    }
+
+    for (j = 0; j < n; j++)
+        Py_DECREF(spans[j].o);
+    PyMem_Free(spans);
+    Py_DECREF(fast);
+    PyBuffer_Release(&outb);
+    Py_RETURN_NONE;
+
+fail:
+    if (spans != NULL)
+        for (j = 0; j < n; j++)
+            Py_XDECREF(spans[j].o);
+    PyMem_Free(spans);
+    Py_XDECREF(fast);
+    if (outb.obj)
+        PyBuffer_Release(&outb);
+    return NULL;
+}
+
+/* bucket_hash_frames(buf, threads=0) -> (digest32, count)
+ *
+ * The one-call host path of the v2 bucket hash: walk the RFC 5531
+ * frames of a whole bucket buffer (4-byte big-endian header with the
+ * continuation bit, 64 MiB body cap — util/xdrstream.py's bounds),
+ * digest every full frame in parallel over the worker pool, then
+ * combine the digests in frame order.  Raises ValueError on any
+ * malformed or truncated frame.  buf accepts anything read-only
+ * buffer-shaped (bytes, memoryview, mmap) and stays pinned for the
+ * GIL-released pass. */
+static PyObject *
+sighash_bucket_hash_frames(PyObject *self, PyObject *args)
+{
+    Py_buffer buf = {0};
+    int threads = 0;
+    HSpan *spans = NULL;
+    uint8_t *digests = NULL;
+    size_t n = 0, cap = 0, off = 0, i;
+    const uint8_t *p;
+    size_t len;
+    unsigned char out[32];
+    int bad = 0;
+    PyObject *res;
+    (void)self;
+
+    if (!PyArg_ParseTuple(args, "y*|i", &buf, &threads))
+        return NULL;
+    p = (const uint8_t *)buf.buf;
+    len = (size_t)buf.len;
+
+    Py_BEGIN_ALLOW_THREADS
+    /* pass 1: frame walk (sequential, ~ns per frame) */
+    while (off < len) {
+        uint32_t flen;
+        if (off + 4 > len || !(p[off] & 0x80)) {
+            bad = 1;
+            break;
+        }
+        flen = (((uint32_t)p[off] << 24) | ((uint32_t)p[off + 1] << 16) |
+                ((uint32_t)p[off + 2] << 8) | p[off + 3]) &
+               0x7fffffffu;
+        if (flen > (64u << 20) || off + 4 + flen > len) {
+            bad = 1;
+            break;
+        }
+        if (n == cap) {
+            size_t ncap = cap ? cap * 2 : 1024;
+            HSpan *ns = (HSpan *)realloc(spans, ncap * sizeof(HSpan));
+            if (!ns) {
+                bad = 2;
+                break;
+            }
+            spans = ns;
+            cap = ncap;
+        }
+        spans[n].p = p + off;
+        spans[n].len = 4 + flen; /* <= 64 MB + 4: fits the signed field */
+        spans[n].o = NULL;
+        n++;
+        off += 4 + flen;
+    }
+    if (!bad && n) {
+        digests = (uint8_t *)malloc(n * 32);
+        if (!digests)
+            bad = 2;
+    }
+    if (!bad) {
+        /* pass 2: parallel per-frame digests, pass 3: ordered combine */
+        sha256_ctx comb;
+        HJob job;
+        job.spans = spans;
+        job.n = n;
+        job.out = digests;
+        job.next_tile = 0;
+        if (n)
+            run_hash_job(&job, n, threads);
+        sha256_init(&comb);
+        for (i = 0; i < n; i++)
+            sha256_update(&comb, digests + 32 * i, 32);
+        sha256_final(&comb, out);
+    }
+    Py_END_ALLOW_THREADS
+
+    free(spans);
+    free(digests);
+    PyBuffer_Release(&buf);
+    if (bad == 2)
+        return PyErr_NoMemory();
+    if (bad) {
+        PyErr_SetString(PyExc_ValueError,
+                        "malformed or truncated bucket frame");
+        return NULL;
+    }
+    res = Py_BuildValue("(y#n)", (const char *)out, (Py_ssize_t)32,
+                        (Py_ssize_t)n);
+    return res;
+}
+
 static PyMethodDef methods[] = {
     {"stage", sighash_stage, METH_VARARGS,
      "stage(items, start, count, out, ok, blacklist, threads=0) -> "
      "rejects: gate + SHA-512(R||A||M) mod L + transposed staging"},
+    {"stage_raw", sighash_stage_raw, METH_VARARGS,
+     "stage_raw(items, start, count, out, ok, blacklist, threads=0) -> "
+     "rejects: gate-only device-hash staging (raw single-block M bytes;"
+     " multi-block residuals hashed here, flag row 0)"},
     {"sodium_verify", sighash_sodium_verify, METH_VARARGS,
      "sodium_verify(fn_addr, items, ok, threads=0): batch libsodium"
      " strict verify over the worker pool, GIL released; verdicts land"
      " in the ok buffer"},
+    {"sha256_batch", sighash_sha256_batch, METH_VARARGS,
+     "sha256_batch(items, out, threads=0): batch SHA-256 of a bytes"
+     " sequence over the worker pool, GIL released; digest i lands at"
+     " out[32*i:32*i+32]"},
+    {"bucket_hash_frames", sighash_bucket_hash_frames, METH_VARARGS,
+     "bucket_hash_frames(buf, threads=0) -> (digest32, count): v2"
+     " bucket hash of a framed record buffer — parallel per-frame"
+     " digests + ordered combine (bucket/hashplane.py host path)"},
     {NULL, NULL, 0, NULL},
 };
 

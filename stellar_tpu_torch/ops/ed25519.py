@@ -4,7 +4,9 @@ The split is the JAX package's:
 
 - **host**: libsodium's strict input gate (canonical s, canonical A, small-
   order A/R rejection) + SHA-512(R‖A‖M) mod L + packed staging, all in one
-  GIL-releasing C pass per chunk (``native/sighash.c``);
+  GIL-releasing C pass per chunk (``native/sighash.c``).  With
+  ``device_hash`` the host keeps only the gate for single-block messages
+  and the card computes h (``ops/sha512.py``, ``csrc/sha512_h.cu``);
 - **device**: point decompress of A, Straus double-scalar multiplication
   R' = s·B + h·(−A) with 4-bit windows (shared doublings, niels tables,
   complete a=−1 twisted Edwards formulas), point encoding, byte compare
@@ -20,6 +22,7 @@ Verification semantics are bit-exact with libsodium
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from typing import List, NamedTuple, Optional, Sequence, Tuple
@@ -27,14 +30,15 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import fe
+from . import fe, resolve_device
 from . import ref25519 as ref
+from . import sha512, sha512_cuda
+from .sha512 import L_BYTES
 
 D = ref.D
 D2 = (2 * ref.D) % ref.P
 SQRT_M1 = ref.SQRT_M1
 L = ref.L
-L_BYTES = np.frombuffer(L.to_bytes(32, "little"), dtype=np.uint8)
 
 _D_FE = fe.const_fe(D)
 _D2_FE = fe.const_fe(D2)
@@ -277,6 +281,19 @@ def _verify_packed(p):
     return verify_kernel(a, r, _nibbles(p[64:96]), _nibbles(p[96:128]))
 
 
+def _verify_packed_device_hash(p):
+    """The device-hash pair over the packed (160, N) uint8 layout
+    (``ops/sha512.py``): h = SHA-512(R‖A‖M) mod L from the raw rows (flag=0
+    lanes keep their host h), then verify_kernel -> (N,) bool."""
+    global plain_calls
+    with _plain_lock:
+        plain_calls += 1
+    h = sha512.h_rows_from_packed(p)
+    a = p[0:32].to(torch.int32)
+    r = p[32:64].to(torch.int32)
+    return verify_kernel(a, r, _nibbles(p[64:96]), _nibbles(h))
+
+
 # ---------------------------------------------------------------------------
 # the verify plane: chunking, host stage, pipelined dispatch, drain
 # ---------------------------------------------------------------------------
@@ -288,10 +305,11 @@ ROWS = 128  # packed staging rows: A, R, s, h
 
 
 class _Staged(NamedTuple):
-    """One staged chunk: the packed ``(128, n)`` upload tensor plus the
-    host gate verdicts that mask the device results at drain time."""
+    """One staged chunk: the packed ``(128, n)`` upload tensor (``(160, n)``
+    for a device-hash verify chunk) plus the host gate verdicts that mask
+    the device results at drain time."""
 
-    packed: torch.Tensor  # (128, n) uint8, contiguous (pinned for cuda)
+    packed: torch.Tensor  # (rows, n) uint8, contiguous (pinned for cuda)
     ok: np.ndarray        # (n,) bool — strict-input gate results
     n: int                # live lanes
     bufs: tuple           # staging-pool token; released after drain
@@ -299,9 +317,10 @@ class _Staged(NamedTuple):
 
 class _StagingPool:
     """Reusable preallocated staging buffers of ``max_batch`` lanes: a flat
-    uint8 tensor (pinned when the verifier runs on the card) of which a
-    chunk of n lanes uses the first 128·n bytes as a contiguous (128, n)
-    view, plus a numpy gate-verdict vector.
+    uint8 tensor of ``rows`` bytes a lane (pinned when the verifier runs on
+    the card) of which a chunk of n lanes uses the first rows·n bytes as a
+    contiguous (rows, n) view — a 128-row torsion chunk fits in a 160-row
+    device-hash buffer — plus a numpy gate-verdict vector.
 
     A buffer returns to the pool only AFTER its chunk has been drained,
     i.e. after the event recorded behind that chunk's kernel (and its
@@ -309,8 +328,9 @@ class _StagingPool:
     next chunk's host stage overwrite bytes the copy engine is still
     reading.  Pool size is bounded by the pipeline depth."""
 
-    def __init__(self, lanes: int, pin: bool):
+    def __init__(self, lanes: int, rows: int, pin: bool):
         self._lanes = lanes
+        self._rows = rows
         self._pin = pin
         self._free = []
         self._lock = threading.Lock()
@@ -320,7 +340,7 @@ class _StagingPool:
             if self._free:
                 return self._free.pop()
         return (
-            torch.empty(ROWS * self._lanes, dtype=torch.uint8, pin_memory=self._pin),
+            torch.empty(self._rows * self._lanes, dtype=torch.uint8, pin_memory=self._pin),
             np.empty(self._lanes, dtype=np.uint8),
         )
 
@@ -331,23 +351,6 @@ class _StagingPool:
             self._free.append(bufs)
 
 
-def _resolve_device(device) -> torch.device:
-    """The verifier's device: the card unless the caller asks for the CPU.
-    A CUDA device on a host without CUDA raises — never a silent CPU run."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "stellar_tpu_torch: CUDA is not available; pass device='cpu' "
-                "to run the plain PyTorch version"
-            )
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
-
-
 class BatchVerifier:
     """Chunks a batch into ``max_batch``-lane ranges, stages each through
     the C host stage into a pooled buffer, uploads it and launches the
@@ -355,9 +358,16 @@ class BatchVerifier:
     device results, so a gate-rejected lane can never report True (and a
     chunk whose lanes ALL fail the gate skips its launch entirely).
 
-    ``device="cuda"`` (the default) runs the hand-written CUDA kernel and
-    builds it when the verifier is constructed; ``device="cpu"`` runs the
-    plain PyTorch version on the host."""
+    ``device="cuda"`` (the default) runs the hand-written CUDA kernels and
+    builds them when the verifier is constructed; ``device="cpu"`` runs the
+    plain PyTorch versions on the host.
+
+    ``device_hash`` (default: ``STELLAR_TPU_DEVICE_HASH=1`` in the
+    environment, else off) moves h = SHA-512(R‖A‖M) mod L onto the card:
+    chunks stage the (160, n) raw layout (``sighash.stage_raw``), and the
+    SHA-512 kernel writes h in place ahead of the verify kernel whenever a
+    live lane has a single-block message (flag 1).  Verdicts are the same
+    either way."""
 
     def __init__(
         self,
@@ -365,23 +375,31 @@ class BatchVerifier:
         device="cuda",
         streams: int = 1,
         host_assist: float = 0.0,
+        device_hash: Optional[bool] = None,
         tracer=None,
     ):
         from ..trace import NULL_TRACER
         from . import ed25519_cuda
 
         self._tracer = tracer if tracer is not None else NULL_TRACER
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.max_batch = max(1, max_batch)
+        if device_hash is None:
+            device_hash = os.environ.get("STELLAR_TPU_DEVICE_HASH", "0") == "1"
+        self.device_hash = bool(device_hash)
+        self._rows = sha512.DH_ROWS if self.device_hash else ROWS
         self._verify_packed = ed25519_cuda.verify_packed
         if self.device.type == "cuda":
-            ed25519_cuda.load_library()  # build now, never inside a dispatch
+            # build now, never inside a dispatch
+            ed25519_cuda.load_library()
+            if self.device_hash:
+                sha512_cuda.load_library()
         # Host stage: the native C extension (gate + batch SHA-512 mod L +
         # packed staging with the GIL released); a failed build raises
         from .. import native as _native
 
         self._sighash = _native.load_sighash()
-        self._pool = _StagingPool(self.max_batch, pin=self.device.type == "cuda")
+        self._pool = _StagingPool(self.max_batch, self._rows, pin=self.device.type == "cuda")
         # Fraction of each large batch peeled off to a concurrent libsodium
         # loop while device chunks upload/execute; results are identical by
         # construction.  0 disables.
@@ -599,16 +617,17 @@ class BatchVerifier:
     def _stage_chunk(self, items, start, n) -> Optional[_Staged]:
         """Host stage over ``items[start:start+n]``: strict-input gate +
         h = SHA-512(R‖A‖M) mod L + the packed transposed (128, n) upload
-        layout, written straight into a pooled (pinned) buffer."""
+        layout, written straight into a pooled (pinned) buffer.  With
+        device_hash: gate + the raw (160, n) layout, hashing only messages
+        longer than one block (``stage_raw``)."""
         if n == 0:
             return None
         bufs = self._pool.acquire()
-        packed = bufs[0][: ROWS * n].view(ROWS, n)
+        packed = bufs[0][: self._rows * n].view(self._rows, n)
+        stage = self._sighash.stage_raw if self.device_hash else self._sighash.stage
         sp = self._tracer.begin("ed25519.host_hash")
-        rejects = self._sighash.stage(
-            items, start, n, packed.numpy(), bufs[1], _BLACKLIST, 0
-        )
-        self._tracer.end(sp, items=n, rejects=rejects)
+        rejects = stage(items, start, n, packed.numpy(), bufs[1], _BLACKLIST, 0)
+        self._tracer.end(sp, items=n, rejects=rejects, device_hash=self.device_hash)
         if rejects:
             with self._calls_lock:  # stager threads update concurrently
                 self.n_gate_rejects += int(rejects)
@@ -625,22 +644,33 @@ class BatchVerifier:
 
     def _dispatch_staged(self, staged: Optional[_Staged]):
         """Upload the packed staging tensor (ONE transfer) and launch the
-        kernel.  Returns the in-flight result — on the card a (pinned host
-        result, event) pair — or None when every lane was gate-rejected
-        (hostile floods never reach the chip)."""
+        kernel(s).  A device-hash chunk launches the SHA-512 kernel first,
+        in place, when a lane has flag 1 — the host reads the flag row of
+        its own staging buffer, so an all-flag-0 chunk skips the launch —
+        and the verify kernel then reads the first 128 rows.  Returns the
+        in-flight result — on the card a (pinned host result, event) pair —
+        or None when every lane was gate-rejected (hostile floods never
+        reach the chip)."""
         if staged is None or not staged.ok.any():
             return None
         dsp = self._tracer.begin("ed25519.device_dispatch")
+        device_hash = staged.packed.shape[0] == sha512.DH_ROWS
         if self.device.type == "cuda":
             stream = self._stream()
             with torch.cuda.stream(stream):
                 dev = staged.packed.to(self.device, non_blocking=True)
+                if device_hash:
+                    if staged.packed[sha512.ROW_FLAG].numpy().any():
+                        sha512_cuda.hash_in_place(dev)
+                    dev = dev[:ROWS]
                 res = self._verify_packed(dev)
                 host = torch.empty(res.shape, dtype=torch.bool, pin_memory=True)
                 host.copy_(res, non_blocking=True)
                 done = torch.cuda.Event()
                 done.record(stream)
             fut = (host, done)
+        elif device_hash:
+            fut = (_verify_packed_device_hash(staged.packed), None)
         else:
             fut = (self._verify_packed(staged.packed), None)
         self._tracer.end(dsp, lanes=staged.packed.shape[1], device=str(self.device))
@@ -665,7 +695,7 @@ class BatchVerifier:
             "gate_rejects": self.n_gate_rejects,
             "host_assist_items": self.n_host_assist_items,
             "native_host_stage": True,
-            "device_hash": False,
+            "device_hash": self.device_hash,
             "torsion_items": self.n_torsion_items,
             "verify_seconds": self.verify_seconds,
             "mesh_devices": 0,

@@ -16,22 +16,18 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
-import subprocess
 import threading
 
 import numpy as np
 import torch
 
+from .. import native
 from . import ed25519 as ed
 from . import ref25519 as ref
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(os.path.dirname(_HERE), "csrc", "ed25519_verify.cu")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-)
+_STEM = "libed25519_verify"
 
 # kernel launches since import (or since the caller last reset it to 0)
 launches = 0
@@ -41,17 +37,8 @@ _lib = None
 _consts: dict = {}
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA verify kernel cannot be built")
-    return path
-
-
 def library_path() -> str:
-    from ..native import build_path
-
-    return build_path([SOURCE], NVCC_FLAGS, "libed25519_verify", ".so")
+    return native.cuda_library_path(SOURCE, _STEM)
 
 
 def load_library() -> ctypes.CDLL:
@@ -62,24 +49,7 @@ def load_library() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is not None:
             return _lib
-        so = library_path()
-        if not os.path.exists(so):
-            os.makedirs(os.path.dirname(so), exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            r = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                capture_output=True,
-                text=True,
-                timeout=600,
-            )
-            if r.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({r.returncode}) on {SOURCE}:\n{r.stderr[-4000:]}"
-                )
-            with open(so[:-3] + ".log", "w") as f:
-                f.write(r.stdout + r.stderr)
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
+        lib = ctypes.CDLL(native.build_cuda_library(SOURCE, _STEM))
         lib.ed25519_verify_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p,

@@ -10,10 +10,7 @@ CUDA.  Tolerance: exact (boolean verdicts).
 """
 
 import ctypes
-import os
 import random
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -25,22 +22,7 @@ from stellar_tpu_torch.crypto import SecretKey  # noqa: E402
 from stellar_tpu_torch.ops import ed25519 as ed  # noqa: E402
 from stellar_tpu_torch.ops import ed25519_cuda as ec  # noqa: E402
 from stellar_tpu_torch.ops import ref25519 as ref  # noqa: E402
-
-_HOST_PRELUDE = r"""
-#include <stddef.h>
-#include <stdint.h>
-#define __global__
-#define __device__
-#define __host__
-#define __forceinline__ inline
-#define __noinline__
-#define __launch_bounds__(x)
-#define __restrict__
-#define __shared__ static
-#define __syncthreads()
-struct Dim3 { int x, y, z; };
-static Dim3 threadIdx = {0, 0, 0}, blockIdx = {0, 0, 0}, blockDim = {1, 1, 1};
-"""
+from torch_host_cuda import build_host_kernel  # noqa: E402
 
 _HOST_LOOP = r"""
 extern "C" void host_verify(const uint8_t *p, uint8_t *out, int n,
@@ -65,21 +47,7 @@ def _lanes(n, seed):
 
 @pytest.fixture(scope="module")
 def host_kernel(tmp_path_factory):
-    cxx = shutil.which("c++") or shutil.which("g++")
-    if cxx is None:
-        pytest.skip("no host C++ compiler to build the kernel source for the CPU")
-    src = open(ec.SOURCE).read().replace("#include <cuda_runtime.h>", "")
-    src = src[: src.index("}  // namespace")] + "}  // namespace\n"
-    d = tmp_path_factory.mktemp("kernel_host")
-    cpp, so = os.path.join(d, "kernel.cpp"), os.path.join(d, "kernel.so")
-    with open(cpp, "w") as f:
-        f.write(_HOST_PRELUDE + src + _HOST_LOOP)
-    r = subprocess.run(
-        [cxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o", so, cpp],
-        capture_output=True, text=True, timeout=300,
-    )
-    assert r.returncode == 0, r.stderr[-3000:]
-    lib = ctypes.CDLL(so)
+    lib = build_host_kernel(ec.SOURCE, _HOST_LOOP, tmp_path_factory.mktemp("kernel_host"))
     lib.host_verify.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.host_verify.restype = None
     return lib

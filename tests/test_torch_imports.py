@@ -26,7 +26,10 @@ def _modules():
 def test_every_module_imports_without_jax_or_the_jax_package():
     names = _modules()
     assert {"stellar_tpu_torch.ops.ed25519", "stellar_tpu_torch.crypto.sigbackend",
-            "stellar_tpu_torch.ops.ed25519_cuda", "stellar_tpu_torch.native"} <= set(names)
+            "stellar_tpu_torch.ops.ed25519_cuda", "stellar_tpu_torch.native",
+            "stellar_tpu_torch.ops.sha512", "stellar_tpu_torch.ops.sha512_cuda",
+            "stellar_tpu_torch.ops.sha256", "stellar_tpu_torch.ops.sha256_cuda",
+            "stellar_tpu_torch.bucket.hashplane"} <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"

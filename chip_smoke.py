@@ -14,7 +14,12 @@ phase's failure is caught while the run carries on):
               against its plain PyTorch version on the same inputs on the
               card with zero mismatches; times by CUDA events:
               - ed25519_verify: 4096 packed lanes of mixed valid/invalid/
-                raw classes, both verdict classes present;
+                raw classes, both verdict classes present; then the first
+                904 lanes (a 5000-tx ledger's tail chunk) and the first 300
+                (an SCP flush), each held against the slice of the 4096-
+                lane plain verdicts, and the 4096 lanes 8 times over
+                (32768); the row names the kernel's threads per signature
+                and block size;
               - sha512_h: 4096 device-hash lanes (every single-block
                 message length 0-47, host-hashed longer messages, gate-
                 rejected inert lanes), into a new tensor and in place; an
@@ -85,9 +90,13 @@ SCP_ENVELOPES = 300
 TORSION_ENCS = 512
 REF_SAMPLE = 256
 WIDE_FACTOR = 8
+# the verify kernel's ragged chunks: a 5000-tx ledger's tail (5000 - 4096)
+# and a 300-envelope SCP flush
+TAIL_LANES = (904, 300)
 # bound of the verify kernel (csrc/ed25519_verify.cu header note): field
-# squarings and multiplications per lane (64 windows, the table of k·(-A),
-# decompress, compress), and 32-bit integer multiply-adds (low + high half
+# squarings and multiplications per lane of the JAX kernel's algorithm (64
+# windows, the table of k·(-A), decompress, compress) — the same work
+# whatever the kernel skips (it no longer compresses) — and 32-bit integer multiply-adds (low + high half
 # each) per 255-bit operation on 8 words: 8x8 word products for a
 # multiplication, 36 for a squaring, plus 8 for the x38 fold of the reduction
 FIELD_SQRS_PER_VERIFY = 64 * 16 + 255 + 254
@@ -336,11 +345,19 @@ def phase_kernels(rng, ledger_items):
     ec.verify_packed(packed)  # warm-up
     ms = cuda_ms(lambda: ec.verify_packed(packed), 7)
     plain_ms = cuda_ms(lambda: ed._verify_packed(packed), 3)
-    # the same lanes 8 times over: one thread per lane leaves most of the
-    # card's schedulers idle at 4096 lanes; the wide shape shows how far
+    tails = {}
+    for n in TAIL_LANES:
+        part = packed[:, :n].contiguous()
+        bad = int((ec.verify_packed(part) != plain[:n]).sum())
+        assert bad == 0, f"kernel disagrees with the plain version on {bad} of the first {n} lanes"
+        tails[n] = {"mismatches": bad, "ms": cuda_ms(lambda: ec.verify_packed(part), 7)}
+    # the same lanes 8 times over: 4096 lanes fill one warp per scheduler at
+    # most; the wide shape shows how the time grows past that
     wide = packed.repeat(1, WIDE_FACTOR).contiguous()
-    ec.verify_packed(wide)
+    wide_bad = int((ec.verify_packed(wide) != plain.repeat(WIDE_FACTOR)).sum())
+    assert wide_bad == 0, f"kernel disagrees with the plain version on {wide_bad} wide lanes"
     wide_ms = cuda_ms(lambda: ec.verify_packed(wide), 5)
+    threads_per_lane, block_threads = ec.geometry()
     imads = FIELD_MULS_PER_VERIFY * IMAD_PER_FIELD_MUL + FIELD_SQRS_PER_VERIFY * IMAD_PER_FIELD_SQR
     ops_s = LANES * imads / H100_IMAD_PER_S
     bytes_s = (packed.numel() + LANES) / H100_BYTES_PER_S
@@ -359,8 +376,11 @@ def phase_kernels(rng, ledger_items):
         "bound_ms": bound_ms,
         "bound_by": "operations" if ops_s >= bytes_s else "bytes",
         "library_ms": None,
+        "threads_per_lane": threads_per_lane,
+        "block_threads": block_threads,
     }
-    emit({"phase": "kernels", **row, "wide_lanes": wide.shape[1], "wide_ms": wide_ms})
+    emit({"phase": "kernels", **row, "tails": tails, "wide_lanes": wide.shape[1],
+          "wide_mismatches": wide_bad, "wide_ms": wide_ms})
     return row
 
 

@@ -15,21 +15,9 @@
 // undecompressable A fails, and torsion-proof lanes (A := P, s := 0,
 // h := L, R := identity encoding) compute [L]·P.
 //
-// Design (simple and correct first):
-// - one thread per lane; thread i reads byte row r at p[r*N + i], so a
-//   warp's loads are coalesced; the ragged tail is masked;
-// - field elements are 10 signed 32-bit limbs in radix 2^25.5 (ref10's
-//   layout), products are 32x32->64 multiply-adds summed in int64, and
-//   every add/sub is carried back to limbs < 2^26 so product columns stay
-//   far below 2^63;
-// - verification handles public data only, so table loads use variable
-//   indices: the per-lane table of k·(−A), k = 0..15 (16 niels points,
-//   2.5 KB) lives in local memory; the fixed-base table of k·B comes from
-//   the wrapper (built from the port's ref25519) into shared memory;
-// - Z is inverted per lane by Fermat (z^(p-2)).
-//
-// Bound: 3498 field operations per verify, counted from this algorithm
-// (the JAX kernel's): 1533 squarings and 1965 multiplications.
+// Bound: 3498 field operations per verify, counted from the JAX kernel's
+// algorithm (the work any implementation of it does, whatever this one
+// skips): 1533 squarings and 1965 multiplications.
 //   - 64 windows × (16S + 28M): 4 doublings of 4S + 3M (the last 4M, it
 //     makes T), a fixed-base niels add 8M, a dynamic niels add 7M;
 //   - the table of k·(−A): 142M (14 general adds of 9M, 15 × 2d·T, −A's T);
@@ -48,12 +36,70 @@
 // computes this bound from each run's inputs and prints it beside the
 // measured time.
 //
-// What this simple design leaves on the table: the 10-limb schoolbook
-// product spends 100 IMAD.WIDE where a 64-bit-limb or tensor-core scheme
-// needs fewer; add/sub carry eagerly; the dynamic table sits in local
-// memory (L1 traffic on every window); signed windows (half the table,
-// half the adds' table build), a shared inversion across the block, and
-// ILP across two lanes per thread are all not done.
+// Design.  One thread per lane left a 4096-lane chunk on 128 warps, one
+// dependent chain of ~3500 field operations each: latency, not issue rate,
+// set the time.  So:
+// - a group of 4 threads runs one signature (4-way parallel extended
+//   coordinates).  Every stage of the twisted-Edwards formulas has four
+//   independent field products: a doubling X², Y², Z², (X+Y)², then
+//   E·F, G·H, F·G, E·H; a niels addition (Y+X)·(y+x), (Y−X)·(y−x),
+//   T·2dt, Z·2z, then the same four.  Thread r of the group computes
+//   product r, the group all-gathers the four results with
+//   __shfl_sync(width 4) (40 shuffles a stage), and each thread does the
+//   additions itself.  A window is 12 serial products instead of 44.
+//   Thread r picks its operands by selects on r, never by indexing a
+//   local array with r.  Lanes are threadIdx.x / 4; a block is 64 threads,
+//   16 lanes, so a 4096-lane chunk is 256 blocks, 512 warps;
+// - every thread of a warp takes part in every shuffle: the ragged tail
+//   clamps its lane index to n − 1, computes, and masks the store; per-lane
+//   decisions (the √−1 fix-up, the sign flip) are selects, not branches;
+// - the table of k·(−A), k = 0..15, is built as k·(−A) = (k−1)·(−A) +
+//   niels(−A) (two stages) and one stage for 2d·T.  In the first stage of a
+//   niels addition thread r reads only component r of the entry (of y+x,
+//   y−x, 2d·t, 2z), so each thread keeps only its own component: 16 × 40 B
+//   = 640 B, in shared memory as [k][limb][thread] (a warp's 32 threads hit
+//   32 banks; the [thread][k][limb] order would put a warp's reads of one
+//   limb 160 words apart, on one bank).  64 threads × 640 B = 40 KB, plus
+//   the fixed-base table (2.5 KB), stays under the 48 KB of static shared
+//   memory;
+// - no inversion of Z.  The group's odd threads decode R while its even
+//   threads decode A (one instruction stream on other data), and the
+//   verdict is
+//       A decodes ∧ R decodes ∧ R's 255-bit y < p
+//         ∧ X_P = x_R·Z_P ∧ Y_P = y_R·Z_P        (P = s·B + h·(−A)),
+//   the last two one product stage (thread 1 and thread 3).  This equals
+//   enc(P) == R: enc writes a canonical y < p and sign = parity(x), never
+//   x = 0 with the sign set; decode refuses x = 0 with the sign set (as
+//   ref25519.decompress does) and gives the x of that parity, so a
+//   canonical R decodes to P iff it is P's encoding; decode aliases y >= p
+//   mod p, so the canonical check on R is explicit; Z_P ≠ 0, as the
+//   formulas are complete on the curve (a lane whose A does not decode
+//   fails whatever P is).  The 254S + 11M inversion leaves the serial
+//   chain, and R's decode runs in the shadow of A's;
+// - field elements stay 10 signed 32-bit limbs in radix 2^25.5 (ref10's
+//   layout), products 32x32->64 multiply-adds summed in int64, every
+//   add/sub carried back to limbs < 2^26 so product columns stay far below
+//   2^63; unsigned 4-bit windows (signed digits would need a 65th digit
+//   for raw lanes with s >= 2^253); the fixed-base table of k·B comes from
+//   the wrapper (built from the port's ref25519) into shared memory.
+// Serial chain per lane: ~273 products (decode) + ~45 (table) + 768 (64
+// windows × 12) + 1, against 3498 field operations in the one-thread
+// design.
+//
+// What is still left on the table.  At 4096 lanes each scheduler runs at
+// most one warp, and a stage issues several hundred instructions a thread
+// (100 IMAD.WIDE of the product, the carries, the selects, 40 shuffles, and
+// the additions that every thread of the group forms and carries itself).
+// A carry in two interleaved chains (7 dependent steps, not 12) and a
+// broadcast of X and Y alone after the second stage (20 shuffles, not 40)
+// were both measured no faster, so the latency of the chain is likely no
+// longer what sets the time, but the issue rate of one warp a scheduler.
+// Left: fewer instructions a stage (operands of a product left uncarried, a
+// signed select-and-add in place of four additions); the two even threads
+// both decoding A; the 10-limb schoolbook product (100 IMAD.WIDE where
+// 64-bit limbs or tensor cores need fewer); signed windows (half the
+// table).
+
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,14 +108,6 @@ namespace {
 
 struct Fe {
     int32_t v[10];
-};
-
-struct Pt {
-    Fe X, Y, Z, T;
-};
-
-struct Niels {
-    Fe ypx, ymx, t2d, z2;
 };
 
 // limb i holds bits [OFF(i), OFF(i) + BITS(i)) of the 255-bit value
@@ -100,16 +138,11 @@ __device__ __forceinline__ Fe carry(T h[10]) {
     return r;
 }
 
-__device__ __forceinline__ Fe fe_zero() {
+__device__ __forceinline__ Fe fe_small(int32_t v0) {
     Fe r;
 #pragma unroll
     for (int i = 0; i < 10; i++) r.v[i] = 0;
-    return r;
-}
-
-__device__ __forceinline__ Fe fe_one() {
-    Fe r = fe_zero();
-    r.v[0] = 1;
+    r.v[0] = v0;
     return r;
 }
 
@@ -132,9 +165,24 @@ __device__ __forceinline__ Fe fe_sub(const Fe &a, const Fe &b) {
     return carry(h);
 }
 
-__device__ __forceinline__ Fe fe_neg(const Fe &a) { return fe_sub(fe_zero(), a); }
+__device__ __forceinline__ Fe fe_neg(const Fe &a) { return fe_sub(fe_small(0), a); }
 
-__device__ __forceinline__ Fe fe_mul2(const Fe &a) { return fe_add(a, a); }
+__device__ __forceinline__ Fe fe_sel(bool c, const Fe &a, const Fe &b) {
+    Fe r;
+#pragma unroll
+    for (int i = 0; i < 10; i++) r.v[i] = c ? a.v[i] : b.v[i];
+    return r;
+}
+
+// operand r of four, by selects (no local array indexed by r)
+__device__ __forceinline__ Fe fe_sel4(int r, const Fe &a, const Fe &b, const Fe &c,
+                                      const Fe &d) {
+    Fe o;
+#pragma unroll
+    for (int i = 0; i < 10; i++)
+        o.v[i] = r == 0 ? a.v[i] : r == 1 ? b.v[i] : r == 2 ? c.v[i] : d.v[i];
+    return o;
+}
 
 // Schoolbook product.  Limb i·j lands at weight 2^(OFF(i)+OFF(j)), which is
 // 2^OFF(i+j) times 2 when both i and j are odd; columns i+j >= 10 fold ×19.
@@ -182,13 +230,11 @@ __device__ __noinline__ Fe fe_sq_n(Fe f, int n) {
     return f;
 }
 
-// z^(2^250 - 1) and z^11 — the shared prefix of the inversion and the
-// square-root exponentiation chains
-__device__ __noinline__ void pow_core(const Fe &z, Fe &t250, Fe &z11) {
+// z^((p-5)/8) = z^(2^252 - 3)
+__device__ __noinline__ Fe fe_pow_p58(Fe z) {
     Fe t0 = fe_sq(z);                      // 2
     Fe t1 = fe_mul(z, fe_sq_n(t0, 2));     // 9
     t0 = fe_mul(t0, t1);                   // 11
-    z11 = t0;
     Fe t2 = fe_sq(t0);                     // 22
     t1 = fe_mul(t1, t2);                   // 2^5 - 1
     t2 = fe_sq_n(t1, 5);
@@ -198,19 +244,8 @@ __device__ __noinline__ void pow_core(const Fe &z, Fe &t250, Fe &z11) {
     t2 = fe_mul(fe_sq_n(t3, 10), t1);      // 2^50 - 1
     t3 = fe_mul(fe_sq_n(t2, 50), t2);      // 2^100 - 1
     Fe t4 = fe_mul(fe_sq_n(t3, 100), t3);  // 2^200 - 1
-    t250 = fe_mul(fe_sq_n(t4, 50), t2);    // 2^250 - 1
-}
-
-__device__ Fe fe_invert(const Fe &z) {  // z^(p-2)
-    Fe t250, z11;
-    pow_core(z, t250, z11);
-    return fe_mul(fe_sq_n(t250, 5), z11);
-}
-
-__device__ Fe fe_pow_p58(const Fe &z) {  // z^((p-5)/8)
-    Fe t250, z11;
-    pow_core(z, t250, z11);
-    return fe_mul(fe_sq_n(t250, 2), z);
+    t3 = fe_mul(fe_sq_n(t4, 50), t2);      // 2^250 - 1
+    return fe_mul(fe_sq_n(t3, 2), z);
 }
 
 // Fully reduced value (< p) as four little-endian 64-bit words.
@@ -285,73 +320,81 @@ __device__ Fe fe_from_words(const uint64_t w[4]) {
     return r;
 }
 
-// --- point arithmetic: extended coordinates, a = −1, complete formulas ---
+// ref25519.decompress of the 32 bytes in w, with y taken mod p: returns
+// whether the encoding decodes, and x, y.  The √−1 fix-up and the sign
+// flip are selects, so threads decoding different points stay converged.
+__device__ __forceinline__ bool decode(uint64_t w[4], const Fe &D, const Fe &SQRT_M1,
+                                      Fe &x, Fe &y) {
+    const int sign = (int)(w[3] >> 63);
+    w[3] &= 0x7fffffffffffffffull;
+    y = fe_from_words(w);
+    const Fe one = fe_small(1);
+    const Fe yy = fe_sq(y);
+    const Fe u = fe_sub(yy, one);
+    const Fe v = fe_add(fe_mul(yy, D), one);
+    const Fe v3 = fe_mul(fe_sq(v), v);
+    const Fe v7 = fe_mul(fe_sq(v3), v);
+    x = fe_mul(fe_mul(u, v3), fe_pow_p58(fe_mul(u, v7)));
+    const Fe vxx = fe_mul(v, fe_sq(x));
+    const bool ok1 = fe_eq(vxx, u);
+    const bool ok2 = fe_eq(vxx, fe_neg(u));
+    x = fe_sel(ok2, fe_mul(x, SQRT_M1), x);
+    const bool ok = (ok1 || ok2) && !(fe_is_zero(x) && sign == 1);
+    x = fe_sel(fe_parity(x) != sign, fe_neg(x), x);
+    return ok;
+}
 
-__device__ __forceinline__ Pt pt_identity() {
+// --- the group of four: extended coordinates, a = −1, complete formulas ---
+
+constexpr int kGroup = 4;     // threads per signature
+constexpr int kThreads = 64;  // threads per block: 16 signatures
+
+__device__ __forceinline__ int32_t shfl4(int32_t v, int src) {
+    return __shfl_sync(0xffffffffu, v, src, kGroup);
+}
+
+__device__ __forceinline__ Fe fe_shfl4(const Fe &a, int src) {
+    Fe r;
+#pragma unroll
+    for (int i = 0; i < 10; i++) r.v[i] = shfl4(a.v[i], src);
+    return r;
+}
+
+struct Pt {
+    Fe X, Y, Z, T;
+};
+
+// thread r of the group holds coordinate r; every thread gets all four
+__device__ __forceinline__ Pt gather(const Fe &o) {
     Pt p;
-    p.X = fe_zero();
-    p.Y = fe_one();
-    p.Z = fe_one();
-    p.T = fe_zero();
+    p.X = fe_shfl4(o, 0);
+    p.Y = fe_shfl4(o, 1);
+    p.Z = fe_shfl4(o, 2);
+    p.T = fe_shfl4(o, 3);
     return p;
 }
 
-// general extended + extended (add-2008-hwcd-3 shape), d2 = 2d
-__device__ Pt pt_add(const Pt &p, const Pt &q, const Fe &d2) {
-    Fe a = fe_mul(fe_sub(p.Y, p.X), fe_sub(q.Y, q.X));
-    Fe b = fe_mul(fe_add(p.Y, p.X), fe_add(q.Y, q.X));
-    Fe c = fe_mul(fe_mul(p.T, q.T), d2);
-    Fe d = fe_mul2(fe_mul(p.Z, q.Z));
-    Fe e = fe_sub(b, a), f = fe_sub(d, c), g = fe_add(d, c), h = fe_add(b, a);
-    Pt r;
-    r.X = fe_mul(e, f);
-    r.Y = fe_mul(g, h);
-    r.Z = fe_mul(f, g);
-    r.T = fe_mul(e, h);
-    return r;
+// the second stage of doubling and addition: (E·F, G·H, F·G, E·H)
+__device__ __forceinline__ Pt finish(int r, const Fe &e, const Fe &f, const Fe &g,
+                                     const Fe &h) {
+    return gather(fe_mul(fe_sel4(r, e, g, f, e), fe_sel4(r, f, h, g, h)));
 }
 
-template <bool NEED_T>
-__device__ __forceinline__ Pt pt_add_niels(const Pt &p, const Niels &n) {
-    Fe a = fe_mul(fe_sub(p.Y, p.X), n.ymx);
-    Fe b = fe_mul(fe_add(p.Y, p.X), n.ypx);
-    Fe c = fe_mul(p.T, n.t2d);
-    Fe d = fe_mul(p.Z, n.z2);
-    Fe e = fe_sub(b, a), f = fe_sub(d, c), g = fe_add(d, c), h = fe_add(b, a);
-    Pt r;
-    r.X = fe_mul(e, f);
-    r.Y = fe_mul(g, h);
-    r.Z = fe_mul(f, g);
-    r.T = NEED_T ? fe_mul(e, h) : fe_zero();
-    return r;
+// dbl-2008-hwcd with a = −1: A = X², B = Y², C = 2Z², E = (X+Y)² − A − B,
+// G = B − A, F = G − C, H = −A − B
+__device__ __forceinline__ Pt pt_double(int r, const Pt &p) {
+    const Pt q = gather(fe_sq(fe_sel4(r, p.X, p.Y, p.Z, fe_add(p.X, p.Y))));
+    const Fe ab = fe_add(q.X, q.Y);
+    const Fe g = fe_sub(q.Y, q.X);
+    return finish(r, fe_sub(q.T, ab), fe_sub(g, fe_add(q.Z, q.Z)), g, fe_neg(ab));
 }
 
-// dbl-2008-hwcd with a = −1; only a doubling that feeds an addition makes T
-template <bool NEED_T>
-__device__ __forceinline__ Pt pt_double(const Pt &p) {
-    Fe a = fe_sq(p.X);
-    Fe b = fe_sq(p.Y);
-    Fe c = fe_mul2(fe_sq(p.Z));
-    Fe d = fe_neg(a);
-    Fe e = fe_sub(fe_sub(fe_sq(fe_add(p.X, p.Y)), a), b);
-    Fe g = fe_add(d, b);
-    Fe f = fe_sub(g, c);
-    Fe h = fe_sub(d, b);
-    Pt r;
-    r.X = fe_mul(e, f);
-    r.Y = fe_mul(g, h);
-    r.Z = fe_mul(f, g);
-    r.T = NEED_T ? fe_mul(e, h) : fe_zero();
-    return r;
-}
-
-__device__ __forceinline__ Niels to_niels(const Pt &p, const Fe &d2) {
-    Niels n;
-    n.ypx = fe_add(p.Y, p.X);
-    n.ymx = fe_sub(p.Y, p.X);
-    n.t2d = fe_mul(p.T, d2);
-    n.z2 = fe_mul2(p.Z);
-    return n;
+// p + n for a niels point n = (y+x, y−x, 2d·t, 2z), of which this thread
+// holds component r: b = (Y+X)(y+x), a = (Y−X)(y−x), c = T·2dt, d = Z·2z,
+// then E = b − a, F = d − c, G = d + c, H = b + a
+__device__ __forceinline__ Pt pt_add_niels(int r, const Pt &p, const Fe &n_r) {
+    const Pt q = gather(fe_mul(fe_sel4(r, fe_add(p.Y, p.X), fe_sub(p.Y, p.X), p.T, p.Z), n_r));
+    return finish(r, fe_sub(q.X, q.Y), fe_sub(q.T, q.Z), fe_add(q.T, q.Z), fe_add(q.X, q.Y));
 }
 
 // 32 little-endian bytes of rows [row0, row0 + 32) of lane i as 64-bit words
@@ -368,108 +411,127 @@ __device__ __forceinline__ void load_words(const uint8_t *__restrict__ p, int n,
 }
 
 // constant block from the wrapper: the fixed-base niels table of k·B,
-// k = 0..15 (16 × 4 field elements), then d, 2d and sqrt(−1)
+// k = 0..15 (16 × 4 field elements: y+x, y−x, 2d·t, 2z), then d, 2d and
+// sqrt(−1)
 constexpr int kBaseInts = 16 * 4 * 10;
 constexpr int kConstInts = kBaseInts + 3 * 10;
-constexpr int kThreads = 128;
 
+// Lane i = blockIdx.x · (blockDim.x / 4) + threadIdx.x / 4; blockDim.x is a
+// multiple of 4 and at most kThreads.
 __global__ void __launch_bounds__(kThreads)
 ed25519_verify_kernel(const uint8_t *__restrict__ p, uint8_t *__restrict__ out,
                       int n, const int32_t *__restrict__ consts) {
-    __shared__ Niels base[16];
-    __shared__ Fe cst[3];
-    int32_t *sb = reinterpret_cast<int32_t *>(base);
-    int32_t *sc = reinterpret_cast<int32_t *>(cst);
-    for (int k = threadIdx.x; k < kBaseInts; k += blockDim.x) sb[k] = consts[k];
-    for (int k = threadIdx.x; k < 30; k += blockDim.x) sc[k] = consts[kBaseInts + k];
+    __shared__ int32_t base[kBaseInts];
+    __shared__ int32_t cst[30];
+    __shared__ int32_t tab[16 * 10 * kThreads];  // [k][limb][thread]
+    for (int k = threadIdx.x; k < kBaseInts; k += blockDim.x) base[k] = consts[k];
+    for (int k = threadIdx.x; k < 30; k += blockDim.x) cst[k] = consts[kBaseInts + k];
     __syncthreads();
 
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const Fe D = cst[0], D2 = cst[1], SQRT_M1 = cst[2];
-
-    // decompress A (ref25519.decompress, with y taken mod p)
-    uint64_t aw[4];
-    load_words(p, n, i, 0, aw);
-    const int sign = (int)(aw[3] >> 63);
-    aw[3] &= 0x7fffffffffffffffull;
-    const Fe y = fe_from_words(aw);
-    const Fe one = fe_one();
-    const Fe yy = fe_sq(y);
-    const Fe u = fe_sub(yy, one);
-    const Fe v = fe_add(fe_mul(yy, D), one);
-    const Fe v3 = fe_mul(fe_sq(v), v);
-    const Fe v7 = fe_mul(fe_sq(v3), v);
-    Fe x = fe_mul(fe_mul(u, v3), fe_pow_p58(fe_mul(u, v7)));
-    const Fe vxx = fe_mul(v, fe_sq(x));
-    const bool ok1 = fe_eq(vxx, u);
-    const bool ok2 = fe_eq(vxx, fe_neg(u));
-    if (ok2) x = fe_mul(x, SQRT_M1);
-    const bool fail = !(ok1 || ok2) || (fe_is_zero(x) && sign == 1);
-    if (fe_parity(x) != sign) x = fe_neg(x);
-
-    // −A and its niels table k·(−A), k = 0..15 (local memory)
-    Pt neg_a;
-    neg_a.X = fe_neg(x);
-    neg_a.Y = y;
-    neg_a.Z = one;
-    neg_a.T = fe_neg(fe_mul(x, y));
-    Niels tab[16];
-    tab[0].ypx = one;
-    tab[0].ymx = one;
-    tab[0].t2d = fe_zero();
-    tab[0].z2 = fe_add(one, one);
-    Pt q = neg_a;
-#pragma unroll 1
-    for (int k = 1; k < 16; k++) {
-        tab[k] = to_niels(q, D2);
-        if (k < 15) q = pt_add(q, neg_a, D2);
+    const int t = threadIdx.x;
+    const int r = t & (kGroup - 1);
+    const int lane = blockIdx.x * (blockDim.x / kGroup) + t / kGroup;
+    const int i = lane < n ? lane : n - 1;  // the ragged tail computes, stores nothing
+    Fe D, D2, SQRT_M1;
+#pragma unroll
+    for (int k = 0; k < 10; k++) {
+        D.v[k] = cst[k];
+        D2.v[k] = cst[10 + k];
+        SQRT_M1.v[k] = cst[20 + k];
     }
 
-    // Straus: R' = s·B + h·(−A), 4-bit unsigned windows from the top
+    // even threads decode A, odd threads R
+    uint64_t w[4];
+    load_words(p, n, i, (r & 1) ? 32 : 0, w);
+    // the 255-bit y < p = 2^255 − 19
+    const bool r_canonical = !((w[3] << 1) == ~1ull && w[2] == ~0ull && w[1] == ~0ull &&
+                               w[0] >= 0xffffffffffffffedull);
+    Fe x, y;
+    const bool ok = decode(w, D, SQRT_M1, x, y) && ((r & 1) == 0 || r_canonical);
+    // thread 1 keeps x_R, thread 3 y_R, for the check at the end
+    const Fe rc = fe_sel(r & 2, y, x);
+
+    // −A = (−x, y, 1, −x·y) and its niels form, component r:
+    // (y − x, y + x, −2d·x·y, 2)
+    const Fe xa = fe_shfl4(x, 0), ya = fe_shfl4(y, 0);
+    Pt q;
+    q.X = fe_neg(xa);
+    q.Y = ya;
+    q.Z = fe_small(1);
+    q.T = fe_neg(fe_mul(xa, ya));
+    const Fe na = fe_sel4(r, fe_sub(ya, xa), fe_add(ya, xa), fe_mul(q.T, D2), fe_small(2));
+
+    // the table k·(−A), k = 0..15: this thread's component of each entry
+    const Fe ident = fe_small(r == 2 ? 0 : r == 3 ? 2 : 1);
+#pragma unroll
+    for (int k = 0; k < 10; k++) {
+        tab[(0 * 10 + k) * kThreads + t] = ident.v[k];
+        tab[(1 * 10 + k) * kThreads + t] = na.v[k];
+    }
+#pragma unroll 1
+    for (int e = 2; e < 16; e++) {
+        q = pt_add_niels(r, q, na);
+        const Fe c = fe_sel4(r, fe_add(q.Y, q.X), fe_sub(q.Y, q.X), fe_mul(q.T, D2),
+                             fe_add(q.Z, q.Z));
+#pragma unroll
+        for (int k = 0; k < 10; k++) tab[(e * 10 + k) * kThreads + t] = c.v[k];
+    }
+
+    // Straus: P = s·B + h·(−A), 4-bit unsigned windows from the top
     uint64_t sw[4], hw[4];
     load_words(p, n, i, 64, sw);
     load_words(p, n, i, 96, hw);
-    Pt acc = pt_identity();
+    Pt acc;  // the identity
+    acc.X = fe_small(0);
+    acc.Y = fe_small(1);
+    acc.Z = fe_small(1);
+    acc.T = fe_small(0);
 #pragma unroll 1
-    for (int t = 63; t >= 0; t--) {
-        acc = pt_double<false>(acc);
-        acc = pt_double<false>(acc);
-        acc = pt_double<false>(acc);
-        acc = pt_double<true>(acc);
-        const int sh = (t & 15) * 4;
-        const int s_nib = (int)((sw[t >> 4] >> sh) & 15);
-        const int h_nib = (int)((hw[t >> 4] >> sh) & 15);
-        acc = pt_add_niels<true>(acc, base[s_nib]);
-        acc = pt_add_niels<false>(acc, tab[h_nib]);
+    for (int win = 63; win >= 0; win--) {
+        acc = pt_double(r, acc);
+        acc = pt_double(r, acc);
+        acc = pt_double(r, acc);
+        acc = pt_double(r, acc);
+        const int sh = (win & 15) * 4;
+        const int s_nib = (int)((sw[win >> 4] >> sh) & 15);
+        const int h_nib = (int)((hw[win >> 4] >> sh) & 15);
+        Fe nb, nh;
+#pragma unroll
+        for (int k = 0; k < 10; k++) {
+            nb.v[k] = base[(s_nib * 4 + r) * 10 + k];
+            nh.v[k] = tab[(h_nib * 10 + k) * kThreads + t];
+        }
+        acc = pt_add_niels(r, acc, nb);
+        acc = pt_add_niels(r, acc, nh);
     }
 
-    // compress and compare all 32 bytes with R
-    const Fe zinv = fe_invert(acc.Z);
-    uint64_t yw[4];
-    fe_words(fe_mul(acc.Y, zinv), yw);
-    yw[3] |= (uint64_t)fe_parity(fe_mul(acc.X, zinv)) << 63;
-    uint64_t rw[4];
-    load_words(p, n, i, 32, rw);
-    const bool match = yw[0] == rw[0] && yw[1] == rw[1] && yw[2] == rw[2] &&
-                       yw[3] == rw[3];
-    out[i] = (uint8_t)(match && !fail);
+    // R == enc(P): thread 1 checks X_P = x_R·Z_P, thread 3 Y_P = y_R·Z_P
+    const bool eq = fe_eq(fe_mul(rc, acc.Z), fe_sel(r & 2, acc.Y, acc.X));
+    const int32_t mine = ok && ((r & 1) == 0 || eq);
+    const int32_t all = shfl4(mine, 0) & shfl4(mine, 1) & shfl4(mine, 2) & shfl4(mine, 3);
+    if (r == 0 && lane < n) out[lane] = (uint8_t)all;
 }
 
 }  // namespace
 
-// Launch over n lanes of the packed (128, n) chunk on `stream`; returns
-// cudaGetLastError() (0 on success).  Allocates nothing, does not sync.
+// Launch over n lanes of the packed (128, n) chunk on `stream`: 4 threads
+// a lane, kThreads a block.  Returns cudaGetLastError() (0 on success).
+// Allocates nothing, does not sync.
 extern "C" int ed25519_verify_launch(const void *packed, void *out, int n,
                                      const void *consts, void *stream) {
     if (n <= 0) return 0;
-    const int blocks = (n + kThreads - 1) / kThreads;
+    const long long threads = (long long)kGroup * n;
+    const int blocks = (int)((threads + kThreads - 1) / kThreads);
     ed25519_verify_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (const uint8_t *)packed, (uint8_t *)out, n, (const int32_t *)consts);
     return (int)cudaGetLastError();
 }
 
 extern "C" int ed25519_const_ints(void) { return kConstInts; }
+
+extern "C" int ed25519_threads_per_lane(void) { return kGroup; }
+
+extern "C" int ed25519_block_threads(void) { return kThreads; }
 
 extern "C" const char *ed25519_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);

@@ -9,7 +9,8 @@ directory, under a name keyed by a hash of the source and the flags.
 
 ``verify_packed(p)`` on a CPU tensor runs the plain PyTorch version
 (``ops/ed25519.py::_verify_packed``); on a CUDA tensor it launches the
-kernel or raises.  ``launches`` counts the kernel launches.
+kernel or raises.  ``launches`` counts the kernel launches.  The kernel runs
+each lane on a group of 4 threads (``geometry()``).
 """
 
 from __future__ import annotations
@@ -55,12 +56,19 @@ def load_library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.ed25519_verify_launch.restype = ctypes.c_int
-        lib.ed25519_const_ints.argtypes = []
-        lib.ed25519_const_ints.restype = ctypes.c_int
+        for fn in (lib.ed25519_const_ints, lib.ed25519_threads_per_lane, lib.ed25519_block_threads):
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
         lib.ed25519_error_string.argtypes = [ctypes.c_int]
         lib.ed25519_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib
+
+
+def geometry() -> tuple:
+    """(threads a lane, threads a block) of the built kernel's launch."""
+    lib = load_library()
+    return lib.ed25519_threads_per_lane(), lib.ed25519_block_threads()
 
 
 def _limbs25(v: int) -> list:

@@ -51,7 +51,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     for d, _, fs in os.walk(PKG)
     for f in fs
     if f.endswith(".py")
-) + [os.path.join(REPO, "chip_smoke.py")])
+) + [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "kernel_ab.py")])
 def test_sources_name_no_jax_or_jax_package_import(path):
     src = open(path).read()
     assert not re.search(r"^\s*(import|from)\s+jax\b", src, re.M), path

@@ -12,7 +12,12 @@ phase's failure is caught while the run carries on):
               sources in this checkout, with each kernel's ptxas report;
 3. kernels  — each ported kernel on the card at its path's shapes, held
               against its plain PyTorch version on the same inputs on the
-              card with zero mismatches; times by CUDA events:
+              card with zero mismatches.  ``ms`` is the kernel's own time:
+              50 launches captured in a CUDA graph, the graph replayed
+              between one pair of CUDA events (``graph_ms``); ``call_ms``
+              is one call of the wrapper between an event pair, host work
+              included; ``launch_floor_ms`` is an empty kernel timed as
+              ``ms`` is.  Shapes:
               - ed25519_verify: 4096 packed lanes of mixed valid/invalid/
                 raw classes, both verdict classes present; then the first
                 904 lanes (a 5000-tx ledger's tail chunk) and the first 300
@@ -90,6 +95,7 @@ SCP_ENVELOPES = 300
 TORSION_ENCS = 512
 REF_SAMPLE = 256
 WIDE_FACTOR = 8
+GRAPH_LAUNCHES = 50  # kernel launches captured in one CUDA graph to time a kernel
 # the verify kernel's ragged chunks: a 5000-tx ledger's tail (5000 - 4096)
 # and a 300-envelope SCP flush
 TAIL_LANES = (904, 300)
@@ -311,7 +317,8 @@ def kernel_lanes(rng, ledger_items, n=LANES):
 
 
 def cuda_ms(fn, reps):
-    """Median milliseconds of ``fn`` over ``reps`` runs, by CUDA events."""
+    """Median milliseconds of ``fn`` over ``reps`` runs, by CUDA events: one
+    call between the events, so a wrapper's host work counts."""
     import torch
 
     times = []
@@ -324,6 +331,45 @@ def cuda_ms(fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, launches=GRAPH_LAUNCHES, reps=5):
+    """Milliseconds of one launch of ``fn``'s kernel: ``launches`` calls of
+    ``fn`` captured into one CUDA graph (the wrapper launches on the current
+    stream, which is the capture stream), the graph replayed between one
+    pair of CUDA events and the time divided by ``launches``; the median of
+    ``reps`` replays after a warm-up.  The wrapper's host work runs at
+    capture only, so this is the kernels' time back to back."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    del graph
+    return statistics.median(times)
+
+
+def launch_floor_ms():
+    """``graph_ms`` of an empty kernel: the least time a launch takes."""
+    import torch
+
+    from stellar_tpu_torch.ops import sha512_cuda as sc
+
+    return graph_ms(lambda: sc.launch_noop(torch.device("cuda")))
 
 
 def phase_kernels(rng, ledger_items):
@@ -343,20 +389,23 @@ def phase_kernels(rng, ledger_items):
     assert mismatches == 0, f"kernel disagrees with the plain version on {mismatches} lanes"
     assert 0 < accepts < LANES, f"verdict classes missing: {accepts} accepts"
     ec.verify_packed(packed)  # warm-up
-    ms = cuda_ms(lambda: ec.verify_packed(packed), 7)
+    ms = graph_ms(lambda: ec.verify_packed(packed))
+    call_ms = cuda_ms(lambda: ec.verify_packed(packed), 7)
     plain_ms = cuda_ms(lambda: ed._verify_packed(packed), 3)
     tails = {}
     for n in TAIL_LANES:
         part = packed[:, :n].contiguous()
         bad = int((ec.verify_packed(part) != plain[:n]).sum())
         assert bad == 0, f"kernel disagrees with the plain version on {bad} of the first {n} lanes"
-        tails[n] = {"mismatches": bad, "ms": cuda_ms(lambda: ec.verify_packed(part), 7)}
+        tails[n] = {"mismatches": bad, "ms": graph_ms(lambda: ec.verify_packed(part)),
+                    "call_ms": cuda_ms(lambda: ec.verify_packed(part), 7)}
     # the same lanes 8 times over: 4096 lanes fill one warp per scheduler at
     # most; the wide shape shows how the time grows past that
     wide = packed.repeat(1, WIDE_FACTOR).contiguous()
     wide_bad = int((ec.verify_packed(wide) != plain.repeat(WIDE_FACTOR)).sum())
     assert wide_bad == 0, f"kernel disagrees with the plain version on {wide_bad} wide lanes"
-    wide_ms = cuda_ms(lambda: ec.verify_packed(wide), 5)
+    wide_ms = graph_ms(lambda: ec.verify_packed(wide), reps=3)
+    wide_call_ms = cuda_ms(lambda: ec.verify_packed(wide), 5)
     threads_per_lane, block_threads = ec.geometry()
     imads = FIELD_MULS_PER_VERIFY * IMAD_PER_FIELD_MUL + FIELD_SQRS_PER_VERIFY * IMAD_PER_FIELD_SQR
     ops_s = LANES * imads / H100_IMAD_PER_S
@@ -372,6 +421,7 @@ def phase_kernels(rng, ledger_items):
         "accepts": accepts,
         "max_abs_err": max_abs_err,
         "ms": ms,
+        "call_ms": call_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "operations" if ops_s >= bytes_s else "bytes",
@@ -380,7 +430,7 @@ def phase_kernels(rng, ledger_items):
         "block_threads": block_threads,
     }
     emit({"phase": "kernels", **row, "tails": tails, "wide_lanes": wide.shape[1],
-          "wide_mismatches": wide_bad, "wide_ms": wide_ms})
+          "wide_mismatches": wide_bad, "wide_ms": wide_ms, "wide_call_ms": wide_call_ms})
     return row
 
 
@@ -449,8 +499,12 @@ def phase_kernel_sha512(rng, ledger_items):
     }
     assert min(lanes.values()) > 0, lanes
     sc.h_rows(p)  # warm-up
-    ms = cuda_ms(lambda: sc.h_rows(p), 21)
-    in_place_ms = cuda_ms(lambda: sc.hash_in_place(q), 21)
+    ms = graph_ms(lambda: sc.h_rows(p))
+    call_ms = cuda_ms(lambda: sc.h_rows(p), 21)
+    # in place, as the verify plane calls it (each call hashes the rows the
+    # last one wrote: the same work)
+    in_place_ms = graph_ms(lambda: sc.hash_in_place(q))
+    in_place_call_ms = cuda_ms(lambda: sc.hash_in_place(q), 21)
     plain_ms = cuda_ms(lambda: tsha.h_rows_from_packed(p), 3)
     ops_s = hashed * SHA512_OPS_PER_LANE / H100_IMAD_PER_S
     bytes_s = (hashed * SHA512_BYTES_HASHED + (LANES - hashed) * SHA512_BYTES_PASS) / H100_BYTES_PER_S
@@ -464,7 +518,9 @@ def phase_kernel_sha512(rng, ledger_items):
         "mismatches": mismatches,
         "max_abs_err": max_abs_err,
         "ms": ms,
+        "call_ms": call_ms,
         "in_place_ms": in_place_ms,
+        "in_place_call_ms": in_place_call_ms,
         "plain_ms": plain_ms,
         "bound_ms": 1e3 * max(ops_s, bytes_s),
         "bound_by": "operations" if ops_s >= bytes_s else "bytes",
@@ -542,7 +598,8 @@ def phase_kernel_sha256(frames, frame_len):
         for j in check:
             assert host[j].tobytes() == hashlib.sha256(msgs[j]).digest(), f"{name} lane {j}"
         c256.digest_rows(p, nb)  # warm-up
-        ms = cuda_ms(lambda: c256.digest_rows(p, nb), 11)
+        ms = graph_ms(lambda: c256.digest_rows(p, nb))
+        call_ms = cuda_ms(lambda: c256.digest_rows(p, nb), 11)
         plain_ms = cuda_ms(lambda: t256.sha256_rows_from_packed(p, nb), 2)
         blocks = int(counts.sum())
         ops_s = (blocks * SHA256_OPS_PER_BLOCK + n * SHA256_OPS_PER_LANE) / H100_IMAD_PER_S
@@ -550,7 +607,7 @@ def phase_kernel_sha256(frames, frame_len):
         shape = {
             "shape": name, "lanes": n, "max_blocks": max_blocks, "blocks": blocks,
             "pack_s": pack_s, "pack_loop_s": pack_loop_s, "mismatches": mismatches, "max_abs_err": max_abs_err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": 1e3 * max(ops_s, bytes_s),
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": 1e3 * max(ops_s, bytes_s),
             "bound_by": "operations" if ops_s >= bytes_s else "bytes",
         }
         emit({"phase": "kernels", "name": "sha256_frames", **shape})
@@ -561,7 +618,7 @@ def phase_kernel_sha256(frames, frame_len):
         "route": "cuda",
         "source": "stellar_tpu_torch/csrc/sha256_frames.cu",
         "replaces": "stellar_tpu/ops/sha256.py:183",
-        **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+        **{k: main[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
     }
 
@@ -911,6 +968,8 @@ def main() -> int:
               "libsodium": fx.sodium, "bucket_seconds": time.perf_counter() - t1,
               "bucket_bytes": len(buf), "bucket_records": len(frames)})
 
+        floor_ms = launch_floor_ms()
+        emit({"phase": "kernels", "name": "noop", "launch_floor_ms": floor_ms})
         rows = [
             phase_kernels(rng, ledger1[0]),
             phase_kernel_sha512(rng, ledger1[0]),
@@ -956,8 +1015,9 @@ def main() -> int:
     rows[1]["launches"] = dh_launches["sha512_h"]
     rows[2]["launches"] = bucket_launches
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))
+            "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{**{k: row[k] for k in keys}, "launch_floor_ms": floor_ms}
+                                  for row in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

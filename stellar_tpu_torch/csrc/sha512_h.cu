@@ -14,30 +14,10 @@
 // R‖A‖M (80 rounds) and reduces the 512-bit digest mod L; a flag = 0 lane
 // writes its uploaded h (rows 96:128) through unchanged.
 //
-// In place: the verify plane passes out = packed + 96·N, so h lands in
-// rows 96:128 of the uploaded tensor and its first 128 rows are the
-// (128, N) layout csrc/ed25519_verify.cu reads — no copy, no concat.  A
-// flag ≠ 0 lane's rows 96:128 hold its first 32 message bytes, so every
-// thread reads all of its lane's rows (0:64 and 96:146) into registers
-// before it writes any h row; a thread touches only its own column, so no
-// other lane's reads can see its writes.  Hence no __restrict__ on p/out.
-//
-// Design (simple and correct first):
-// - one thread per lane; thread i reads byte row r at p[r·N + i], so a
-//   warp's loads are coalesced; the ragged tail is masked;
-// - SHA-512 words are uint64_t (the TPU's hi/lo int32 pairs existed only
-//   because the TPU has no 64-bit lanes); the 80 rounds and the rolling
-//   16-word schedule are fully unrolled, so the schedule and the round
-//   constants live in registers and constant-bank operands;
-// - mod L is the JAX kernel's branch-free fold at 2^252 against
-//   c = L − 2^252, on 32-bit limbs with 64-bit products: four folds, each
-//   adding a precomputed multiple K of L that covers the B·c it subtracts,
-//   then one conditional subtract of L (bounds at mod_l below).
-//
-// Bound: integer operations, counted from this source per flag ≠ 0 lane in
-// 32-bit instructions (a 64-bit rotate or shift is two funnel shifts, a
-// 3-input xor/choice/majority one LOP3 per half, a 3-term 64-bit add two
-// IADD3s, a 32×32→64 multiply-add with its carry add 4):
+// Bound: integer operations, counted per flag ≠ 0 lane in 32-bit
+// instructions (a 64-bit rotate or shift is two funnel shifts, a 3-input
+// xor/choice/majority one LOP3 per half, a 3-term 64-bit add two IADD3s, a
+// 32×32→64 multiply-add with its carry add 4):
 //   - 80 rounds × 28 (Σ1 8, Ch 2, T1 4, Σ0 8, Maj 2, e 2, a 2) = 2240;
 //   - 64 schedule words × 20 (σ0 8, σ1 8, sum 4) = 1280;
 //   - feed-forward 16; block assembly 210 (112 loaded bytes merged, 2 per
@@ -47,8 +27,71 @@
 // 4256 a lane, ≈ 0.25 ns a lane on an H100 SXM (132 SMs × 64 INT32 lanes
 // × 1.98 GHz).  Bytes: 114 read and 32 written a hashed lane, 33 and 32 a
 // passthrough lane.  chip_smoke.py computes the bound from each run's
-// lanes; at the verify plane's 4096-lane chunk it is ~1 µs, so a launch
-// costs its launch latency.
+// lanes: ≈ 0.78 µs at the verify plane's 4096-lane chunk (3075 hashed).
+//
+// What sets the time instead: one lane's 80 rounds are strictly serial, and
+// a 4096-lane chunk is 128 warps of lanes — at most one warp per scheduler
+// on 132 SMs, so no other warp hides a stall.  A warp's INT32 instruction
+// takes 2 cycles of its scheduler's 16 INT32 lanes, so one warp issuing
+// integer work runs at most one instruction per 2 cycles.  The rounds
+// compile to ~26 integer-pipe instructions a round (12 funnel shifts, 8
+// LOP3, 6 IADD3; some carries go to the multiply pipe as IMAD.X):
+// 80 × 26 × 2 ≈ 4160 cycles ≈ 2.1 µs at 1.98 GHz, the floor of any design
+// that keeps a lane's rounds on one warp — alone above the whole bound.
+// One thread doing the whole lane (the first port) also issued the
+// schedule in that stream, ~44 instructions a round.
+//
+// Design: a warp-specialised pair.  A block is 64 threads, two warps over
+// the same 32 lanes (a 4096-lane chunk is 128 blocks on 128 SMs):
+// - warp 0, the schedule warp, loads the block's lanes (rows 0:64 and
+//   96:144 into a transposed shared tile, see below), assembles W[0..15]
+//   with the padding and the length word, then computes W[16..79] and
+//   writes W[t] + K[t] to shared memory (wk[80][32], 20 KB; lane j's word
+//   t at wk[t][j], so a warp's 64-bit accesses fall on distinct banks);
+//   after its last words it writes the flag-0 lanes' h through;
+// - warp 1, the round warp, runs the 80 rounds reading wk[t][lane], ~29
+//   instructions a round, 8 rounds a loop pass (a short body: code that
+//   runs once is fetched, and fetching costs as much as issuing), then
+//   the feed-forward, mod L and the 32 h bytes;
+// - stages are split by __syncthreads every 16 words: in stage s the
+//   schedule warp computes W[16(s+1) .. 16(s+2)−1] while the round warp
+//   runs rounds 16s .. 16s+15 on words written a stage earlier.  The two
+//   warps sit on two schedulers of the SM and issue at once; a stage
+//   costs the slower of the two, and the two are close (~350 and ~470
+//   instructions), so the rounds wait little;
+// - a block whose live lanes all have flag 0 does no rounds
+//   (__syncthreads_or after the loads).
+// kernel_ab.py --kernel sha512_h prints block 0's cycle stamps at these
+// phase boundaries (the source built with -DSHA512_H_STAMPS).
+//
+// Loads.  Lane j's byte row r is p[r·N + j].  Where N % 4 == 0 (and the
+// chunk is 4-byte aligned: every chunk width the verify plane makes, 4096,
+// 904 and 300, qualifies), thread t of the schedule warp loads 32-bit words
+// — 4 rows × 4 lanes a load, 28 loads a thread for the block's 112 rows,
+// all issued before the first is used — transposes each 4×4 byte square
+// with 8 byte permutes, and stores each lane's 4 rows as one word of
+// tile[lane]; after __syncwarp each lane reads its own 28 words.
+// Otherwise each lane loads its own 112 bytes.  TMA and cp.async.bulk do
+// not fit this layout: they need 16-byte multiples of row pitch and
+// address, which N = 904 or 300 do not give, and padding N would change
+// the staging layout the verify kernel reads too.
+//
+// In place: the verify plane passes out = packed + 96·N, so h lands in
+// rows 96:128 of the uploaded tensor and its first 128 rows are the
+// (128, N) layout csrc/ed25519_verify.cu reads — no copy, no concat.  Only
+// the schedule warp reads rows 0:64 and 96:145 (the round warp reads
+// row 145, the flag, which no one writes), all before the block's first barrier; the
+// round warp writes a flag ≠ 0 lane's h only after that barrier, and the
+// schedule warp writes only flag-0 lanes (the bytes it read).  A block
+// touches only its own 32 columns.  Hence no __restrict__ on p/out.
+//
+// SHA-512 words are uint64_t (the TPU's hi/lo int32 pairs existed only
+// because the TPU has no 64-bit lanes).  mod L is the JAX kernel's
+// branch-free fold at 2^252 against c = L − 2^252, on 32-bit limbs: four
+// folds, each adding a precomputed multiple K of L that covers the B·c it
+// subtracts, then a subtract of L kept if it does not borrow (bounds at
+// mod_l below); B·c is summed in 64-bit pairs of products by multiply-adds
+// (fold252), so one carry chain a fold remains.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,7 +102,20 @@ constexpr int kRowM = 96;
 constexpr int kRowMlen = 144;
 constexpr int kRowFlag = 145;
 constexpr int kMaxMsg = 47;
-constexpr int kThreads = 128;
+constexpr int kLanes = 32;     // lanes a block
+constexpr int kThreads = 64;   // two warps over the same lanes
+constexpr int kTileWords = 28; // a lane's 112 loaded rows, 4 to a word
+constexpr int kTilePitch = 29; // odd: a warp's accesses hit 32 banks
+
+// Cycle stamps of block 0's two warps at the phase boundaries, read by
+// kernel_ab.py from a build with -DSHA512_H_STAMPS; nothing otherwise.
+#ifdef SHA512_H_STAMPS
+__device__ long long g_stamps[2][16];
+#define STAMP(k) \
+    if (blockIdx.x == 0 && (threadIdx.x & 31) == 0) g_stamps[threadIdx.x >> 5][k] = clock64();
+#else
+#define STAMP(k)
+#endif
 
 __constant__ uint64_t kK512[80] = {
     0x428a2f98d728ae22ull, 0x7137449123ef65cdull, 0xb5c0fbcfec4d3b2full,
@@ -115,34 +171,7 @@ __device__ __forceinline__ uint64_t rotr64(uint64_t x, int n) {
     return (x >> n) | (x << (64 - n));
 }
 
-__device__ __forceinline__ uint32_t bswap32(uint32_t v) {
-    return (v >> 24) | ((v >> 8) & 0xff00u) | ((v << 8) & 0xff0000u) | (v << 24);
-}
-
-// SHA-512 of one padded block from the IV: the 8 digest words
-__device__ __forceinline__ void sha512_block(uint64_t w[16], uint64_t h[8]) {
-    uint64_t a = kIV512[0], b = kIV512[1], c = kIV512[2], d = kIV512[3];
-    uint64_t e = kIV512[4], f = kIV512[5], g = kIV512[6], hh = kIV512[7];
-#pragma unroll
-    for (int t = 0; t < 80; t++) {
-        if (t >= 16) {
-            const uint64_t w15 = w[(t - 15) & 15], w2 = w[(t - 2) & 15];
-            const uint64_t s0 = rotr64(w15, 1) ^ rotr64(w15, 8) ^ (w15 >> 7);
-            const uint64_t s1 = rotr64(w2, 19) ^ rotr64(w2, 61) ^ (w2 >> 6);
-            w[t & 15] += s0 + w[(t - 7) & 15] + s1;
-        }
-        const uint64_t S1 = rotr64(e, 14) ^ rotr64(e, 18) ^ rotr64(e, 41);
-        const uint64_t ch = (e & f) ^ (~e & g);
-        const uint64_t t1 = hh + S1 + ch + kK512[t] + w[t & 15];
-        const uint64_t S0 = rotr64(a, 28) ^ rotr64(a, 34) ^ rotr64(a, 39);
-        const uint64_t mj = (a & b) ^ (a & c) ^ (b & c);
-        hh = g; g = f; f = e; e = d + t1;
-        d = c; c = b; b = a; a = t1 + S0 + mj;
-    }
-    h[0] = kIV512[0] + a; h[1] = kIV512[1] + b; h[2] = kIV512[2] + c;
-    h[3] = kIV512[3] + d; h[4] = kIV512[4] + e; h[5] = kIV512[5] + f;
-    h[6] = kIV512[6] + g; h[7] = kIV512[7] + hh;
-}
+__device__ __forceinline__ uint32_t bswap32(uint32_t v) { return __byte_perm(v, 0, 0x0123); }
 
 // One fold at 2^252: x = A + B·2^252 with A < 2^252 (x in NX limbs),
 // y = A + K − B·c in NY limbs, K ≥ B·c a multiple of L, so y ≡ x (mod L)
@@ -155,27 +184,30 @@ __device__ __forceinline__ void fold252(const uint32_t (&x)[NX], const uint32_t 
 #pragma unroll
     for (int j = 0; j < NB; j++)
         b[j] = (x[7 + j] >> 28) | (j + 8 < NX ? x[8 + j] << 4 : 0u);
-    uint32_t t[NB + 4];
+    // T = B·c by columns.  c0 + c1 and c2 + c3 are each below 2^32 (c's
+    // limbs at kC), so the pair sums P[j] = b[j]·c0 + b[j−1]·c1 and
+    // Q[j] = b[j−2]·c2 + b[j−3]·c3 fit in 64 bits: two multiply-adds each,
+    // on the multiply pipe, no carries.  Column j of T is then the low
+    // halves of P[j], Q[j] plus the high halves of P[j−1], Q[j−1]; every
+    // term is ≥ 0, so a column at or past NY is 0 whenever T < 2^(32·NY).
+    uint64_t P[NB + 3], Q[NB + 3];
 #pragma unroll
-    for (int j = 0; j < NB + 4; j++) t[j] = 0;
-#pragma unroll
-    for (int r = 0; r < NB; r++) {
-        uint64_t carry = 0;
-#pragma unroll
-        for (int s = 0; s < 4; s++) {
-            const uint64_t v = (uint64_t)b[r] * kC[s] + t[r + s] + carry;
-            t[r + s] = (uint32_t)v;
-            carry = v >> 32;
-        }
-        t[r + 4] = (uint32_t)carry;
+    for (int j = 0; j < NB + 3; j++) {
+        P[j] = Q[j] = 0;
+        if (j < NB) P[j] = (uint64_t)b[j] * kC[0];
+        if (j >= 1 && j - 1 < NB) P[j] += (uint64_t)b[j - 1] * kC[1];
+        if (j >= 2 && j - 2 < NB) Q[j] = (uint64_t)b[j - 2] * kC[2];
+        if (j >= 3 && j - 3 < NB) Q[j] += (uint64_t)b[j - 3] * kC[3];
     }
     int64_t acc = 0;
 #pragma unroll
     for (int j = 0; j < NY; j++) {
-        int64_t v = acc + (int64_t)k[j];
+        int64_t v = (int64_t)k[j];
         if (j < 7) v += x[j];
         if (j == 7) v += x[7] & 0x0fffffffu;
-        if (j < NB + 4) v -= t[j];
+        if (j < NB + 3) v -= (int64_t)(uint32_t)P[j] + (uint32_t)Q[j];
+        if (j >= 1 && j - 1 < NB + 3) v -= (int64_t)(P[j - 1] >> 32) + (int64_t)(Q[j - 1] >> 32);
+        v += acc;  // the one dependent add of the carry chain
         y[j] = (uint32_t)v;
         acc = (v - (int64_t)(uint32_t)v) / 4294967296ll;  // exact floor
     }
@@ -186,69 +218,169 @@ __device__ __forceinline__ void fold252(const uint32_t (&x)[NX], const uint32_t 
 //   fold 2: B < 2^135, B·c < 2^260 ≤ K2 < 2^261  → y2 < 2^262 (9 limbs)
 //   fold 3: B < 2^10,  B·c < 2^135 < L = K       → y3 < 2^254 (8 limbs)
 //   fold 4: B < 4,     B·c < 2^127 < L = K       → y4 < 2^252 + L < 2L
-//   then y4 − L if y4 ≥ L.
+//   then y4 − L if that does not borrow.
 __device__ __forceinline__ void mod_l(const uint32_t (&x)[16], uint32_t (&r)[8]) {
     uint32_t y1[13], y2[9], y3[8];
     fold252<16, 13>(x, kK1, y1);
     fold252<13, 9>(y1, kK2, y2);
     fold252<9, 8>(y2, kL, y3);
     fold252<8, 8>(y3, kL, r);
-    bool ge = true;  // r >= L, compared from the top limb
-    bool decided = false;
+    uint32_t d[8];  // r − L
+    int64_t acc = 0;
 #pragma unroll
-    for (int j = 7; j >= 0; j--) {
-        if (!decided && r[j] != kL[j]) {
-            ge = r[j] > kL[j];
-            decided = true;
-        }
+    for (int j = 0; j < 8; j++) {
+        const int64_t v = acc + (int64_t)r[j] - (int64_t)kL[j];
+        d[j] = (uint32_t)v;
+        acc = (v - (int64_t)(uint32_t)v) / 4294967296ll;
     }
-    if (ge) {
-        int64_t acc = 0;
 #pragma unroll
-        for (int j = 0; j < 8; j++) {
-            const int64_t v = acc + (int64_t)r[j] - (int64_t)kL[j];
-            r[j] = (uint32_t)v;
-            acc = (v - (int64_t)(uint32_t)v) / 4294967296ll;
+    for (int j = 0; j < 8; j++) r[j] = acc == 0 ? d[j] : r[j];  // no borrow: r ≥ L
+}
+
+// Packed row of tile row r: rows 0:64 (A, R), then 96:144 (M)
+__device__ __forceinline__ int packed_row(int r) { return r < 64 ? r : r - 64 + kRowM; }
+
+// The schedule warp's loads: tile[j][k] holds lane j's tile rows 4k..4k+3
+// as the bytes of one word (row 4k in the low byte).
+__device__ __forceinline__ void load_tile(const uint8_t *p, size_t N, int n, int base,
+                                          bool words, uint32_t (*tile)[kTilePitch]) {
+    const int t = threadIdx.x & 31;
+    if (words) {
+        // 224 squares of 4 rows × 4 lanes: square g covers rows 4(g/8)..+3
+        // and lanes base + 4(g%8)..+3
+#pragma unroll
+        for (int q = 0; q < kTileWords * 8 / 32; q++) {
+            const int g = 32 * q + t, k = g >> 3, w = g & 7;
+            // a square past the last lane loads the last live one again,
+            // so every load issues at once (no branch between them)
+            const int col = min(base + 4 * w, n - 4);
+            const int row = packed_row(4 * k);
+            uint32_t v[4];
+#pragma unroll
+            for (int r = 0; r < 4; r++)
+                v[r] = *reinterpret_cast<const uint32_t *>(p + (row + r) * N + col);
+            // 4×4 byte transpose: word c gets byte c of v[0..3]
+            const uint32_t lo01 = __byte_perm(v[0], v[1], 0x5140);
+            const uint32_t hi01 = __byte_perm(v[0], v[1], 0x7362);
+            const uint32_t lo23 = __byte_perm(v[2], v[3], 0x5140);
+            const uint32_t hi23 = __byte_perm(v[2], v[3], 0x7362);
+            tile[4 * w + 0][k] = __byte_perm(lo01, lo23, 0x5410);
+            tile[4 * w + 1][k] = __byte_perm(lo01, lo23, 0x7632);
+            tile[4 * w + 2][k] = __byte_perm(hi01, hi23, 0x5410);
+            tile[4 * w + 3][k] = __byte_perm(hi01, hi23, 0x7632);
+        }
+    } else if (base + t < n) {
+        const uint8_t *col = p + base + t;
+#pragma unroll
+        for (int k = 0; k < kTileWords; k++) {
+            const int row = packed_row(4 * k);
+            tile[t][k] = (uint32_t)col[row * N] | (uint32_t)col[(row + 1) * N] << 8 |
+                         (uint32_t)col[(row + 2) * N] << 16 | (uint32_t)col[(row + 3) * N] << 24;
         }
     }
 }
 
+// Tile rows 8k..8k+7 of one lane as a big-endian 64-bit word
+__device__ __forceinline__ uint64_t tile_word(const uint32_t *mine, int k) {
+    return (uint64_t)bswap32(mine[2 * k]) << 32 | bswap32(mine[2 * k + 1]);
+}
+
+__device__ __forceinline__ uint64_t sigma0(uint64_t x) {
+    return rotr64(x, 1) ^ rotr64(x, 8) ^ (x >> 7);
+}
+
+__device__ __forceinline__ uint64_t sigma1(uint64_t x) {
+    return rotr64(x, 19) ^ rotr64(x, 61) ^ (x >> 6);
+}
+
 __global__ void __launch_bounds__(kThreads)
-sha512_h_kernel(const uint8_t *p, uint8_t *out, int n) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
+sha512_h_kernel(const uint8_t *p, uint8_t *out, int n, bool words) {
+    __shared__ uint64_t wk[80][kLanes];
+    __shared__ uint32_t tile[kLanes][kTilePitch];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int base = blockIdx.x * kLanes, i = base + lane;
     const size_t N = (size_t)n;
-    if (p[kRowFlag * N + i] == 0) {
-#pragma unroll
-        for (int k = 0; k < 32; k++) out[k * N + i] = p[(kRowM + k) * N + i];
-        return;
-    }
-    // the padded block of R ‖ A ‖ M, read whole before any write
-    const int mlen = p[kRowMlen * N + i];
+    const bool live = i < n;
+    // issued ahead of the tile's loads: no load waits behind another
+    const int flag = live ? p[kRowFlag * N + i] : 0;
+    const int mlen = live && warp == 0 ? p[kRowMlen * N + i] : 0;
+    STAMP(0)
     uint64_t w[16];
+    if (warp == 0) {
+        load_tile(p, N, n, base, words, tile);
+        __syncwarp();
+        STAMP(1)
+        const uint32_t *mine = tile[lane];
+        // the padded block of R ‖ A ‖ M
 #pragma unroll
-    for (int t = 0; t < 8; t++) {
-        const int row0 = t < 4 ? 32 + 8 * t : 8 * (t - 4);  // R, then A
-        uint64_t v = 0;
-#pragma unroll
-        for (int b = 0; b < 8; b++) v = (v << 8) | p[(row0 + b) * N + i];
-        w[t] = v;
-    }
-#pragma unroll
-    for (int t = 8; t < 14; t++) {
-        uint64_t v = 0;
-#pragma unroll
-        for (int b = 0; b < 8; b++) {
-            const int j = 8 * (t - 8) + b;  // message byte 0..47
-            const uint32_t m = j < mlen ? p[(kRowM + j) * N + i] : (j == mlen ? 0x80u : 0u);
-            v = (v << 8) | m;
+        for (int t = 0; t < 4; t++) {
+            w[t] = tile_word(mine, 4 + t);  // R: tile rows 32:64
+            w[4 + t] = tile_word(mine, t);  // A: tile rows 0:32
         }
-        w[t] = v;
+#pragma unroll
+        for (int t = 8; t < 14; t++) {
+            const int keep = mlen - 8 * (t - 8);  // message bytes in this word
+            const uint64_t mask = keep >= 8 ? ~0ull : keep <= 0 ? 0ull : ~0ull << (64 - 8 * keep);
+            const uint64_t pad = keep >= 0 && keep < 8 ? 0x80ull << (56 - 8 * keep) : 0ull;
+            w[t] = (tile_word(mine, t) & mask) | pad;
+        }
+        w[14] = 0;
+        w[15] = (uint64_t)(mlen + 64) * 8;  // bytes 126..127: the bit length
+#pragma unroll
+        for (int t = 0; t < 16; t++) wk[t][lane] = w[t] + kK512[t];
+        STAMP(2)
     }
-    w[14] = 0;
-    w[15] = (uint64_t)(mlen + 64) * 8;  // bytes 126..127: the bit length
-    uint64_t h[8];
-    sha512_block(w, h);
+    // every read of rows 0:145 is behind this barrier
+    const bool any = __syncthreads_or(live && flag != 0);
+    STAMP(3)
+    uint64_t a = kIV512[0], b = kIV512[1], c = kIV512[2], d = kIV512[3];
+    uint64_t e = kIV512[4], f = kIV512[5], g = kIV512[6], hh = kIV512[7];
+    if (any) {
+#pragma unroll 1
+        for (int s = 0; s < 5; s++) {
+            if (warp == 0) {
+                if (s < 4) {
+#pragma unroll
+                    for (int j = 0; j < 16; j++) {
+                        // w[j] holds W[t − 16]; W[t] = σ1(W[t−2]) + W[t−7] + σ0(W[t−15]) + W[t−16]
+                        w[j] += sigma0(w[(j + 1) & 15]) + w[(j + 9) & 15] + sigma1(w[(j + 14) & 15]);
+                        wk[16 * (s + 1) + j][lane] = w[j] + kK512[16 * (s + 1) + j];
+                    }
+                }
+            } else {
+                // 8 rounds a pass: the state comes back to its names, and a
+                // short loop body is fetched once, not 16 rounds of it
+#pragma unroll 1
+                for (int t = 16 * s; t < 16 * s + 16; t += 8) {
+#pragma unroll
+                    for (int j = 0; j < 8; j++) {
+                        const uint64_t S1 = rotr64(e, 14) ^ rotr64(e, 18) ^ rotr64(e, 41);
+                        const uint64_t ch = (e & f) ^ (~e & g);
+                        const uint64_t t1 = hh + S1 + ch + wk[t + j][lane];
+                        const uint64_t S0 = rotr64(a, 28) ^ rotr64(a, 34) ^ rotr64(a, 39);
+                        const uint64_t mj = (a & b) ^ (a & c) ^ (b & c);
+                        hh = g; g = f; f = e; e = d + t1;
+                        d = c; c = b; b = a; a = t1 + S0 + mj;
+                    }
+                }
+            }
+            STAMP(4 + s)
+            if (s < 4) {
+                __syncthreads();
+                STAMP(9 + s)
+            }
+        }
+    }
+    if (warp == 0 && live && flag == 0) {
+        // the host h (rows 96:128 = tile rows 64:96) through
+#pragma unroll
+        for (int k = 0; k < 32; k++)
+            out[k * N + i] = (uint8_t)(tile[lane][16 + k / 4] >> (8 * (k & 3)));
+    }
+    STAMP(13)
+    if (warp == 0 || !live || flag == 0) return;
+    const uint64_t h[8] = {kIV512[0] + a, kIV512[1] + b, kIV512[2] + c, kIV512[3] + d,
+                           kIV512[4] + e, kIV512[5] + f, kIV512[6] + g, kIV512[7] + hh};
     // the digest bytes (words big-endian) as a little-endian number
     uint32_t x[16];
 #pragma unroll
@@ -260,9 +392,14 @@ sha512_h_kernel(const uint8_t *p, uint8_t *out, int n) {
     mod_l(x, r);
 #pragma unroll
     for (int k = 0; k < 32; k++) out[k * N + i] = (uint8_t)(r[k >> 2] >> (8 * (k & 3)));
+    STAMP(14)
 }
 
+// An empty kernel: the floor of one launch, for timing
+__global__ void noop_kernel() {}
+
 static_assert(kMaxMsg == 47, "block assembly covers message bytes 0..47");
+static_assert(kTileWords * 4 == 64 + kMaxMsg + 1, "the tile holds rows 0:64 and 96:144");
 
 }  // namespace
 
@@ -272,11 +409,30 @@ static_assert(kMaxMsg == 47, "block assembly covers message bytes 0..47");
 // sync.
 extern "C" int sha512_h_launch(const void *packed, void *out, int n, void *stream) {
     if (n <= 0) return 0;
-    const int blocks = (n + kThreads - 1) / kThreads;
+    const bool words = n % 4 == 0 && (uintptr_t)packed % 4 == 0;
+    const int blocks = (n + kLanes - 1) / kLanes;
     sha512_h_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t *)packed, (uint8_t *)out, n);
+        (const uint8_t *)packed, (uint8_t *)out, n, words);
     return (int)cudaGetLastError();
 }
+
+// Launch the empty kernel on `stream` (one block of one warp).
+extern "C" int sha512_h_noop_launch(void *stream) {
+    noop_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+    return (int)cudaGetLastError();
+}
+
+#ifdef SHA512_H_STAMPS
+// Copy block 0's stamps of the last launch to `host` ([2][16] cycles,
+// 0 where a warp took no stamp) and clear them; synchronises the device.
+extern "C" int sha512_h_stamps(long long *host) {
+    static const long long zero[2][16] = {};
+    cudaDeviceSynchronize();
+    cudaMemcpyFromSymbol(host, g_stamps, sizeof(g_stamps));
+    cudaMemcpyToSymbol(g_stamps, zero, sizeof(g_stamps));
+    return (int)cudaGetLastError();
+}
+#endif
 
 extern "C" const char *sha512_h_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);

@@ -10,6 +10,8 @@ library with a plain C entry point, loaded with ``ctypes``, at first use
   verify kernel's (128, N) input.
 - ``h_rows(p)`` — the same function into a new (32, N) uint8 tensor (the
   tests and chip_smoke.py's comparison).
+- ``launch_noop(device)`` — an empty kernel on the current stream, the
+  floor of one launch when timing (not counted in ``launches``).
 
 On a CPU tensor both run the plain PyTorch version
 (``ops/sha512.py::h_rows_from_packed``); on a CUDA tensor they launch the
@@ -54,6 +56,8 @@ def load_library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.sha512_h_launch.restype = ctypes.c_int
+        lib.sha512_h_noop_launch.argtypes = [ctypes.c_void_p]
+        lib.sha512_h_noop_launch.restype = ctypes.c_int
         lib.sha512_h_error_string.argtypes = [ctypes.c_int]
         lib.sha512_h_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -71,6 +75,17 @@ def _check(p: torch.Tensor) -> None:
         raise ValueError("sha512_h wants a contiguous tensor")
 
 
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: {lib.sha512_h_error_string(err).decode()} ({err})")
+
+
+def launch_noop(device) -> None:
+    """Launch the library's empty kernel on ``device``'s current stream."""
+    lib = load_library()
+    _raise_on(lib, lib.sha512_h_noop_launch(torch.cuda.current_stream(device).cuda_stream), "noop kernel")
+
+
 def _launch(p: torch.Tensor, out: torch.Tensor) -> None:
     global launches
     n = p.shape[1]
@@ -78,11 +93,7 @@ def _launch(p: torch.Tensor, out: torch.Tensor) -> None:
         return
     lib = load_library()
     stream = torch.cuda.current_stream(p.device).cuda_stream
-    err = lib.sha512_h_launch(p.data_ptr(), out.data_ptr(), n, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"sha512_h kernel launch failed: {lib.sha512_h_error_string(err).decode()} ({err})"
-        )
+    _raise_on(lib, lib.sha512_h_launch(p.data_ptr(), out.data_ptr(), n, stream), "sha512_h kernel")
     with _count_lock:
         launches += 1
 

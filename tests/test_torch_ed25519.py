@@ -31,6 +31,7 @@ from stellar_tpu.ops import ref25519 as jref  # noqa: E402
 from stellar_tpu_torch.ops import ed25519 as ted  # noqa: E402
 from stellar_tpu_torch.ops import fe as tfe  # noqa: E402
 from stellar_tpu_torch.ops import ref25519 as tref  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401 (an autouse fixture)
 
 P = jref.P
 

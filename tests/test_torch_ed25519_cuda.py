@@ -26,6 +26,7 @@ from stellar_tpu_torch.ops import ed25519 as ed  # noqa: E402
 from stellar_tpu_torch.ops import ed25519_cuda as ec  # noqa: E402
 from stellar_tpu_torch.ops import ref25519 as ref  # noqa: E402
 from torch_host_cuda import build_host_kernel  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401 (an autouse fixture)
 
 # the kernel's launch geometry: 4 threads a lane, 64-thread blocks
 _GROUP, _BLOCK = 4, 64

@@ -18,6 +18,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from stellar_tpu.ops import fe as jfe  # noqa: E402
 from stellar_tpu_torch.ops import fe as tfe  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401 (an autouse fixture)
 
 P = jfe.P
 

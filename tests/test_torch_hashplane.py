@@ -24,6 +24,7 @@ from stellar_tpu.bucket import hashplane as jhp  # noqa: E402
 from stellar_tpu_torch.bucket import hashplane as hp  # noqa: E402
 from stellar_tpu_torch.ops import sha256 as tsha  # noqa: E402
 from stellar_tpu_torch.ops import sha256_cuda  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401 (an autouse fixture)
 
 
 def frame(body: bytes) -> bytes:

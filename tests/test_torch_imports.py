@@ -9,6 +9,7 @@ import subprocess
 import sys
 
 import pytest
+from torch_threads import one_torch_thread  # noqa: E402,F401 (an autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "stellar_tpu_torch")

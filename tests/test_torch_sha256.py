@@ -22,6 +22,7 @@ torch = pytest.importorskip("torch")
 from stellar_tpu_torch.ops import sha256 as tsha  # noqa: E402
 from stellar_tpu_torch.ops import sha256_cuda  # noqa: E402
 from torch_host_cuda import build_host_kernel  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401 (an autouse fixture)
 
 BOUNDARY = (0, 55, 56, 63, 64, 65, 119, 120)
 PINNED = 4  # max_blocks of the one JAX shape: (256, len(_messages()))

@@ -4,9 +4,12 @@ kernel (csrc/sha512_h.cu, wrapper ops/sha512_cuda.py) and
 BatchVerifier(device_hash=True), against the JAX package on this CPU host.
 
 CUDA has no interpret mode, so the kernel source is also compiled as host
-C++ (the CUDA qualifiers defined away, one lane per call) and held against
-the plain version, in place as well as into a separate output; the run on
-the card is the ``cuda`` test, which skips without CUDA.  JAX is imported
+C++ with a block emulation (tests/torch_host_cuda.py: each CUDA thread an
+OS thread, so the schedule warp and the round warp of a block run beside
+each other and meet at the stage barriers) and held against the plain
+version and the JAX stage, on both load paths, ragged lane counts, flag-0
+blocks, in place as well as into a separate output; the run on the card
+is the ``cuda`` test, which skips without CUDA.  JAX is imported
 in a fixture (the card's machine has none, and its ``cuda`` tests run
 without it); its side is kept to one compiled stage shape (160, 64) and one
 verifier bucket (64).  Tolerance: exact — bytes equal byte for byte,
@@ -30,6 +33,7 @@ from stellar_tpu_torch.ops import ed25519_cuda  # noqa: E402
 from stellar_tpu_torch.ops import sha512 as tsha  # noqa: E402
 from stellar_tpu_torch.ops import sha512_cuda  # noqa: E402
 from torch_host_cuda import build_host_kernel  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401 (an autouse fixture)
 
 L = tsha.L
 LANES = 64  # the one JAX stage shape of this file
@@ -189,11 +193,9 @@ def test_mod_l_edges_vs_bigints():
 # -- the CUDA source, compiled as host C++ ----------------------------------
 
 _HOST_LOOP = r"""
-extern "C" void host_h(const uint8_t *p, uint8_t *out, int n) {
-    for (int i = 0; i < n; i++) {
-        blockIdx.x = i;
-        sha512_h_kernel(p, out, n);
-    }
+extern "C" void host_h(const uint8_t *p, uint8_t *out, int n, int words) {
+    host_launch((n + kLanes - 1) / kLanes, kThreads, 32,
+                [&] { sha512_h_kernel(p, out, n, words != 0); });
 }
 extern "C" void host_mod_l(const uint32_t *x, uint32_t *r) {
     uint32_t xx[16], rr[8];
@@ -206,12 +208,35 @@ extern "C" void host_mod_l(const uint32_t *x, uint32_t *r) {
 
 @pytest.fixture(scope="module")
 def host_kernel(tmp_path_factory):
-    lib = build_host_kernel(sha512_cuda.SOURCE, _HOST_LOOP, tmp_path_factory.mktemp("sha512_host"))
-    lib.host_h.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    lib = build_host_kernel(
+        sha512_cuda.SOURCE, _HOST_LOOP, tmp_path_factory.mktemp("sha512_host"), threads=True
+    )
+    lib.host_h.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     lib.host_h.restype = None
     lib.host_mod_l.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.host_mod_l.restype = None
     return lib
+
+
+def _host_h(lib, p, in_place=False, words=None):
+    """The kernel over the (160, n) chunk ``p`` as its launch runs it (two
+    warps a block of 32 lanes; 32-bit loads where n % 4 == 0 unless
+    ``words`` says otherwise): the new (32, n) h rows, or ``p`` after the
+    in-place call."""
+    n = p.shape[1]
+    words = n % 4 == 0 if words is None else words
+    if in_place:
+        q = np.ascontiguousarray(p).copy()
+        lib.host_h(q.ctypes.data, q.ctypes.data + 96 * n, n, int(words))
+        return q
+    p = np.ascontiguousarray(p)
+    out = np.full((32, n), 0xA5, dtype=np.uint8)
+    lib.host_h(p.ctypes.data, out.ctypes.data, n, int(words))
+    return out
+
+
+def _plain(p):
+    return tsha.h_rows_from_packed(torch.from_numpy(np.ascontiguousarray(p))).numpy().astype(np.uint8)
 
 
 def _mixed_chunk():
@@ -227,17 +252,59 @@ def _mixed_chunk():
 
 def test_kernel_source_matches_plain_version(host_kernel):
     p = _mixed_chunk()
-    n = p.shape[1]
-    plain = tsha.h_rows_from_packed(torch.from_numpy(p)).numpy().astype(np.uint8)
-    out = np.zeros((32, n), dtype=np.uint8)
-    host_kernel.host_h(p.ctypes.data, out.ctypes.data, n)
-    np.testing.assert_array_equal(out, plain)
+    plain = _plain(p)
+    np.testing.assert_array_equal(_host_h(host_kernel, p), plain)
     # in place: h lands in rows 96:128 of the chunk itself, nothing else moves
-    q = p.copy()
-    host_kernel.host_h(q.ctypes.data, q.ctypes.data + 96 * n, n)
+    q = _host_h(host_kernel, p, in_place=True)
     np.testing.assert_array_equal(q[96:128], plain)
     np.testing.assert_array_equal(q[:96], p[:96])
     np.testing.assert_array_equal(q[128:], p[128:])
+
+
+def test_kernel_source_matches_jax_on_a_staged_chunk(jx, host_kernel):
+    """A stage_raw chunk of the JAX stage shape (160, 64): the boundary
+    lengths of tests/test_sha512_device.py, multi-block lanes with the host
+    h, gate-rejected lanes."""
+    p, ok, rej = _staged(_valid_items(40, mlens=(0, 1, 2, 31, 32, 33, 46, 47, 48, 64)) + _hostile_items())
+    assert rej > 0 and 0 < ok.sum() < len(ok)
+    got = _host_h(host_kernel, p)
+    np.testing.assert_array_equal(got, _jax_h(jx, p).astype(np.uint8))
+    np.testing.assert_array_equal(got, _plain(p))
+
+
+def test_kernel_source_every_mlen_both_load_paths(host_kernel):
+    """Every mlen 0..47 (and 48, 200, 255 with flag 1): the 32-bit word
+    loads and the byte loads give the same h, the plain version's."""
+    p = _mixed_chunk()
+    plain = _plain(p)
+    assert set(range(48)) <= set(p[tsha.ROW_MLEN][p[tsha.ROW_FLAG] != 0].tolist())
+    np.testing.assert_array_equal(_host_h(host_kernel, p, words=True), plain)
+    np.testing.assert_array_equal(_host_h(host_kernel, p, words=False), plain)
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 36, 70])
+def test_kernel_source_on_ragged_lane_counts(host_kernel, n):
+    """A last block with fewer than 32 live lanes, on both load paths
+    (n % 4 == 0 takes the word loads), into a new tensor and in place."""
+    p = np.ascontiguousarray(np.concatenate([_mixed_chunk()] * 2, axis=1)[:, 29 : 29 + n])
+    plain = _plain(p)
+    np.testing.assert_array_equal(_host_h(host_kernel, p), plain)
+    q = _host_h(host_kernel, p, in_place=True)
+    np.testing.assert_array_equal(q[96:128], plain)
+    np.testing.assert_array_equal(np.delete(q, np.s_[96:128], axis=0), np.delete(p, np.s_[96:128], axis=0))
+
+
+def test_kernel_source_flag0_blocks_pass_through(host_kernel):
+    """A block whose lanes all have flag 0 skips the rounds and writes the
+    host h through; a whole chunk of them in place comes back unchanged."""
+    p = _mixed_chunk()
+    p[tsha.ROW_FLAG, :32] = 0  # block 0: no lane to hash
+    plain = _plain(p)
+    np.testing.assert_array_equal(plain[:, :32], p[96:128, :32])
+    np.testing.assert_array_equal(_host_h(host_kernel, p), plain)
+    p[tsha.ROW_FLAG] = 0
+    np.testing.assert_array_equal(_host_h(host_kernel, p, in_place=True), p)
+    np.testing.assert_array_equal(_host_h(host_kernel, p), p[96:128])
 
 
 def test_kernel_source_mod_l_edges(host_kernel):
@@ -310,16 +377,19 @@ def test_make_backend_plumbs_device_hash(monkeypatch):
 def test_kernel_matches_plain_version_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    p = torch.from_numpy(_mixed_chunk()).cuda()
-    launches = sha512_cuda.launches
-    got = sha512_cuda.h_rows(p)
-    q = p.clone()
-    sha512_cuda.hash_in_place(q)
-    torch.cuda.synchronize()
-    assert sha512_cuda.launches == launches + 2
-    plain = tsha.h_rows_from_packed(p).to(torch.uint8)
-    assert torch.equal(got, plain) and torch.equal(q[96:128], plain)
-    assert torch.equal(q[:96], p[:96]) and torch.equal(q[128:], p[128:])
+    mixed = _mixed_chunk()
+    # 128 lanes, a ragged 33 (byte loads) and 904 (a ledger's tail chunk)
+    for n in (mixed.shape[1], 33, 904):
+        p = torch.from_numpy(np.ascontiguousarray(np.tile(mixed, (1, 8))[:, :n])).cuda()
+        launches = sha512_cuda.launches
+        got = sha512_cuda.h_rows(p)
+        q = p.clone()
+        sha512_cuda.hash_in_place(q)
+        torch.cuda.synchronize()
+        assert sha512_cuda.launches == launches + 2
+        plain = tsha.h_rows_from_packed(p).to(torch.uint8)
+        assert torch.equal(got, plain) and torch.equal(q[96:128], plain), n
+        assert torch.equal(q[:96], p[:96]) and torch.equal(q[128:], p[128:]), n
     flag0 = p.clone()
     flag0[tsha.ROW_FLAG] = 0
     before = flag0.clone()
@@ -329,6 +399,17 @@ def test_kernel_matches_plain_version_on_card():
         sha512_cuda.h_rows(p[:, ::2])  # not contiguous
     with pytest.raises(ValueError):
         sha512_cuda.h_rows(p[:128].contiguous())  # not 160 rows
+
+
+@pytest.mark.cuda
+def test_noop_launch_on_card():
+    """The empty kernel that times a launch's floor runs and counts nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    launches = sha512_cuda.launches
+    sha512_cuda.launch_noop(torch.device("cuda"))
+    torch.cuda.synchronize()
+    assert sha512_cuda.launches == launches
 
 
 @pytest.mark.cuda

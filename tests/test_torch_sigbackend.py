@@ -26,6 +26,7 @@ from stellar_tpu_torch.crypto.sigcache import VerifySigCache  # noqa: E402
 from stellar_tpu_torch.ops import ed25519 as ted  # noqa: E402
 from stellar_tpu_torch.ops import ed25519_cuda  # noqa: E402
 from stellar_tpu_torch.ops import ref25519 as ref  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401 (an autouse fixture)
 
 
 @pytest.fixture(scope="module")

@@ -14,11 +14,14 @@ Two preludes:
   never talk to each other;
 - a block emulation (``BLOCK_PRELUDE``, ``threads=True``): ``host_launch``
   runs each block's CUDA threads as OS threads, one block after the other,
-  with a ``thread_local`` ``threadIdx``; ``__syncthreads`` is a
-  ``std::barrier`` over the block, and ``__shfl_sync`` an exchange through
-  a double buffer behind a barrier of the shuffle's width-wide group (C++20,
-  ``-pthread``).  Every thread of a group must reach every shuffle, as on
-  the card.
+  with a ``thread_local`` ``threadIdx``; ``__syncthreads`` (and
+  ``__syncthreads_or``) is a ``std::barrier`` over the block, ``__syncwarp``
+  one over the launch's width-wide group (launch with width 32 for warp
+  code), and ``__shfl_sync`` an exchange through a double buffer behind a
+  barrier of the shuffle's width-wide group (C++20, ``-pthread``).  Every
+  thread of a group must reach every shuffle, as on the card.
+
+Both preludes define ``__byte_perm``.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ import pytest
 _QUALIFIERS = r"""
 #include <stddef.h>
 #include <stdint.h>
+#include <algorithm>
+using std::min;
 #define __global__
 #define __device__
 #define __host__
@@ -43,6 +48,13 @@ _QUALIFIERS = r"""
 #define __restrict__
 #define __shared__ static
 struct Dim3 { int x, y, z; };
+// byte k of the result is byte (s >> 4k) & 7 of the 8 bytes y:x
+static inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+    const uint64_t v = (uint64_t)y << 32 | x;
+    uint32_t r = 0;
+    for (int k = 0; k < 4; k++) r |= (uint32_t)(v >> (8 * ((s >> (4 * k)) & 7)) & 0xff) << (8 * k);
+    return r;
+}
 """
 
 PRELUDE = _QUALIFIERS + r"""
@@ -51,6 +63,7 @@ static Dim3 threadIdx = {0, 0, 0}, blockIdx = {0, 0, 0}, blockDim = {1, 1, 1};
 """
 
 BLOCK_PRELUDE = _QUALIFIERS + r"""
+#include <atomic>
 #include <barrier>
 #include <memory>
 #include <thread>
@@ -60,10 +73,31 @@ static Dim3 blockIdx = {0, 0, 0}, blockDim = {1, 1, 1};
 static const int kHostMaxThreads = 1024;
 static std::barrier<> *host_block_barrier;
 static std::barrier<> *host_group_barrier[kHostMaxThreads];
+static int host_group_width = 1;
 static int32_t host_shfl_buf[2][kHostMaxThreads];
 static thread_local unsigned host_shfl_phase = 0;
+static std::atomic<int> host_bar_or[2];
+static thread_local unsigned host_bar_or_phase = 0;
 
 static inline void __syncthreads() { host_block_barrier->arrive_and_wait(); }
+
+// Consecutive calls alternate slots: thread 0 clears a slot after every
+// thread has read it, before any thread can reach the call that reuses it.
+static inline int __syncthreads_or(int pred) {
+    std::atomic<int> &slot = host_bar_or[host_bar_or_phase++ & 1];
+    if (pred) slot.store(1);
+    host_block_barrier->arrive_and_wait();
+    const int any = slot.load();
+    host_block_barrier->arrive_and_wait();
+    if (threadIdx.x == 0) slot.store(0);
+    return any;
+}
+
+// A barrier of the calling thread's width-wide group: a warp when the
+// kernel is launched with width 32.
+static inline void __syncwarp(unsigned = 0xffffffffu) {
+    host_group_barrier[threadIdx.x - threadIdx.x % host_group_width]->arrive_and_wait();
+}
 
 // Every thread of the group writes its value, waits for the group, reads
 // its source's.  Consecutive shuffles alternate buffers: a thread can
@@ -83,6 +117,7 @@ static inline T __shfl_sync(unsigned, T v, int src, int width) {
 template <typename F>
 static void host_launch(int blocks, int threads, int width, F body) {
     blockDim.x = threads;
+    host_group_width = width;
     for (int b = 0; b < blocks; b++) {
         blockIdx.x = b;
         std::barrier<> block(threads);

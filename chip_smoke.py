@@ -62,7 +62,36 @@ phase's failure is caught while the run carries on):
               and ``BucketHasher`` frame by frame, each through the device,
               native and hashlib backends — all six hashes equal; the
               SHA-256 kernel launched and its plain version did not run; MB/s
-              per backend and the device backend's stage spans.
+              per backend and the device backend's stage spans;
+8. node close — ``node_close``: BASELINE.md's 5000-tx single-signer ledger
+              through a standalone validator (``Application`` →
+              ``TxSetFrame.check_valid`` → ``LedgerManager.close_ledger``,
+              ``SIGNATURE_BACKEND = "gpu"``, 4096-lane chunks): 5001
+              accounts created, then three timed closes of 5000 payments
+              from distinct accounts and one untimed close, in three legs
+              on one set of pre-signed envelopes — the card with host
+              hashing, the card with ``DEVICE_HASH``, and the plain versions
+              on the CPU (``SIG_DEVICE = "cpu"``, timed closes only).  One
+              payment of the second timed round carries a flipped signature
+              byte: that round's txset check fails and the payment fails
+              ``txBAD_AUTH`` on every leg.  Per leg: close ms (p50, p95),
+              the close and flush spans' p50s, the kernels' launches, the
+              plain versions' calls (0 on the card legs), eager ref25519
+              verifies and stalls (0).  Every header hash equal across the
+              legs;
+9. node consensus — ``node_consensus``: three validators (threshold 2, all
+              running) over the loopback overlay, all on the card, under a
+              seeded 300-account, 1000-payment ``LoadGenerator`` load, the
+              first node with ``DEVICE_BUCKET_HASH`` (the SHA-256 kernel in
+              the bucket list): every node past ledger 5, all agreeing,
+              launches > 0, no stall.  Every verify kernel launch of that
+              run keeps its input chunk and verdicts, and afterwards the
+              plain version verifies all of them again on the card: zero
+              mismatches.  Then the same seeded run at 10 accounts and 40
+              payments on the card and on the plain versions on the CPU,
+              hash for hash (the plain version costs about a second a call
+              on the CPU whatever the batch, and the full load makes ~1350
+              calls).
 
 Then, on lines of their own: the kernels' JSON line, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -84,6 +113,7 @@ import statistics
 import struct
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -145,6 +175,23 @@ SPILL_FRAMES = 8  # 5004-byte frames: 79 SHA blocks, past DEVICE_MAX_BLOCKS
 SPILL_BODY = 5000
 # the padding-boundary message lengths of the SHA-256 kernel check
 SHA256_BOUNDARY = (0, 55, 56, 63, 64, 65, 119, 120)
+# node_close: BASELINE.md's 5000-tx single-signer ledger (bench.py's shape):
+# 5001 accounts, 100 creates a tx and 2000 a ledger, then timed rounds of
+# 5000 payments and one untimed round; the genesis base fee
+NODE_TXS = LEDGER_TXS
+NODE_ACCOUNTS = NODE_TXS + 1
+NODE_CREATE_PER_TX = 100
+NODE_CREATE_PER_LEDGER = 2000
+NODE_ROUNDS = 3
+NODE_BASE_FEE = 100
+# the payment of a timed round whose signature carries a flipped byte
+NODE_BAD_ROUND, NODE_BAD_INDEX = 1, 2500
+PLAIN_DISPATCH_BUDGET_S = 900.0
+# node_consensus: three validators under a seeded LoadGenerator load; the
+# card-and-plain pair at a smaller load of the same seeded run
+CONSENSUS_ACCOUNTS, CONSENSUS_TXS, CONSENSUS_RATE = 300, 1000, 100
+PAIR_ACCOUNTS, PAIR_TXS, PAIR_RATE = 10, 40, 10
+CONSENSUS_LEDGERS = 5
 
 
 def emit(obj) -> None:
@@ -870,6 +917,404 @@ def phase_bucket(buf, frames):
     return device_launches
 
 
+# -- phases 8-9: the validator node -----------------------------------------
+
+
+def _account_seed(n: int) -> bytes:
+    """The seed of the node's test account n (``tx.testutils.get_account``)."""
+    return hashlib.sha256(b"stellar_tpu test seed %d" % n).digest()
+
+
+def _p(times, q):
+    """The q-quantile of a few samples: the sample at rank ceil(q·n)."""
+    xs = sorted(times)
+    return xs[max(0, min(len(xs) - 1, -(-int(q * 100) * len(xs) // 100) - 1))]
+
+
+def node_config(tmp, tag, device, **knobs):
+    """A standalone validator's config: the gpu backend on ``device``, the
+    main path's 4096-lane chunks, state under ``tmp``."""
+    from stellar_tpu_torch.tx import testutils as T
+
+    cfg = T.get_test_config(0, backend="gpu")
+    cfg.SIG_DEVICE = device
+    cfg.SIG_BATCH_MAX = LANES
+    cfg.BUCKET_DIR_PATH = os.path.join(tmp, tag, "buckets")
+    cfg.TMP_DIR_PATH = os.path.join(tmp, tag, "tmp")
+    for k, v in knobs.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+class NodeCloseLoad:
+    """BASELINE.md's close shape, signed once for every leg: NODE_ACCOUNTS
+    accounts created by root-signed txs (100 creates a tx, 2000 a ledger,
+    the first ledger carrying a MAX_TX_SET_SIZE upgrade), then rounds of
+    NODE_TXS single-signer payments from distinct accounts.  A signature
+    depends only on the network id, the source, the sequence number and
+    the operations, so the envelopes serve every leg; each leg wraps them in
+    fresh frames."""
+
+    def __init__(self, fx, network_id, fee):
+        from stellar_tpu_torch.crypto.keys import SecretKey
+        from stellar_tpu_torch.tx.frame import TransactionFrame
+        from stellar_tpu_torch.xdr import txs as X
+        from stellar_tpu_torch.xdr.xtypes import PublicKey
+
+        self.network_id = network_id
+        seeds = [_account_seed(i + 1) for i in range(NODE_ACCOUNTS)]
+        pks = [pk for pk, _ in fx.sign([(sd, []) for sd in seeds])]
+        ids = [PublicKey.from_ed25519(pk) for pk in pks]
+
+        def envelope(src, seq, ops):
+            tx = X.Transaction(sourceAccount=src, fee=fee * len(ops), seqNum=seq,
+                               timeBounds=None, memo=X.Memo.none(), operations=ops, ext=0)
+            env = X.TransactionEnvelope(tx, [])
+            return env, TransactionFrame(network_id, env).get_contents_hash()
+
+        def sign(env, pk, sig):
+            env.signatures.append(X.DecoratedSignature(pk[-4:], sig))
+
+        root = SecretKey.from_seed(network_id)
+        root_seq = 0
+        self.create_ledgers = []
+        created_at = [0] * NODE_ACCOUNTS
+        for lo in range(0, NODE_ACCOUNTS, NODE_CREATE_PER_LEDGER):
+            ledger_envs = []
+            for i in range(lo, min(lo + NODE_CREATE_PER_LEDGER, NODE_ACCOUNTS), NODE_CREATE_PER_TX):
+                root_seq += 1
+                ops = [X.Operation(None, X.OperationBody(
+                    X.OperationType.CREATE_ACCOUNT, X.CreateAccountOp(ids[j], 10**10)))
+                    for j in range(i, min(i + NODE_CREATE_PER_TX, NODE_ACCOUNTS))]
+                env, h = envelope(root.get_public_key(), root_seq, ops)
+                sign(env, root.public_raw, root.sign(h))
+                ledger_envs.append(env)
+            for j in range(lo, min(lo + NODE_CREATE_PER_LEDGER, NODE_ACCOUNTS)):
+                created_at[j] = 2 + len(self.create_ledgers)
+            self.create_ledgers.append(ledger_envs)
+        self.rounds = [[None] * NODE_TXS for _ in range(NODE_ROUNDS + 1)]
+        jobs = []
+        for i in range(NODE_TXS):
+            hashes = []
+            for r in range(NODE_ROUNDS + 1):
+                op = X.Operation(None, X.OperationBody(
+                    X.OperationType.PAYMENT, X.PaymentOp(ids[i + 1], X.Asset.native(), 1000)))
+                env, h = envelope(ids[i], (created_at[i] << 32) + 1 + r, [op])
+                self.rounds[r][i] = env
+                hashes.append(h)
+            jobs.append((seeds[i], hashes))
+        for i, (pk, sigs) in enumerate(fx.sign(jobs)):
+            for r, sig in enumerate(sigs):
+                sign(self.rounds[r][i], pk, sig)
+        ds = self.rounds[NODE_BAD_ROUND][NODE_BAD_INDEX].signatures[0]
+        ds.signature = bytes([ds.signature[0] ^ 1]) + ds.signature[1:]
+
+    def frames(self, envs):
+        from stellar_tpu_torch.tx.frame import TransactionFrame
+
+        return [TransactionFrame(self.network_id, env) for env in envs]
+
+
+def _node_counts(reset=False):
+    """The kernels' launch counts, their plain versions' call counts, the
+    eager ref25519 verifies — set to 0 when ``reset``."""
+    from stellar_tpu_torch.crypto import keys
+    from stellar_tpu_torch.ops import ed25519 as ed
+    from stellar_tpu_torch.ops import ed25519_cuda as ec
+    from stellar_tpu_torch.ops import sha256 as t256
+    from stellar_tpu_torch.ops import sha256_cuda as c256
+    from stellar_tpu_torch.ops import sha512 as tsha
+    from stellar_tpu_torch.ops import sha512_cuda as sc
+
+    if reset:
+        ec.launches = sc.launches = c256.launches = 0
+        ed.plain_calls = tsha.plain_calls = t256.plain_calls = 0
+        keys.reset_stats()
+        keys.PubKeyUtils.clear_verify_sig_cache()
+        return None
+    return {
+        "launches": {"ed25519_verify": ec.launches, "sha512_h": sc.launches,
+                     "sha256_frames": c256.launches},
+        "plain_calls": {"ed25519": ed.plain_calls, "sha512": tsha.plain_calls,
+                        "sha256": t256.plain_calls},
+        "eager_ref_verifies": keys.stats()["eager_ref_verifies"],
+    }
+
+
+def _stalls(stats):
+    return stats["stall_rejected_items"] + sum(stats["wedge_latch_flips"].values())
+
+
+def node_close_leg(load, tmp, leg, device, device_hash, untimed_close):
+    """One standalone validator: the account ledgers, NODE_ROUNDS timed
+    closes (``TxSetFrame.check_valid`` + ``LedgerManager.close_ledger``, on
+    the card the next round registered as the close pipeline's prewarm
+    candidate, as bench.py times them), and the untimed extra close when
+    asked.  The plain leg registers no candidate: its prewarm would still
+    run when the next round's check_valid verifies the same signatures
+    again, twice the CPU work for the same hashes."""
+    from stellar_tpu_torch.herder.ledgerclose import LedgerCloseData
+    from stellar_tpu_torch.herder.txset import TxSetFrame
+    from stellar_tpu_torch.main.application import Application
+    from stellar_tpu_torch.util.clock import REAL_TIME, VirtualClock
+    from stellar_tpu_torch.xdr.base import xdr_to_opaque
+    from stellar_tpu_torch.xdr.ledger import LedgerUpgrade, LedgerUpgradeType, StellarValue
+
+    cfg = node_config(tmp, leg, device, DEVICE_HASH=device_hash,
+                      DESIRED_MAX_TX_PER_LEDGER=2 * NODE_TXS, INVARIANT_SAMPLED=True)
+    _node_counts(reset=True)
+    # REAL_TIME: the closes are driven synchronously and the spans must
+    # carry wall time (a virtual clock stands still between cranks)
+    app = Application.create(VirtualClock(REAL_TIME), cfg, new_db=True)
+    if device == "cpu":
+        # the plain verify of a 4096-lane chunk on the CPU outlasts the
+        # card's dispatch budget (15 s): give the plain leg room instead
+        # of a stall
+        inner = app.sig_backend.inner
+        inner.DEVICE_TIMEOUT = inner.DEVICE_FIRST_TIMEOUT = PLAIN_DISPATCH_BUDGET_S
+    lm = app.ledger_manager
+    hashes = []
+
+    def check(frames):
+        ts = TxSetFrame(lm.last_closed.hash, frames)
+        ts.sort_for_hash()
+        t0 = time.perf_counter()
+        ok = ts.check_valid(app)
+        return ts, ok, t0
+
+    def commit(ts, upgrades=()):
+        sv = StellarValue(ts.get_contents_hash(), lm.last_closed.header.scpValue.closeTime + 5,
+                          list(upgrades), 0)
+        lm.close_ledger(LedgerCloseData(lm.current.header.ledgerSeq, ts, sv))
+        hashes.append(lm.last_closed.hash.hex())
+
+    try:
+        t_setup = time.perf_counter()
+        up = [xdr_to_opaque(LedgerUpgrade(LedgerUpgradeType.LEDGER_UPGRADE_MAX_TX_SET_SIZE,
+                                          2 * NODE_TXS))]
+        for envs in load.create_ledgers:
+            ts, ok, _ = check(load.frames(envs))
+            assert ok, f"{leg}: an account-creation txset is invalid"
+            commit(ts, up)
+            up = []
+        setup_s = time.perf_counter() - t_setup
+        app.tracer.clear()
+        rounds = [load.frames(envs) for envs in load.rounds]
+        times = []
+        for r in range(NODE_ROUNDS):
+            ts, ok, t0 = check(rounds[r])
+            if device == "cuda" and r + 1 < NODE_ROUNDS + untimed_close:
+                app.close_pipeline.note_upcoming(rounds[r + 1])
+            commit(ts)
+            times.append(time.perf_counter() - t0)
+            assert ok == (r != NODE_BAD_ROUND), f"{leg}: payment round {r}'s txset check: {ok}"
+        bad_tx = rounds[NODE_BAD_ROUND][NODE_BAD_INDEX].get_result_code().name
+        spans = {name: agg["p50_ms"] for name, agg in app.tracer.aggregates().items()
+                 if name.startswith(("close.", "sig.", "ledger.", "txset."))}
+        if untimed_close:
+            ts, ok, _ = check(rounds[NODE_ROUNDS])
+            assert ok, f"{leg}: the untimed round is invalid"
+            commit(ts)
+        counts = _node_counts()
+        stats = app.sig_backend.stats()
+        applied = app.database.query_one("SELECT COUNT(*) FROM txhistory")[0]
+    finally:
+        app.graceful_stop()
+    line = {
+        "phase": "node_close", "leg": leg, "device": device, "device_hash": device_hash,
+        "accounts": NODE_ACCOUNTS, "txs_per_close": NODE_TXS, "timed_closes": len(times),
+        "close_ms": [t * 1e3 for t in times], "p50_ms": _p(times, 0.5) * 1e3,
+        "p95_ms": _p(times, 0.95) * 1e3, "span_p50_ms": spans, "setup_s": setup_s,
+        "txs_applied": applied, "bad_tx": bad_tx, **counts, "stalls": _stalls(stats),
+        "cpu_cutover_items": stats["cpu_cutover_items"], "ledger_hashes": hashes,
+        "pipeline": app.close_pipeline.stats(),
+    }
+    emit(line)
+    return line
+
+
+def phase_node_close(fx, tmp):
+    """``node_close``: BASELINE.md's 5000-tx single-signer ledger through a
+    standalone validator, three legs on one set of envelopes: the card with
+    host hashing, the card with DEVICE_HASH, and the plain versions on the
+    CPU (timed closes only).  Header hashes equal across the legs, and the
+    payment with the flipped signature byte fails txBAD_AUTH on each."""
+    from stellar_tpu_torch.crypto import sha256
+    from stellar_tpu_torch.tx import testutils as T
+
+    t0 = time.perf_counter()
+    network_id = sha256(T.TEST_PASSPHRASE.encode())
+    load = NodeCloseLoad(fx, network_id, fee=NODE_BASE_FEE)
+    emit({"phase": "node_close", "fixtures_s": time.perf_counter() - t0,
+          "signatures": NODE_TXS * (NODE_ROUNDS + 1), "libsodium": fx.sodium})
+    card = node_close_leg(load, tmp, "card", "cuda", False, untimed_close=True)
+    card_dh = node_close_leg(load, tmp, "card_device_hash", "cuda", True, untimed_close=True)
+    plain = node_close_leg(load, tmp, "plain", "cpu", False, untimed_close=False)
+    n_timed = len(load.create_ledgers) + NODE_ROUNDS
+    assert card["ledger_hashes"] == card_dh["ledger_hashes"], "card legs disagree"
+    assert card["ledger_hashes"][:n_timed] == plain["ledger_hashes"], "card and plain disagree"
+    assert [ln["bad_tx"] for ln in (card, card_dh, plain)] == ["txBAD_AUTH"] * 3
+    for line in (card, card_dh):
+        assert line["launches"]["ed25519_verify"] > 0, f"{line['leg']}: no verify launch"
+        assert line["plain_calls"] == {"ed25519": 0, "sha512": 0, "sha256": 0}, line["plain_calls"]
+        assert line["stalls"] == 0 and line["cpu_cutover_items"] == 0, line
+        n_create = sum(len(envs) for envs in load.create_ledgers)
+        assert line["txs_applied"] == n_create + NODE_TXS * (NODE_ROUNDS + 1), line["txs_applied"]
+    assert card["launches"]["sha512_h"] == 0 and card_dh["launches"]["sha512_h"] > 0
+    assert plain["launches"]["ed25519_verify"] == 0 and plain["plain_calls"]["ed25519"] > 0
+    emit({"phase": "node_close", "hashes_equal": True, "bad_tx": "txBAD_AUTH",
+          "ledgers": len(card["ledger_hashes"]),
+          "p50_ms": {ln["leg"]: ln["p50_ms"] for ln in (card, card_dh, plain)}})
+    return {"ed25519_verify": card["launches"]["ed25519_verify"] + card_dh["launches"]["ed25519_verify"],
+            "sha512_h": card_dh["launches"]["sha512_h"]}
+
+
+def consensus_run(tmp, tag, device, n_accounts, n_txs, rate, bucket_hash_node=None):
+    """Three validators (threshold 2, all running, CoreTests.cpp:46) over the
+    loopback overlay on one virtual clock, a ``LoadGenerator(seed=1337)``
+    load on the first; cranked until the load is submitted and every node
+    has closed CONSENSUS_LEDGERS, then two more ledgers so the submitted
+    txs apply.  Returns the ledger hashes (per node), counts and stats."""
+    from stellar_tpu_torch.bucket import hashplane
+    from stellar_tpu_torch.crypto.keys import SecretKey
+    from stellar_tpu_torch.ledger.headerframe import LedgerHeaderFrame
+    from stellar_tpu_torch.simulation import OVER_LOOPBACK, LoadGenerator, Simulation
+    from stellar_tpu_torch.tx import testutils as T
+    from stellar_tpu_torch.xdr.scp import SCPQuorumSet
+
+    _node_counts(reset=True)
+    keys = [SecretKey.pseudo_random_for_testing(i + 1) for i in range(3)]
+    qset = SCPQuorumSet(2, [k.get_public_key() for k in keys], [])
+    sim = Simulation(OVER_LOOPBACK)
+    for i, k in enumerate(keys):
+        cfg = T.get_test_config(sim._next_instance, backend="gpu")
+        cfg.SIG_DEVICE = device
+        cfg.SIG_BATCH_MAX = LANES
+        cfg.DEVICE_BUCKET_HASH = i == bucket_hash_node
+        cfg.BUCKET_DIR_PATH = os.path.join(tmp, tag, f"buckets{i}")
+        cfg.TMP_DIR_PATH = os.path.join(tmp, tag, f"tmp{i}")
+        sim.add_node(k, qset, cfg=cfg)
+    for a, b in ((0, 1), (1, 2), (2, 0)):
+        sim.add_pending_connection(keys[a], keys[b])
+    t0 = time.perf_counter()
+    try:
+        sim.start_all_nodes()
+        app = sim.get_node(keys[0])
+        lg = LoadGenerator(seed=1337)
+        lg.generate_load(app, n_accounts, n_txs, rate=rate)
+        ok = sim.crank_until(
+            lambda: lg.is_done() and sim.have_all_externalized(CONSENSUS_LEDGERS), 3600)
+        assert ok, f"{tag}: nodes stuck at {sim.ledger_nums()}"
+        last = min(sim.ledger_nums()) + 2
+        assert sim.crank_until(lambda: sim.have_all_externalized(last), 600), sim.ledger_nums()
+        wall = time.perf_counter() - t0
+        assert sim.all_ledgers_agree(), f"{tag}: the nodes disagree"
+        top = min(sim.ledger_nums())
+        hashes = [[LedgerHeaderFrame.load_by_sequence(n.database, s).get_hash().hex()
+                   for s in range(2, top + 1)] for n in sim.nodes.values()]
+        counts = _node_counts()
+        stats = [n.sig_backend.stats() for n in sim.nodes.values()]
+        applied = [n.database.query_one("SELECT COUNT(*) FROM txhistory")[0]
+                   for n in sim.nodes.values()]
+        bucket_backends = [hashplane.get_backend(n.config).name for n in sim.nodes.values()]
+    finally:
+        sim.stop_all_nodes()
+    return {"hashes": hashes, "counts": counts, "stats": stats, "applied": applied,
+            "wall_s": wall, "virtual_s": sim.clock.now(), "ledgers": top,
+            "bucket_backends": bucket_backends}
+
+
+class VerifyTap:
+    """While installed, every verify kernel launch keeps a copy of its
+    input chunk and its verdicts (on the card, on the launch's stream), so
+    a run's verdicts can be held against the plain version afterwards.  It
+    wraps the wrapper: the launch count is the wrapper's own."""
+
+    def __init__(self):
+        from stellar_tpu_torch.ops import ed25519_cuda
+
+        self.mod = ed25519_cuda
+        self.launch = ed25519_cuda.verify_packed
+        self.calls = []
+
+    def __enter__(self):
+        def tapped(p):
+            out = self.launch(p)
+            self.calls.append((p.clone(), out.clone()))
+            return out
+
+        self.mod.verify_packed = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.verify_packed = self.launch
+
+    def check(self):
+        """The plain version over every kept chunk, in LANES-lane calls on
+        the card: lanes, accepts, mismatches and seconds."""
+        import torch
+
+        from stellar_tpu_torch.ops import ed25519 as ed
+
+        torch.cuda.synchronize()
+        packed = torch.cat([p for p, _ in self.calls], dim=1)
+        kernel = torch.cat([v for _, v in self.calls])
+        t0 = time.perf_counter()
+        plain = torch.cat([ed._verify_packed(packed[:, i:i + LANES].contiguous())
+                           for i in range(0, packed.shape[1], LANES)])
+        torch.cuda.synchronize()
+        return {"launches": len(self.calls), "lanes": int(packed.shape[1]),
+                "accepts": int(kernel.sum()), "mismatches": int((kernel != plain).sum()),
+                "plain_s": time.perf_counter() - t0}
+
+
+def phase_node_consensus(tmp):
+    """``node_consensus``: three validators on the card under a
+    CONSENSUS_ACCOUNTS-account, CONSENSUS_TXS-payment load, the first node
+    with DEVICE_BUCKET_HASH (B3 in the node), every verify launch's verdicts
+    held against the plain version afterwards; then a smaller load of the
+    same seeded run on the card and on the plain versions, hash for hash
+    (the plain version costs ~1 s a call on the CPU whatever the batch, and
+    the full load makes ~1350 calls)."""
+    with VerifyTap() as tap:
+        full = consensus_run(tmp, "consensus", "cuda", CONSENSUS_ACCOUNTS, CONSENSUS_TXS,
+                             CONSENSUS_RATE, bucket_hash_node=0)
+    c = full["counts"]
+    emit({"phase": "node_consensus", "run": "card", "accounts": CONSENSUS_ACCOUNTS,
+          "payments": CONSENSUS_TXS, "ledgers": full["ledgers"], "txs_applied": full["applied"],
+          "wall_s": full["wall_s"], "virtual_s": full["virtual_s"], **c,
+          "stalls": sum(_stalls(st) for st in full["stats"]),
+          "device_calls": [st["device_calls"] for st in full["stats"]],
+          "bucket_backends": full["bucket_backends"], "ledger_hashes": full["hashes"][0]})
+    assert full["ledgers"] >= CONSENSUS_LEDGERS
+    assert all(h == full["hashes"][0] for h in full["hashes"])
+    assert c["launches"]["ed25519_verify"] > 0 and c["launches"]["sha256_frames"] > 0, c
+    assert c["plain_calls"] == {"ed25519": 0, "sha512": 0, "sha256": 0}, c
+    assert all(_stalls(st) == 0 for st in full["stats"])
+    assert full["bucket_backends"] == ["device-cuda", "native", "native"], full["bucket_backends"]
+    verdicts = tap.check()
+    emit({"phase": "node_consensus", "run": "card", "verdicts_vs_plain": verdicts})
+    assert verdicts["launches"] == c["launches"]["ed25519_verify"], verdicts
+    assert verdicts["mismatches"] == 0, verdicts
+    pair = {}
+    for device in ("cuda", "cpu"):
+        run = consensus_run(tmp, f"pair-{device}", device, PAIR_ACCOUNTS, PAIR_TXS, PAIR_RATE)
+        pair[device] = run
+        emit({"phase": "node_consensus", "run": f"pair_{device}", "accounts": PAIR_ACCOUNTS,
+              "payments": PAIR_TXS, "ledgers": run["ledgers"], "txs_applied": run["applied"],
+              "wall_s": run["wall_s"], **run["counts"],
+              "stalls": sum(_stalls(st) for st in run["stats"]),
+              "ledger_hashes": run["hashes"][0]})
+    n = min(pair["cuda"]["ledgers"], pair["cpu"]["ledgers"]) - 1
+    assert n >= CONSENSUS_LEDGERS - 1
+    assert [h[:n] for h in pair["cuda"]["hashes"]] == [h[:n] for h in pair["cpu"]["hashes"]]
+    assert pair["cpu"]["counts"]["launches"]["ed25519_verify"] == 0
+    assert pair["cpu"]["counts"]["plain_calls"]["ed25519"] > 0
+    emit({"phase": "node_consensus", "pair_hashes_equal": n})
+    return {"ed25519_verify": c["launches"]["ed25519_verify"],
+            "sha256_frames": c["launches"]["sha256_frames"]}
+
+
 def sass_instructions(lib: str):
     """Machine instructions in the built library (cuobjdump), or None where
     the toolkit has no cuobjdump."""
@@ -896,17 +1341,21 @@ def phase_build():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(mods) + 1) as ex:
         futs = {name: ex.submit(timed, m.load_library) for name, m in mods.items()}
-        host = ex.submit(timed, native.load_sighash)
+        # the C host stage and the node's C engines (bucket merge, XDR
+        # codec, apply leg, half-aggregation): none may build inside a close
+        engines = {}
+        host = ex.submit(timed, lambda: engines.update(native.build_all()))
         secs = {name: f.result() for name, f in futs.items()}
         sighash_s = host.result()
+    assert all(engines.values()), f"a C engine did not build: {engines}"
     kernels = {}
     for name, m in mods.items():
         with open(m.library_path()[:-3] + ".log") as f:
             ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
         kernels[name] = {"s": secs[name], "ptxas": ptxas,
                          "sass_instructions": sass_instructions(m.library_path())}
-    emit({"phase": "build", "wall_s": time.perf_counter() - t0, "sighash_s": sighash_s,
-          "kernels": kernels})
+    emit({"phase": "build", "wall_s": time.perf_counter() - t0, "host_engines_s": sighash_s,
+          "host_engines": engines, "kernels": kernels})
 
 
 def main() -> int:
@@ -1009,12 +1458,25 @@ def main() -> int:
 
         phase_torsion(fx, rng, backend, [it[0] for it in ledger1[0][:TORSION_ENCS]])
 
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_node_") as tmp:
+            close_launches = phase_node_close(fx, tmp)
+
     bucket_launches = phase_bucket(buf, frames)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_node_") as tmp:
+        consensus_launches = phase_node_consensus(tmp)
 
     rows[0]["launches"] = launches["ed25519_verify"]
     rows[1]["launches"] = dh_launches["sha512_h"]
     rows[2]["launches"] = bucket_launches
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+    # each path's own count, set to 0 just before it and read just after
+    rows[0]["launches_by_path"] = {"main_path": launches["ed25519_verify"],
+                                   "node_close": close_launches["ed25519_verify"],
+                                   "node_consensus": consensus_launches["ed25519_verify"]}
+    rows[1]["launches_by_path"] = {"main_path_device_hash": dh_launches["sha512_h"],
+                                   "node_close": close_launches["sha512_h"]}
+    rows[2]["launches_by_path"] = {"bucket_hash": bucket_launches,
+                                   "node_consensus": consensus_launches["sha256_frames"]}
+    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
             "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{**{k: row[k] for k in keys}, "launch_floor_ms": floor_ms}
                                   for row in rows]}))

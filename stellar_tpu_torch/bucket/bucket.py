@@ -1,0 +1,376 @@
+"""Bucket — immutable, sorted, content-hashed XDR flat file of ledger entries
+(reference: src/bucket/Bucket.{h,cpp}, src/bucket/LedgerCmp.h).
+
+A bucket holds BucketEntry records (LIVEENTRY LedgerEntry | DEADENTRY
+LedgerKey) sorted by entry identity; its hash is the v2 state-plane hash
+(bucket/hashplane.py): SHA256 over the concatenated
+per-record digests, each digest the SHA256 of one full frame as written
+— parallelizable across device lanes / pthread tiles, unlike the raw
+stream hash it replaced.  The two construction paths are ``fresh`` (one
+ledger's live+dead batch, Bucket.cpp:322) and ``merge`` (single-pass
+2-way merge with shadow elision, Bucket.cpp:367-430).  ``apply`` replays
+a bucket into the SQL store for catchup-minimal (Bucket.cpp
+"Bucket::apply").
+
+Entry identity order is defined by (entry type, key XDR bytes) — canonical
+within this framework; hashes are framework-local, like the reference's are
+network-local.
+"""
+
+from __future__ import annotations
+
+import os
+import uuid
+from typing import Iterable, Iterator, List, Optional, Tuple
+
+from ..ledger.entryframe import ledger_key_of, store_add_or_change, store_delete_key
+from ..util import fs
+from . import hashplane
+from ..util.xdrstream import XDRInputFileStream, XDROutputFileStream
+from ..xdr.base import pack_many
+from ..xdr.entries import LedgerEntry
+from ..xdr.ledger import BucketEntry, BucketEntryType, LedgerKey
+
+ZERO_HASH = b"\x00" * 32
+
+# storage kill-points (util/fs.py): every durable bucket write is a
+# named fault-injection site for the kill-sweep / hard-kill chaos plane
+KP_FRESH = fs.register_durable_site(
+    "bucket.fresh", stages=(fs.STAGE_WRITE, fs.STAGE_STAGED),
+    doc="one ledger's fresh batch packed+staged as a tmp bucket file",
+)
+KP_MERGE = fs.register_durable_site(
+    "bucket.merge", stages=(fs.STAGE_WRITE, fs.STAGE_STAGED),
+    doc="python streaming merge writing the level-spill tmp bucket",
+)
+KP_NATIVE_MERGE = fs.register_durable_site(
+    "bucket.native-merge", stages=(fs.STAGE_STAGED,),
+    doc="C merge engine output fsynced before adoption",
+)
+
+
+def entry_identity(e: BucketEntry) -> Tuple[int, bytes]:
+    """Sort/identity key of a BucketEntry: live and dead entries with the
+    same LedgerKey compare equal (LedgerCmp.h BucketEntryIdCmp)."""
+    if e.type == BucketEntryType.LIVEENTRY:
+        k = ledger_key_of(e.value)
+    else:
+        k = e.value
+    return (int(k.type), k.value.to_xdr())
+
+
+class _Peekable:
+    """Iterator with 1-entry lookahead over (identity, BucketEntry) pairs."""
+
+    __slots__ = ("_it", "head")
+
+    def __init__(self, it: Iterator[BucketEntry]):
+        self._it = it
+        self.head: Optional[Tuple[Tuple[int, bytes], BucketEntry]] = None
+        self.advance()
+
+    def advance(self) -> None:
+        try:
+            e = next(self._it)
+            self.head = (entry_identity(e), e)
+        except StopIteration:
+            self.head = None
+
+
+def _shadowed(identity, shadow_iters: List[_Peekable]) -> bool:
+    """True if an entry with this identity appears in any shadow stream
+    (Bucket.cpp maybe_put): each shadow iterator advances monotonically —
+    the candidate stream is itself sorted, so one pass suffices."""
+    for si in shadow_iters:
+        while si.head is not None and si.head[0] < identity:
+            si.advance()
+        if si.head is not None and si.head[0] == identity:
+            return True
+    return False
+
+
+class Bucket:
+    """Immutable handle on one bucket file (possibly the empty bucket)."""
+
+    __slots__ = ("path", "hash", "objects")
+
+    def __init__(self, path: str = "", hash: bytes = ZERO_HASH, objects: int = 0):
+        self.path = path
+        self.hash = hash
+        self.objects = objects
+
+    def is_empty(self) -> bool:
+        return self.hash == ZERO_HASH
+
+    def get_hash(self) -> bytes:
+        return self.hash
+
+    def __iter__(self) -> Iterator[BucketEntry]:
+        if not self.path or not os.path.exists(self.path):
+            if self.hash != ZERO_HASH:
+                # a non-empty bucket with no backing file is always
+                # corruption — iterating it as empty would silently
+                # diverge the bucket-list hash
+                raise RuntimeError(
+                    f"bucket file missing for {self.hash.hex()}: {self.path!r}"
+                )
+            return
+        with XDRInputFileStream(self.path) as f:
+            while True:
+                e = f.read_one(BucketEntry)
+                if e is None:
+                    return
+                yield e
+
+    def contains_identity(self, e: BucketEntry) -> bool:
+        """Linear scan (reference containsBucketIdentity — test helper)."""
+        ident = entry_identity(e)
+        return any(entry_identity(x) == ident for x in self)
+
+    def apply(self, db) -> None:
+        """Replay entries into the SQL store (catchup-minimal path).  Buckets
+        are header-independent, so a throwaway header/delta is used."""
+        from ..ledger.delta import LedgerDelta
+        from ..xdr.ledger import LedgerHeader
+
+        if self.is_empty():
+            return
+        with db.transaction():
+            for e in self:
+                delta = LedgerDelta(LedgerHeader(), db, update_last_modified=False)
+                if e.type == BucketEntryType.LIVEENTRY:
+                    store_add_or_change(e.value, delta, db)
+                else:
+                    store_delete_key(e.value, delta, db)
+                delta.commit()
+
+    # -- construction ------------------------------------------------------
+    @staticmethod
+    def fresh(
+        bucket_manager,
+        live_entries: Iterable[LedgerEntry],
+        dead_entries: Iterable[LedgerKey],
+    ) -> "Bucket":
+        """One ledger's output batch as a bucket: dead keys win over live
+        entries of the same identity (Bucket.cpp:322-363 merges the dead
+        bucket as 'new').
+
+        The batch is merged/deduped as a list in Python (pure ordering
+        logic) and then packed through ONE ``pack_many`` call with RFC
+        5531 record framing — one buffer to hash and one write, instead
+        of a per-entry to_xdr + struct.pack + hasher.add + file write
+        (BucketList.add_batch
+        runs this once per close).  Differential-pinned against the
+        streaming ``_write_merged`` path in tests/test_bucket.py."""
+        live = [
+            (entry_identity(e), e)
+            for e in (
+                BucketEntry(BucketEntryType.LIVEENTRY, x) for x in live_entries
+            )
+        ]
+        dead = [
+            (entry_identity(k), k)
+            for k in (
+                BucketEntry(BucketEntryType.DEADENTRY, x) for x in dead_entries
+            )
+        ]
+        live.sort(key=lambda p: p[0])
+        dead.sort(key=lambda p: p[0])
+        merged = _merge_fresh_batch(live, dead)
+        if not merged:
+            return Bucket()
+        data = pack_many(merged, BucketEntry, frames=True)
+        tmp = os.path.join(
+            bucket_manager.get_tmp_dir(), f"tmp-bucket-{uuid.uuid4().hex}.xdr"
+        )
+        # v2 state-plane hash (hashplane.py): the packed buffer's frame
+        # boundaries are walked and every record digested in batch —
+        # device lanes or the pooled C tiles, per the backend knob
+        h, count = hashplane.hash_frames(
+            data, config=bucket_manager.app.config
+        )
+        assert count == len(merged)
+        # crash-safe staging (util/fs.py): write + fsync before adoption
+        # renames it to the content-addressed home — a kill at any point
+        # leaves either a reapable tmp or the complete file
+        fs.stage_write(
+            tmp, data, point=KP_FRESH, ctx=bucket_manager.app.database
+        )
+        return bucket_manager.adopt_file_as_bucket(tmp, h, len(merged))
+
+    @staticmethod
+    def merge(
+        bucket_manager,
+        old_bucket: "Bucket",
+        new_bucket: "Bucket",
+        shadows: Iterable["Bucket"] = (),
+        keep_dead_entries: bool = True,
+    ) -> "Bucket":
+        """Single-pass merge: new wins over old on identity collision; any
+        entry present in a shadow (younger level) is elided; DEADENTRYs are
+        dropped entirely when ``keep_dead_entries`` is false (bottom level).
+
+        File-backed inputs run through the native C engine (GIL-free on
+        worker threads, bit-identical output — tests/test_native_merge.py);
+        anything else falls back to the Python path."""
+        shadows = list(shadows)
+        native_result = _try_native_merge(
+            bucket_manager, old_bucket, new_bucket, shadows, keep_dead_entries
+        )
+        if native_result is not None:
+            return native_result
+        shadow_iters = [_Peekable(iter(s)) for s in shadows]
+        return _write_merged(
+            bucket_manager,
+            iter(old_bucket),
+            iter(new_bucket),
+            shadow_iters,
+            keep_dead_entries,
+        )
+
+
+def _merge_fresh_batch(live, dead):
+    """Merged (identity, BucketEntry) batch for one ledger: exactly the
+    record stream ``_write_merged(live, dead, shadows=[], keep_dead)``
+    emits — sorted by identity, dead (the 'new' stream) wins an identity
+    collision, and adjacent same-identity records collapse last-wins (the
+    reference's BucketOutputIterator::put dedup window, which makes a
+    batch containing duplicates hash identically to the deduplicated
+    batch).  Inputs are identity-decorated sorted lists; returns the
+    plain BucketEntry list for pack_many."""
+    out = []  # (identity, entry)
+
+    def put(pair):
+        if out and out[-1][0] == pair[0]:
+            out[-1] = pair
+        else:
+            out.append(pair)
+
+    i = j = 0
+    nl, nd = len(live), len(dead)
+    while i < nl or j < nd:
+        if j >= nd or (i < nl and live[i][0] < dead[j][0]):
+            put(live[i])
+            i += 1
+        elif i >= nl or dead[j][0] < live[i][0]:
+            put(dead[j])
+            j += 1
+        else:  # same identity: dead (new) wins
+            put(dead[j])
+            i += 1
+            j += 1
+    return [e for _, e in out]
+
+
+def _try_native_merge(
+    bucket_manager, old_bucket, new_bucket, shadows, keep_dead_entries
+):
+    """Run the merge in C if every participant is file-backed (or empty).
+    Returns the merged Bucket, or None to fall back to Python."""
+    from .. import native
+
+    # test/chaos knob: the kill-sweep drives the Python merge leg's
+    # kill-points through here (output is bit-identical either way,
+    # pinned by tests/test_native_merge.py)
+    if os.environ.get("STELLAR_TPU_NO_NATIVE_MERGE"):
+        return None
+
+    def path_of(b):
+        if b.is_empty():
+            return ""
+        return b.path if b.path and os.path.exists(b.path) else None
+
+    paths = [path_of(b) for b in (old_bucket, new_bucket, *shadows)]
+    if any(p is None for p in paths):
+        return None
+    tmp = os.path.join(
+        bucket_manager.get_tmp_dir(), f"tmp-bucket-{uuid.uuid4().hex}.xdr"
+    )
+    res = native.merge_files_v2(
+        paths[0], paths[1], paths[2:], keep_dead_entries, tmp
+    )
+    if res is None:
+        # engine unavailable, merge failed, or the .so predates the v2
+        # hash symbol: the Python merge below produces the identical
+        # record stream AND the identical v2 hash
+        return None
+    h, count = res
+    if count == 0:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        return Bucket()
+    # the C engine wrote with plain stdio: fsync before adoption renames
+    # it into the content-addressed namespace (util/fs.py discipline)
+    fs.fsync_path(tmp)
+    fs.kill_point(
+        KP_NATIVE_MERGE + fs.STAGE_STAGED, path=tmp,
+        ctx=bucket_manager.app.database,
+    )
+    return bucket_manager.adopt_file_as_bucket(tmp, h, count)
+
+
+def _write_merged(
+    bucket_manager,
+    old_it: Iterator[BucketEntry],
+    new_it: Iterator[BucketEntry],
+    shadow_iters: List[_Peekable],
+    keep_dead_entries: bool,
+) -> Bucket:
+    tmp = os.path.join(
+        bucket_manager.get_tmp_dir(), f"tmp-bucket-{uuid.uuid4().hex}.xdr"
+    )
+    # every write_one feeds the hasher exactly one full frame, which is
+    # the unit the v2 per-record-digest hash batches over
+    hasher = hashplane.BucketHasher(config=bucket_manager.app.config)
+    objects = 0
+    oi = _Peekable(old_it)
+    ni = _Peekable(new_it)
+    buffered = None  # (identity, entry): one-entry dedup window
+    with XDROutputFileStream(
+        tmp, hasher=hasher, durable=True, point=KP_MERGE,
+        ctx=bucket_manager.app.database,
+    ) as out:
+
+        def put(e: BucketEntry, identity) -> None:
+            """Buffer one entry so adjacent same-identity entries collapse
+            (last wins) — the reference's BucketOutputIterator::put does
+            the same, which is what makes a batch containing duplicates
+            hash identically to the deduplicated batch
+            (BucketTests.cpp:296 'duplicate bucket entries')."""
+            nonlocal buffered, objects
+            if e.type == BucketEntryType.DEADENTRY and not keep_dead_entries:
+                return
+            if _shadowed(identity, shadow_iters):
+                return
+            if buffered is not None and buffered[0] == identity:
+                buffered = (identity, e)
+                return
+            if buffered is not None:
+                out.write_one(buffered[1])
+                objects += 1
+            buffered = (identity, e)
+
+        while oi.head is not None or ni.head is not None:
+            if ni.head is None:
+                put(oi.head[1], oi.head[0])
+                oi.advance()
+            elif oi.head is None:
+                put(ni.head[1], ni.head[0])
+                ni.advance()
+            elif oi.head[0] < ni.head[0]:
+                put(oi.head[1], oi.head[0])
+                oi.advance()
+            elif ni.head[0] < oi.head[0]:
+                put(ni.head[1], ni.head[0])
+                ni.advance()
+            else:  # same identity: new wins
+                put(ni.head[1], ni.head[0])
+                oi.advance()
+                ni.advance()
+        if buffered is not None:
+            out.write_one(buffered[1])
+            objects += 1
+    if objects == 0:
+        os.unlink(tmp)
+        return Bucket()
+    return bucket_manager.adopt_file_as_bucket(tmp, hasher.finish(), objects)

@@ -21,19 +21,17 @@ against the JAX package's):
   above ``DEVICE_MAX_BLOCKS`` compression blocks spill to hashlib — same
   digests, merged in order.
 - ``native``  — ``native/sighash.c``'s ``sha256_batch`` /
-  ``bucket_hash_frames``: GIL-released, tile-fanned over the pthread pool.
-  The default whenever the extension builds.
+  ``bucket_hash_frames``: GIL-released, tile-fanned over the pthread pool;
+  a bucket file is hashed in one C pass by ``bucketmerge.c``
+  (``native.bucket_hash_v2_file``).  The default whenever the extension
+  builds.
 - ``hashlib`` — the always-available last resort (and the differential
   oracle), forced by ``STELLAR_TPU_NO_NATIVE_HASH=1``.
 
-Two differences from the JAX package, on purpose:
-
-- **No silent fallback from the device.**  With ``DEVICE_BUCKET_HASH`` on
-  and no CUDA, ``get_backend`` raises; the JAX package falls through to
-  the native backend.
-- ``NativeBackend.hash_file`` reads the file and calls
-  ``bucket_hash_frames``; the JAX package's one-pass C file hash
-  (``bucketmerge.c``) arrives with the bucket list.
+One difference from the JAX package, on purpose: **no silent fallback
+from the device.**  With ``DEVICE_BUCKET_HASH`` on, ``get_backend`` builds
+the device backend on the config's ``SIG_DEVICE`` ("cuda" unless set) and
+raises without CUDA; the JAX package falls through to the native backend.
 """
 
 from __future__ import annotations
@@ -134,6 +132,16 @@ class NativeBackend(BucketHashBackend):
         # one C call: frame walk + parallel digests + ordered combine
         return self._mod.bucket_hash_frames(bytes(buf))
 
+    def hash_file(self, path):
+        from .. import native
+
+        res = native.bucket_hash_v2_file(path)
+        if res is not None:
+            return res
+        # C reported failure (unreadable or malformed): re-walk in
+        # Python for the precise verdict (raises ValueError on corrupt)
+        return super().hash_file(path)
+
 
 class DeviceBackend(BucketHashBackend):
     """The batched multi-block SHA-256 kernel (``ops/sha256_cuda.py``).
@@ -217,6 +225,12 @@ class _Stats:
                 "backend": self._backend_name,
             }
 
+    @staticmethod
+    def rate_mb_per_sec(before: dict, after: dict) -> float:
+        db = after["bytes"] - before["bytes"]
+        dt = after["seconds"] - before["seconds"]
+        return round(db / dt / 1e6, 1) if dt > 0 else 0.0
+
 
 stats = _Stats()
 
@@ -224,10 +238,10 @@ _cache_lock = threading.Lock()
 _cache: dict = {}  # guarded by _cache_lock
 
 
-def backend_by_name(name: str) -> Optional[BucketHashBackend]:
+def backend_by_name(name: str, device="cuda") -> Optional[BucketHashBackend]:
     """An explicit backend instance; None when the native extension does
-    not build here.  ``"device"`` runs on the card and raises without
-    CUDA."""
+    not build here.  ``"device"`` runs on ``device`` and raises without
+    CUDA unless that is "cpu"."""
     if name == "hashlib":
         return HashlibBackend()
     if name == "native":
@@ -238,24 +252,25 @@ def backend_by_name(name: str) -> Optional[BucketHashBackend]:
         except RuntimeError:  # no C toolchain: hashlib gives the same hash
             return None
     if name == "device":
-        return DeviceBackend()
+        return DeviceBackend(device=device)
     raise ValueError(f"unknown bucket hash backend {name!r}")
 
 
 def get_backend(config=None) -> BucketHashBackend:
     """Resolve the active backend: device when ``DEVICE_BUCKET_HASH`` is
-    set on ``config`` (raising without CUDA), else native when the
-    extension builds, else hashlib."""
+    set on ``config`` (on its ``SIG_DEVICE``, raising without CUDA), else
+    native when the extension builds, else hashlib."""
     want_device = bool(config is not None and getattr(config, "DEVICE_BUCKET_HASH", False))
+    device = str(getattr(config, "SIG_DEVICE", "cuda")) if want_device else None
     no_native = bool(os.environ.get("STELLAR_TPU_NO_NATIVE_HASH"))
-    key = (want_device, no_native)
+    key = (device, no_native)
     with _cache_lock:
         hit = _cache.get(key)
     if hit is not None:
         return hit
     backend: Optional[BucketHashBackend] = None
     if want_device:
-        backend = backend_by_name("device")
+        backend = backend_by_name("device", device=device)
     elif not no_native:
         backend = backend_by_name("native")
     if backend is None:

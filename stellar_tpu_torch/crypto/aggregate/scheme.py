@@ -1,0 +1,300 @@
+"""The SCP signature-scheme seam — how envelope verification is dispatched.
+
+``Config.SCP_SIG_SCHEME`` selects, per node (i.e. per the quorum set this
+validator faces), which scheme serves the overlay's per-crank SCP envelope
+batch flush:
+
+- ``"ed25519"`` (default): the reference path, byte-for-byte — one
+  ``SigBackend.verify_batch`` over the whole batch (CALLER_OVERLAY), the
+  TPU batch plane / SIG_MESH dispatch and the shared verify cache exactly
+  as before this seam existed.
+- ``"ed25519-halfagg"``: the aggregate-signature consensus plane.  The
+  flush groups its cache-miss envelopes into per-slot aggregation buckets
+  (a slot's ballots are one statement list), strict-gates each item, and
+  verifies each bucket with ONE half-aggregation MSM check
+  (crypto/aggregate/halfagg.py) instead of one batch lane per signature.
+  A bucket whose aggregate check fails — any invalid signature, hostile
+  point (including a mixed-torsion A or R, against which the cofactorless
+  MSM alone would only be 1/8-sound; halfagg.py proves every trusted
+  point prime-order), 2^-128 bad luck — FALLS BACK to the per-envelope
+  SigBackend for that bucket, so per-item verdicts are always
+  bit-identical to the reference path: honest buckets pay one aggregate
+  check, poisoned buckets pay aggregate + the reference cost
+  (arXiv:2302.00418's speculative-aggregate-verify shape; the TPU batch
+  plane stays the non-aggregatable fallback per arXiv:2604.17808).
+  Items whose pubkey is negative-cached as permanently unusable
+  (undecodable or torsioned — properties libsodium itself may tolerate
+  on crafted signatures) are routed per-item BEFORE bucketing, so one
+  hostile key poisons a bucket only on first sight.
+
+Cache contract: both schemes latch VALID verdicts only into the shared
+verify cache (the flood-defense latch contract).  The aggregate
+path's latch happens right here in ``HalfAggScheme`` — an
+analysis-recognized latch class (stellar_tpu/analysis/rules.py
+``cache-latch``) because an aggregate-accepted bucket's verdicts were
+just computed synchronously on the caller's thread against live state;
+there is no async future to quarantine.  The fallback path latches
+through ``CachingSigBackend`` like every other batch, so the wedge-latch
+(per caller class) and quarantine contracts hold unchanged.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from ...trace import NULL_TRACER
+from ..sigbackend import CALLER_OVERLAY
+from . import halfagg
+
+VerifyTriple = Tuple[bytes, bytes, bytes]
+
+
+class ScpSigScheme:
+    """Per-envelope reference scheme — the seam's identity element."""
+
+    name = "ed25519"
+    # the close pipeline's per-envelope async SCP prewarm only helps a
+    # scheme that will verify per-envelope anyway; the aggregate scheme
+    # opts out (a prewarm would pre-latch every verdict and starve the
+    # aggregate path of its batch)
+    wants_envelope_prewarm = True
+
+    def __init__(self, backend, cache, tracer=None):
+        self.backend = backend
+        self.cache = cache
+        self._tracer = tracer if tracer is not None else NULL_TRACER
+        # wall the envelope-verification plane steals from the crank —
+        # the number the chaos plane's flood A/B compares across schemes
+        # (a flooded 1-core node wedges when this approaches the crank
+        # budget; telemetry only, never in a replay digest)
+        self.verify_wall_ms = 0.0
+        self.n_flush_envelopes = 0
+
+    def verify_flush(
+        self, items: Sequence[VerifyTriple], slots: Sequence[int]
+    ) -> List[bool]:
+        """Verdicts for one overlay batch flush; ``slots`` carries each
+        item's slot index (the aggregate scheme's bucket key — unused
+        here)."""
+        t0 = time.perf_counter()
+        out = self.backend.verify_batch(items, caller=CALLER_OVERLAY)
+        self.verify_wall_ms += (time.perf_counter() - t0) * 1000.0
+        self.n_flush_envelopes += len(items)
+        return out
+
+    def verify_envelope_cached(self, key, signature: bytes, msg: bytes) -> bool:
+        """The herder's eager single-envelope check (recv gate + SCP's
+        own pre-process verify).  Single envelopes have nothing to
+        aggregate with, so BOTH schemes serve them from the per-envelope
+        plane — after a batch flush this is a warm-cache hit either way."""
+        from ..keys import PubKeyUtils
+
+        return PubKeyUtils.verify_sig(key, signature, msg)
+
+    def stats(self) -> dict:
+        return {
+            "scheme": self.name,
+            "flush_envelopes": self.n_flush_envelopes,
+            "verify_wall_ms": round(self.verify_wall_ms, 2),
+        }
+
+
+class HalfAggScheme(ScpSigScheme):
+    """Slot-bucketed half-aggregation with per-envelope fallback."""
+
+    name = "ed25519-halfagg"
+    wants_envelope_prewarm = False
+
+    # below this many cache-miss items in a slot bucket, the MSM setup
+    # (transcript hashing + decompress) costs more than looping libsodium
+    # — lone envelopes and thin slots ride the reference path
+    MIN_AGG = 4
+
+    def __init__(self, backend, cache, tracer=None, point_cache=None):
+        super().__init__(backend, cache, tracer=tracer)
+        # decoded validator keys (A_i) memoized across slots — the
+        # validator set is stable, so steady state decompresses only
+        # each envelope's fresh R
+        self.point_cache = (
+            point_cache if point_cache is not None else halfagg.PointCache()
+        )
+        self.n_agg_checks = 0
+        self.n_agg_passed = 0
+        self.n_agg_envelopes = 0
+        self.n_fallback_envelopes = 0
+        self.n_gate_rejects = 0
+        self.n_small_buckets = 0
+        self.n_unaggregatable = 0  # negative-cached A: per-item, pre-bucket
+        self.n_r_proof_points = 0  # post-MSM fresh-R proofs routed below
+
+    def verify_flush(
+        self, items: Sequence[VerifyTriple], slots: Sequence[int]
+    ) -> List[bool]:
+        t0 = time.perf_counter()
+        items = list(items)
+        n = len(items)
+        sp = self._tracer.begin("scp.agg_flush")
+        keys = [
+            self.cache.key_for(pk, sig, msg) for pk, msg, sig in items
+        ]
+        cached = self.cache.peek_many(keys)
+        verdicts: List[Optional[bool]] = [
+            bool(c) if c is not None else None for c in cached
+        ]
+        # per-slot aggregation buckets over the cache misses — one slot's
+        # ballots are one jointly-verified statement list
+        buckets: Dict[int, List[int]] = {}
+        for i, v in enumerate(verdicts):
+            if v is None:
+                buckets.setdefault(slots[i], []).append(i)
+        fallback: List[int] = []
+        n_checks = n_passed = n_agg = n_gate = n_small = n_unagg = 0
+        for slot, idxs in buckets.items():
+            if len(idxs) < self.MIN_AGG:
+                n_small += len(idxs)
+                fallback.extend(idxs)
+                continue
+            gate_ok = self._gate([items[i] for i in idxs])
+            for i, ok in zip(idxs, gate_ok):
+                if not ok:
+                    # outside libsodium's accept set — same verdict the
+                    # reference path would return, at gate cost
+                    verdicts[i] = False
+                    n_gate += 1
+            eligible = [i for i, ok in zip(idxs, gate_ok) if ok]
+            # pubkeys negative-cached as permanently unusable (undecodable
+            # or torsioned) can never aggregate but CAN carry signatures
+            # libsodium accepts — per-item verdicts, without letting one
+            # such key poison this bucket every flush
+            a_vals = self.point_cache.get_many(
+                [items[i][0] for i in eligible]
+            )
+            bad_a = [i for i, v in zip(eligible, a_vals) if v is None]
+            if bad_a:
+                n_unagg += len(bad_a)
+                fallback.extend(bad_a)
+                eligible = [
+                    i for i, v in zip(eligible, a_vals) if v is not None
+                ]
+            if len(eligible) < self.MIN_AGG:
+                n_small += len(eligible)
+                fallback.extend(eligible)
+                continue
+            n_checks += 1
+            if halfagg.verify_batch_aggregated(
+                [items[i] for i in eligible],
+                point_cache=self.point_cache,
+                gated=True,
+                torsion_prover=self._torsion_prover,
+            ):
+                n_passed += 1
+                n_agg += len(eligible)
+                for i in eligible:
+                    verdicts[i] = True
+                # valid-only latch, synchronously on the caller's thread:
+                # the aggregate check just proved every one of these
+                # signatures libsodium-valid (completeness is exact, and
+                # soundness is 2^-128 because every A and fresh R was
+                # proven prime-order before the MSM verdict counts), so
+                # invalid items can never reach this line — the bounded
+                # LRU stays un-pollutable under flood exactly like the
+                # reference path
+                self.cache.put_many((keys[i], True) for i in eligible)
+            else:
+                # poisoned bucket: per-item verdicts come from the
+                # reference plane (the caching backend latches its own
+                # valid-only results)
+                fallback.extend(eligible)
+        if fallback:
+            self.n_fallback_envelopes += len(fallback)
+            fresh = self.backend.verify_batch(
+                [items[i] for i in fallback], caller=CALLER_OVERLAY
+            )
+            for i, ok in zip(fallback, fresh):
+                verdicts[i] = bool(ok)
+        self.n_agg_checks += n_checks
+        self.n_agg_passed += n_passed
+        self.n_agg_envelopes += n_agg
+        self.n_gate_rejects += n_gate
+        self.n_small_buckets += n_small
+        self.n_unaggregatable += n_unagg
+        self._tracer.end(
+            sp,
+            batch=n,
+            cache_hits=sum(1 for c in cached if c is not None),
+            agg_checks=n_checks,
+            aggregated=n_agg,
+            fallback=len(fallback),
+        )
+        self.verify_wall_ms += (time.perf_counter() - t0) * 1000.0
+        self.n_flush_envelopes += n
+        return [bool(v) for v in verdicts]
+
+    def _torsion_prover(self, encs: Sequence[bytes], vals=None) -> List[bool]:
+        """Post-MSM fresh-R prime-order proofs, routed through the
+        backend's torsion surface (ROADMAP #3 remainder (a)): on the tpu
+        backend the verify kernel computes [L]·R == identity AS-IS as a
+        batch lane (~device marginal cost vs ~31 µs/point of host
+        ladder), under the SAME caller class (CALLER_OVERLAY) so the
+        wedge latch and cutover contracts hold; the cpu backend serves
+        the identical host ladder — on halfagg's already-decoded
+        ``vals``, no second decompress — verdicts bit-exact either
+        way."""
+        self.n_r_proof_points += len(encs)
+        return self.backend.torsion_check(
+            encs, caller=CALLER_OVERLAY, vals=vals
+        )
+
+    @staticmethod
+    def _gate(items: Sequence[VerifyTriple]) -> List[bool]:
+        """Vectorized strict gate + canonical-R (ref25519.agg_input_ok),
+        with a scalar fallback for malformed-length items."""
+        import numpy as np
+
+        from ...ops import ref25519 as ref
+
+        if any(len(pk) != 32 or len(sig) != 64 for pk, _, sig in items):
+            return [
+                len(pk) == 32
+                and len(sig) == 64
+                and ref.agg_input_ok(pk, sig)
+                for pk, _, sig in items
+            ]
+        pk = np.frombuffer(
+            b"".join(it[0] for it in items), dtype=np.uint8
+        ).reshape(-1, 32)
+        sig = np.frombuffer(
+            b"".join(it[2] for it in items), dtype=np.uint8
+        ).reshape(-1, 64)
+        return [bool(x) for x in ref.agg_input_ok_batch(pk, sig)]
+
+    def stats(self) -> dict:
+        return {
+            "scheme": self.name,
+            "flush_envelopes": self.n_flush_envelopes,
+            "verify_wall_ms": round(self.verify_wall_ms, 2),
+            "agg_checks": self.n_agg_checks,
+            "agg_passed": self.n_agg_passed,
+            "agg_envelopes": self.n_agg_envelopes,
+            "fallback_envelopes": self.n_fallback_envelopes,
+            "gate_rejects": self.n_gate_rejects,
+            "small_bucket_envelopes": self.n_small_buckets,
+            "unaggregatable_envelopes": self.n_unaggregatable,
+            "r_proof_points": self.n_r_proof_points,
+            "point_cache_entries": len(self.point_cache),
+            "native_msm": halfagg.native_available(),
+        }
+
+
+# the reference scheme under its registry name (the base class IS the
+# per-envelope dispatch)
+Ed25519Scheme = ScpSigScheme
+
+
+def make_scheme(name: str, backend, cache, tracer=None) -> ScpSigScheme:
+    if name == "ed25519":
+        return ScpSigScheme(backend, cache, tracer=tracer)
+    if name == "ed25519-halfagg":
+        return HalfAggScheme(backend, cache, tracer=tracer)
+    raise ValueError(f"unknown SCP_SIG_SCHEME {name!r}")

@@ -4,7 +4,7 @@ Every verify is expressed as a *batch* of (pubkey, msg, sig) triples so the
 hot paths (txset checks, SCP envelope flushes, ledger close, ingest) can
 flush hundreds-to-thousands of verifies at once onto the card.
 
-``make_backend("cpu" | "gpu")`` builds the inner backend and wraps it in the
+``make_backend("gpu" | "cpu")`` builds the inner backend and wraps it in the
 shared verify cache, so eager single verifies and batch verifies share
 memoization like the reference's gVerifySigCache.  The gpu backend runs the
 port's BatchVerifier (``ops/ed25519.py``) on the hand-written CUDA kernel.
@@ -572,13 +572,14 @@ class GpuSigBackend(SigBackend):
 
 
 def make_backend(
-    kind: str = "cpu",
+    kind: str = "gpu",
     cache: VerifySigCache = None,
     tracer=None,
     **kw,
 ) -> SigBackend:
     """The node's verify backend, wrapped in the verify cache (the global
-    one unless ``cache`` is given).  ``kw`` goes to GpuSigBackend —
+    one unless ``cache`` is given): the card's kernels by default, libsodium
+    for ``"cpu"``.  ``kw`` goes to GpuSigBackend —
     ``device="cpu"`` runs the plain PyTorch version, ``device_hash=True``
     hashes single-block messages on the card."""
     if kind == "cpu":

@@ -3,21 +3,34 @@
 The reference links libsodium statically (lib/libsodium submodule); we bind
 the shared library.  ``crypto_sign_verify_detached`` here is the bit-exactness
 oracle the GPU backend (stellar_tpu_torch/ops) must agree with on every input.
+
+The GPU machine has no libsodium.  There the peer-auth primitives run without
+it: ``randombytes`` reads ``os.urandom`` and ``scalarmult``/``scalarmult_base``
+run the pure-Python RFC 7748 X25519 (``x25519.py``), which refuses an
+all-zero shared secret as libsodium does.  Signing, verifying and the
+verify function's address still need libsodium (``crypto/keys.py`` and the
+cpu backend decide what runs without it).
 """
 
 from __future__ import annotations
 
 import ctypes
 import ctypes.util
+import os
 from typing import Optional
 
+from . import x25519
+
 _lib: Optional[ctypes.CDLL] = None
+_missing = False  # a failed search is not repeated (find_library is slow)
 
 
 def _load() -> ctypes.CDLL:
-    global _lib
+    global _lib, _missing
     if _lib is not None:
         return _lib
+    if _missing:
+        raise RuntimeError("libsodium not found")
     name = ctypes.util.find_library("sodium")
     for cand in ([name] if name else []) + [
         "libsodium.so.23",
@@ -32,6 +45,7 @@ def _load() -> ctypes.CDLL:
             raise RuntimeError("sodium_init failed")
         _lib = lib
         return lib
+    _missing = True
     raise RuntimeError("libsodium not found")
 
 
@@ -93,6 +107,8 @@ def verify_fn_addr() -> int:
 
 
 def randombytes(n: int) -> bytes:
+    if not available():
+        return os.urandom(n)
     lib = _load()
     buf = ctypes.create_string_buffer(n)
     lib.randombytes_buf(buf, ctypes.c_size_t(n))
@@ -100,6 +116,8 @@ def randombytes(n: int) -> bytes:
 
 
 def scalarmult_base(secret32: bytes) -> bytes:
+    if not available():
+        return x25519.scalarmult_base(secret32)
     lib = _load()
     out = ctypes.create_string_buffer(32)
     if lib.crypto_scalarmult_base(out, secret32) != 0:
@@ -108,6 +126,8 @@ def scalarmult_base(secret32: bytes) -> bytes:
 
 
 def scalarmult(secret32: bytes, public32: bytes) -> bytes:
+    if not available():
+        return x25519.scalarmult(secret32, public32)
     lib = _load()
     out = ctypes.create_string_buffer(32)
     if lib.crypto_scalarmult(out, secret32, public32) != 0:

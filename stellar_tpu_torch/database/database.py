@@ -1,0 +1,443 @@
+"""SQL hot-state store (reference: src/database/Database.{h,cpp} over SOCI).
+
+sqlite3-backed by default (the reference's default is
+``sqlite3://:memory:`` too), with a gated live postgres path: a
+``postgresql://`` connection string connects through whichever DB-API
+driver the host environment already has (psycopg / psycopg2 / pg8000 —
+nothing is installed for it) wrapped in a thin adapter that restores the
+sqlite3 connection surface the hot paths use (``execute`` returning a
+cursor, ``executemany``, ``total_changes``).  ``STELLAR_TPU_PG_DSN``
+substitutes for the sentinel strings ``postgresql://`` /
+``postgresql://env`` so test/config plumbing can opt in from the
+environment.  Provides:
+
+- connection-string parsing ("sqlite3://:memory:" | "sqlite3://<path>"
+  | "postgresql://<dsn>")
+- nested transactions via a SAVEPOINT stack — the reference nests a SQL
+  savepoint per transaction-apply inside the ledger-close transaction
+  (TransactionFrame.cpp:439-495)
+- per-query-name medida timers (Database.h getQueryTimer)
+- schema creation/versioning distributed across subsystems' ``drop_all``
+  (Database.cpp:247-256, upgradeToCurrentSchema)
+"""
+
+from __future__ import annotations
+
+import os
+import sqlite3
+import time
+from contextlib import contextmanager
+from typing import Any, Iterable, List, Optional, Tuple
+
+from ..util import fs
+from .dialect import dialect_for, load_pg_driver
+
+SCHEMA_VERSION = 1
+
+# the outermost COMMIT is THE durable boundary of the SQL plane: a kill
+# on the :pre side loses the whole transaction (restart sees the prior
+# state), on the :post side the transaction survives (restart resumes
+# from it) — both ends are registered storage kill-points
+KP_COMMIT_PRE = fs.register_kill_point(
+    "db.commit:pre", "outermost SQL transaction about to COMMIT"
+)
+KP_COMMIT_POST = fs.register_kill_point(
+    "db.commit:post", "outermost SQL COMMIT durable, post-commit work not run"
+)
+
+
+class UnrollbackableWrite(RuntimeError):
+    """Rows were written inside a savepoint-less buffered transaction scope
+    that is now rolling back (or being retro-materialized) — the SQL plane
+    can no longer be unwound in lockstep with the store buffer.  Ledger
+    close must ABORT on this, never swallow it into txINTERNAL_ERROR: the
+    DB state is unknown (LedgerManager._apply_transactions re-raises)."""
+
+
+class PgConnection:
+    """sqlite3-shaped facade over a postgres DB-API connection.
+
+    The hot paths were written against sqlite3's surface —
+    ``conn.execute(sql, params)`` returning a cursor, ``executemany``,
+    a monotonic ``total_changes`` — so the postgres drivers (which all
+    require an explicit cursor and have no change counter) are adapted
+    here rather than forked into every call site.  The connection is put
+    in driver autocommit so BEGIN/COMMIT/SAVEPOINT flow through
+    ``execute`` as explicit statements, exactly like sqlite with
+    ``isolation_level=None``.
+
+    ``total_changes`` counts successful DML rowcounts.  That is weaker
+    than sqlite's statement-ABORT semantics — which is precisely why
+    ``PostgresDialect.statement_abort_credits_total_changes`` is False
+    and ``Database.execute`` materializes real savepoints before any
+    direct write inside a buffered scope on this backend; the counter
+    here only needs to catch writes, never to credit back-outs."""
+
+    _DML = ("INSERT", "UPDATE", "DELETE")
+
+    def __init__(self, raw, driver_name: str):
+        self._raw = raw
+        self.driver_name = driver_name
+        self.total_changes = 0
+
+    def _count(self, sql: str, cur) -> None:
+        if sql.lstrip()[:6].upper() in self._DML and cur.rowcount > 0:
+            self.total_changes += cur.rowcount
+
+    def execute(self, sql: str, params: Iterable = ()):
+        cur = self._raw.cursor()
+        params = tuple(params)
+        if params:
+            cur.execute(sql, params)
+        else:
+            cur.execute(sql)
+        self._count(sql, cur)
+        return cur
+
+    def executemany(self, sql: str, rows):
+        cur = self._raw.cursor()
+        cur.executemany(sql, list(rows))
+        self._count(sql, cur)
+        return cur
+
+    def close(self) -> None:
+        self._raw.close()
+
+
+def connect_postgres(dsn: str) -> PgConnection:
+    """Connect to postgres through whichever driver the environment
+    already has (psycopg → psycopg2 → pg8000); refuses with a clear
+    error when none is importable — NOTHING is installed for this."""
+    loaded = load_pg_driver()
+    if loaded is None:
+        raise RuntimeError(
+            "postgresql connection requested but no driver is importable"
+            " (tried psycopg, psycopg2, pg8000) — install one in the host"
+            " environment or point DATABASE back at sqlite3://"
+        )
+    mod, name = loaded
+    if name == "psycopg":
+        raw = mod.connect(dsn, autocommit=True)
+    elif name == "psycopg2":
+        raw = mod.connect(dsn)
+        raw.autocommit = True
+    else:  # pg8000.dbapi takes keywords, not a DSN URI
+        from urllib.parse import urlsplit
+
+        u = urlsplit(dsn)
+        raw = mod.connect(
+            user=u.username or "postgres",
+            password=u.password,
+            host=u.hostname or "localhost",
+            port=u.port or 5432,
+            database=(u.path or "/").lstrip("/") or "postgres",
+        )
+        raw.autocommit = True
+    return PgConnection(raw, name)
+
+
+class Database:
+    def __init__(self, connection_string: str = "sqlite3://:memory:", metrics=None):
+        self.connection_string = connection_string
+        # backend-specific SQL surface (placeholder style, savepoint
+        # syntax, type mapping) — the postgres seam (database/dialect.py)
+        self.dialect = dialect_for(connection_string)
+        # placeholder rewrite hook: None on sqlite (identity) so the hot
+        # query paths pay one is-None check, not a call per statement
+        self._sql_translate = (
+            self.dialect.translate if self.dialect.placeholder != "?" else None
+        )
+        if self.dialect.name == "postgresql":
+            # live server path, gated on an importable driver.  The
+            # sentinel forms "postgresql://" / "postgresql://env" pull
+            # the DSN from STELLAR_TPU_PG_DSN so configs can opt in
+            # without embedding credentials.
+            self._conn = connect_postgres(self._pg_dsn(connection_string))
+        else:
+            path = self._parse(connection_string)
+            self._conn = sqlite3.connect(path, isolation_level=None)
+            self._conn.execute(
+                "PRAGMA journal_mode=MEMORY" if path == ":memory:"
+                else "PRAGMA journal_mode=WAL")
+            self._conn.execute("PRAGMA synchronous=OFF")
+        self._metrics = metrics
+        self._tx_depth = 0
+        self._sp_counter = 0
+        self._lazy_sps = []  # one slot per open buffered scope; see transaction()
+        self.excluded_time = 0.0  # DBTimeExcluder support
+        self.query_count = 0
+        self.closed = False
+
+    @staticmethod
+    def _parse(cs: str) -> str:
+        if cs.startswith("sqlite3://"):
+            return cs[len("sqlite3://") :]
+        raise ValueError(f"unsupported DATABASE connection string: {cs}")
+
+    @staticmethod
+    def _pg_dsn(cs: str) -> str:
+        if cs in ("postgresql://", "postgresql://env"):
+            dsn = os.environ.get("STELLAR_TPU_PG_DSN")
+            if not dsn:
+                raise ValueError(
+                    f"{cs!r} requires STELLAR_TPU_PG_DSN in the environment"
+                )
+            return dsn
+        return cs
+
+    def _unmaterialized_scopes(self) -> bool:
+        return any(slot[0] is None for slot in self._lazy_sps)
+
+    # -- raw access --------------------------------------------------------
+    # query_count feeds per-peer load attribution (overlay LoadManager)
+    def execute(self, sql: str, params: Iterable = ()) -> sqlite3.Cursor:
+        self.query_count += 1
+        if self._sql_translate is not None:
+            sql = self._sql_translate(sql)
+        if not self._unmaterialized_scopes():
+            return self._conn.execute(sql, tuple(params))
+        if not self.dialect.statement_abort_credits_total_changes:
+            # this backend cannot attribute a FAILED statement's
+            # backed-out rows (no sqlite total_changes semantics), so the
+            # credit trick below is unsound for it: give every lazy scope
+            # a real savepoint before the direct write instead
+            self.materialize_savepoints()
+            return self._conn.execute(sql, tuple(params))
+        # Inside a savepoint-less buffered scope, a FAILED statement's row
+        # changes were already backed out by sqlite's statement-level
+        # ABORT — but total_changes still counts them, which previously
+        # escalated a per-tx constraint violation into UnrollbackableWrite
+        # and aborted the whole ledger close.  Snapshot the
+        # counter per statement and credit the backed-out rows against
+        # every open lazy scope's baseline; a SUCCESSFUL direct write
+        # still trips the escalation exactly as before.
+        before = self._conn.total_changes
+        try:
+            return self._conn.execute(sql, tuple(params))
+        except sqlite3.Error:
+            backed_out = self._conn.total_changes - before
+            if backed_out:
+                for slot in self._lazy_sps:
+                    if slot[0] is None:
+                        slot[1] += backed_out
+            raise
+
+    def executemany(self, sql: str, rows) -> sqlite3.Cursor:
+        self.query_count += 1
+        # executemany is NOT statement-atomic: a constraint violation on
+        # row k backs out row k only — rows 0..k-1 persist, so the
+        # snapshot-credit trick above cannot apply.  Materialize real
+        # savepoints first; the enclosing rollbacks then regain SQL undo
+        # for whatever the batch wrote before failing.
+        if self._unmaterialized_scopes():
+            self.materialize_savepoints()
+        if self._sql_translate is not None:
+            sql = self._sql_translate(sql)
+        return self._conn.executemany(sql, rows)
+
+    def query_one(self, sql: str, params: Iterable = ()) -> Optional[Tuple]:
+        self.query_count += 1
+        if self._sql_translate is not None:
+            sql = self._sql_translate(sql)
+        return self._conn.execute(sql, tuple(params)).fetchone()
+
+    def query_all(self, sql: str, params: Iterable = ()) -> List[Tuple]:
+        self.query_count += 1
+        if self._sql_translate is not None:
+            sql = self._sql_translate(sql)
+        return self._conn.execute(sql, tuple(params)).fetchall()
+
+    # -- timed access (reference: getSelect/Insert/Update/DeleteTimer) ------
+    @contextmanager
+    def timed(self, op: str, entity: str):
+        if self._metrics is None:
+            yield
+            return
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self._metrics.new_timer(("database", op, entity)).update(
+                time.perf_counter() - t0
+            )
+
+    # -- transactions ------------------------------------------------------
+    @contextmanager
+    def transaction(self):
+        """Nestable: outermost is BEGIN/COMMIT, inner levels are SAVEPOINTs.
+        Raising inside the block rolls back that level only."""
+        if self._tx_depth == 0:
+            self._conn.execute("BEGIN")
+            self._tx_depth += 1
+            try:
+                yield self
+            except BaseException:
+                self._tx_depth -= 1
+                self._conn.execute("ROLLBACK")
+                raise
+            else:
+                self._tx_depth -= 1
+                fs.kill_point(KP_COMMIT_PRE, ctx=self)
+                self._conn.execute("COMMIT")
+                fs.kill_point(KP_COMMIT_POST, ctx=self)
+        else:
+            # the write-back entry store buffer (ledger/storebuffer.py)
+            # mirrors the savepoint stack: buffered entry writes unwind in
+            # lockstep with the SQL savepoint.  Only savepoints opened
+            # while the buffer is active get a mark — the enclosing BEGIN
+            # predates activation and unwinds via buffer.deactivate()
+            buf = getattr(self, "_store_buffer", None)
+            if buf is not None and not buf.active:
+                buf = None
+            # the close-scoped frame identity map (ledger/framecontext.py)
+            # mirrors the same savepoint stack: a rolled-back scope evicts
+            # every frame it was lent, in lockstep with the buffer's
+            # overlay undo and the SQL savepoint
+            fctx = getattr(self, "_frame_context", None)
+            if fctx is not None and not fctx.active:
+                fctx = None
+            if buf is not None:
+                # Buffered mode: entry stores accumulate in the overlay
+                # and history rows land at close end, so this scope wraps
+                # ZERO SQL writes in the common case — the marks alone
+                # carry the undo and the per-tx SAVEPOINT/RELEASE round-
+                # trips (2 statements/tx at close) are dropped.  The ONE
+                # in-scope SQL writer (EntryStoreBuffer.flush_through, the
+                # inflation aggregate) first calls materialize_savepoints,
+                # which retro-opens real savepoints for every open lazy
+                # scope so its rows roll back exactly as before.
+                # Equivalence with write-through is pinned by the
+                # storebuffer differential suite (identical ledger hashes
+                # AND identical SQL dumps) + PARANOID_MODE; total_changes
+                # guards against an unmaterialized direct write — a
+                # rolled-back scope that wrote rows without a savepoint
+                # cannot be undone, so escalate instead of corrupting.
+                buf.push_mark()
+                if fctx is not None:
+                    fctx.push_mark()
+                self._lazy_sps.append([None, self._conn.total_changes])
+                self._tx_depth += 1
+                try:
+                    yield self
+                except BaseException as e:
+                    self._tx_depth -= 1
+                    buf.rollback_mark()
+                    if fctx is not None:
+                        fctx.rollback_mark()
+                    sp, changes0 = self._lazy_sps.pop()
+                    if sp is not None:
+                        self._conn.execute(self.dialect.rollback_to_sql(sp))
+                        self._conn.execute(self.dialect.release_sql(sp))
+                    elif self._conn.total_changes != changes0:
+                        # a genuinely materialized direct write: execute()
+                        # credits statement-ABORT-backed-out rows against
+                        # changes0 and executemany() materializes first,
+                        # so reaching here means committed rows really
+                        # exist with no savepoint to unwind them
+                        raise UnrollbackableWrite(
+                            "SQL rows written inside a buffered savepoint-"
+                            "less transaction scope cannot be rolled back"
+                            " — route the write through the store buffer"
+                            " or materialize_savepoints first"
+                        ) from e
+                    raise
+                else:
+                    self._tx_depth -= 1
+                    buf.release_mark()
+                    if fctx is not None:
+                        fctx.release_mark()
+                    sp, _ = self._lazy_sps.pop()
+                    if sp is not None:
+                        self._conn.execute(self.dialect.release_sql(sp))
+                return
+            self._sp_counter += 1
+            sp = f"sp_{self._sp_counter}"
+            self._conn.execute(self.dialect.savepoint_sql(sp))
+            if fctx is not None:
+                # write-through mode (buffer off, real savepoints) still
+                # needs the identity map unwound on rollback
+                fctx.push_mark()
+            self._tx_depth += 1
+            try:
+                yield self
+            except BaseException:
+                self._tx_depth -= 1
+                self._conn.execute(self.dialect.rollback_to_sql(sp))
+                self._conn.execute(self.dialect.release_sql(sp))
+                if fctx is not None:
+                    fctx.rollback_mark()
+                raise
+            else:
+                self._tx_depth -= 1
+                self._conn.execute(self.dialect.release_sql(sp))
+                if fctx is not None:
+                    fctx.release_mark()
+
+    def materialize_savepoints(self) -> None:
+        """Retro-open real SQL savepoints for every savepoint-less buffered
+        scope currently on the stack (outermost first, preserving nesting).
+        Called by anything about to write rows inside such a scope — the
+        store buffer's flush_through, the fee-history insert — so the
+        enclosing rollbacks regain their SQL undo.  A scope that already
+        saw row changes BEFORE materialization cannot be protected
+        retroactively (the retro savepoint would not cover them), so that
+        is refused loudly instead of silently half-protecting."""
+        for slot in self._lazy_sps:
+            if slot[0] is None:
+                if self._conn.total_changes != slot[1]:
+                    raise UnrollbackableWrite(
+                        "rows were already written inside this buffered"
+                        " scope before materialize_savepoints — a retro"
+                        " savepoint cannot cover them"
+                    )
+                self._sp_counter += 1
+                name = f"sp_{self._sp_counter}"
+                self._conn.execute(self.dialect.savepoint_sql(name))
+                slot[0] = name
+
+    @property
+    def in_transaction(self) -> bool:
+        return self._tx_depth > 0
+
+    # -- schema ------------------------------------------------------------
+    def initialize(self) -> None:
+        """(Re)create all subsystem tables (Database::initialize calls every
+        subsystem's dropAll, Database.cpp:247-256)."""
+        from ..ledger.accountframe import AccountFrame
+        from ..ledger.trustframe import TrustFrame
+        from ..ledger.offerframe import OfferFrame
+        from ..ledger.headerframe import LedgerHeaderFrame
+        from ..main.persistentstate import PersistentState
+        from ..tx.history import drop_tx_history
+        from ..overlay.peerrecord import PeerRecord
+        from ..history.publish import drop_publish_queue
+        from ..main.externalqueue import ExternalQueue
+
+        for dropper in (
+            AccountFrame.drop_all,
+            OfferFrame.drop_all,
+            TrustFrame.drop_all,
+            PeerRecord.drop_all,
+            PersistentState.drop_all,
+            ExternalQueue.drop_all,
+            LedgerHeaderFrame.drop_all,
+            drop_tx_history,
+            drop_publish_queue,
+        ):
+            dropper(self)
+        self.put_schema_version(SCHEMA_VERSION)
+
+    def get_schema_version(self) -> int:
+        from ..main.persistentstate import PersistentState
+
+        v = PersistentState(self).get_state("databaseschema")
+        return int(v) if v else 0
+
+    def put_schema_version(self, v: int) -> None:
+        from ..main.persistentstate import PersistentState
+
+        PersistentState(self).set_state("databaseschema", str(v))
+
+    def close(self) -> None:
+        self.closed = True
+        self._conn.close()

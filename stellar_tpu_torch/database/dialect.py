@@ -1,0 +1,218 @@
+"""SQL dialect seam (ROADMAP #6 — the Postgres scope decision as code).
+
+The reference runs over SOCI with sqlite3 and postgresql backends
+(src/database/Database.cpp); this port is sqlite-only in this
+environment.  ``Database`` routes the backend-specific pieces of its
+statement flow through a ``Dialect`` object (``Database.dialect``):
+
+- savepoint statement syntax (``transaction()`` /
+  ``materialize_savepoints``);
+- placeholder rewriting — every execute/executemany/query path passes
+  through ``translate`` when the backend's placeholder is not ``?``
+  (identity-skipped on sqlite);
+- the statement-level-ABORT ``total_changes`` credit trick:
+  ``Database.execute`` applies it only when
+  ``statement_abort_credits_total_changes`` says the backend supports
+  it, and falls back to materializing real savepoints otherwise.
+
+``rewrite`` is the statement-rewrite pass that makes the seam LIVE: a
+non-sqlite backend sees every statement before placeholder translation,
+so ``PostgresDialect`` routes the CREATE TABLE corpus through
+``column_type`` and rewrites the four ``INSERT OR REPLACE`` upsert
+batches (accounts / trustlines / offers / publishqueue — the store
+buffer's flush surface) into ``ON CONFLICT (pk) DO UPDATE`` form.  An
+upsert against a table the conflict-target map does not know is refused
+loudly — a silently-dropped rewrite would corrupt the flush.
+``CacheIsConsistentWithDatabase`` (stellar_tpu/invariant/) is the live
+oracle for the whole pipeline: it runs against postgres whenever
+``STELLAR_TPU_PG_DSN`` names a reachable server.
+
+``SqliteDialect`` is the shipped default; ``PostgresDialect`` is
+exercised serverless for every mapping/rewrite decision plus
+server-gated (tests/test_dialect.py: skipped unless
+``STELLAR_TPU_PG_DSN`` points at a live server and a driver is
+importable — nothing is pip-installed for it).
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Optional, Tuple
+
+
+#: driver candidates in preference order — psycopg (3) first, then the
+#: legacy psycopg2, then the pure-python pg8000.  NOTHING is installed
+#: for this: whichever the host environment already has wins.
+PG_DRIVER_CANDIDATES = ("psycopg", "psycopg2", "pg8000.dbapi")
+
+
+def load_pg_driver() -> Optional[Tuple[object, str]]:
+    """Import the first available postgres DB-API driver, or None when
+    the environment has none (this container ships none — the connect
+    path then refuses with a clear error instead of an ImportError)."""
+    import importlib
+
+    for name in PG_DRIVER_CANDIDATES:
+        try:
+            return importlib.import_module(name), name
+        except ImportError:
+            continue
+    return None
+
+
+class Dialect:
+    """Backend-specific SQL surface.  Statement helpers return full SQL
+    strings; ``translate`` rewrites a qmark-parameterized statement into
+    the backend's placeholder style (identity on sqlite)."""
+
+    name = "?"
+    #: DB-API paramstyle of the backend's driver
+    paramstyle = "qmark"
+    placeholder = "?"
+    #: sqlite backs out a FAILED statement's row changes itself but still
+    #: counts them in total_changes — Database.execute credits them
+    #: against lazy-savepoint baselines.  Server backends without that
+    #: counter must materialize savepoints before direct writes instead.
+    statement_abort_credits_total_changes = False
+    #: generic -> backend column type (only the types our schemas use)
+    type_map: Dict[str, str] = {}
+
+    # -- savepoints (the nested-transaction plane) --------------------------
+    def savepoint_sql(self, name: str) -> str:
+        return f"SAVEPOINT {name}"
+
+    def release_sql(self, name: str) -> str:
+        return f"RELEASE SAVEPOINT {name}"
+
+    def rollback_to_sql(self, name: str) -> str:
+        return f"ROLLBACK TO SAVEPOINT {name}"
+
+    # -- statements ---------------------------------------------------------
+    def rewrite(self, sql: str) -> str:
+        """Backend statement rewrite (DDL types, upsert syntax) applied
+        BEFORE placeholder translation.  Identity on sqlite — the schema
+        corpus is authored in the dialect it accepts as-is."""
+        return sql
+
+    def translate(self, sql: str) -> str:
+        """Rewrite ``?`` placeholders into this backend's style (string
+        literals in our schema/statement set never contain ``?``, so a
+        plain replace is sufficient for the statement corpus we emit).
+
+        ``format``-paramstyle backends additionally require literal ``%``
+        doubled to ``%%`` (a future ``LIKE '%x%'`` would otherwise raise
+        in the driver); double BEFORE substituting so the injected ``%s``
+        placeholders stay intact.  ``rewrite`` runs first, on the qmark
+        form — the one hook ``Database`` routes therefore carries the
+        whole backend statement pipeline."""
+        if self.placeholder == "?":
+            return sql
+        sql = self.rewrite(sql)
+        if self.paramstyle in ("format", "pyformat"):
+            sql = sql.replace("%", "%%")
+        return sql.replace("?", self.placeholder)
+
+    def column_type(self, generic: str) -> str:
+        return self.type_map.get(generic.upper(), generic)
+
+
+class SqliteDialect(Dialect):
+    name = "sqlite3"
+    paramstyle = "qmark"
+    placeholder = "?"
+    statement_abort_credits_total_changes = True
+    # sqlite is dynamically typed; the generic names pass through
+    type_map: Dict[str, str] = {}
+
+
+class PostgresDialect(Dialect):
+    """The postgres half of the seam, live: ``rewrite`` routes the CREATE
+    TABLE corpus through ``type_map`` and turns the INSERT OR REPLACE
+    upsert batches (the store buffer's flush surface) into
+    ``ON CONFLICT (pk) DO UPDATE SET col=EXCLUDED.col`` form using the
+    conflict-target registry below.  The registry is authoritative: an
+    upsert against an unregistered table raises instead of passing
+    through — postgres would reject the sqlite spelling anyway, and a
+    half-rewritten flush must never limp into the server."""
+
+    name = "postgresql"
+    paramstyle = "format"
+    placeholder = "%s"
+    statement_abort_credits_total_changes = False
+    type_map = {
+        # our schemas' generic types -> postgres spellings
+        "BIGINT": "BIGINT",
+        "INT": "INTEGER",
+        "TEXT": "TEXT",
+        "DOUBLE PRECISION": "DOUBLE PRECISION",
+        "CHARACTER(64)": "CHARACTER(64)",
+        "VARCHAR(56)": "VARCHAR(56)",
+        "VARCHAR(32)": "VARCHAR(32)",
+        "VARCHAR(12)": "VARCHAR(12)",
+        "BLOB": "BYTEA",
+    }
+    #: table -> primary-key columns, mirroring the CREATE TABLE corpus.
+    #: sqlite's INSERT OR REPLACE keys on the PK implicitly; postgres
+    #: needs it named in the ON CONFLICT target.
+    upsert_conflict_targets = {
+        "accounts": ("accountid",),
+        "trustlines": ("accountid", "issuer", "assetcode"),
+        "offers": ("offerid",),
+        "publishqueue": ("ledger",),
+    }
+
+    _UPSERT_RE = re.compile(
+        r"^\s*INSERT\s+OR\s+REPLACE\s+INTO\s+(\w+)\s*\(([^)]*)\)(.*)$",
+        re.IGNORECASE | re.DOTALL,
+    )
+    _CREATE_RE = re.compile(r"^\s*CREATE\s+TABLE\b", re.IGNORECASE)
+
+    def rewrite(self, sql: str) -> str:
+        m = self._UPSERT_RE.match(sql)
+        if m:
+            table, collist, rest = m.group(1), m.group(2), m.group(3)
+            target = self.upsert_conflict_targets.get(table.lower())
+            if target is None:
+                raise ValueError(
+                    f"INSERT OR REPLACE against {table!r} has no registered"
+                    " conflict target — add it to"
+                    " PostgresDialect.upsert_conflict_targets"
+                )
+            cols = [c.strip() for c in collist.split(",")]
+            updates = ", ".join(
+                f"{c}=EXCLUDED.{c}" for c in cols if c.lower() not in target
+            )
+            return (
+                f"INSERT INTO {table} ({', '.join(cols)}){rest.rstrip()}"
+                f" ON CONFLICT ({', '.join(target)}) DO UPDATE SET {updates}"
+            )
+        if self._CREATE_RE.match(sql):
+            # the DDL corpus spells types in the generic names type_map
+            # keys on; longest-first so DOUBLE PRECISION wins over INT
+            for generic in sorted(self.type_map, key=len, reverse=True):
+                spelled = self.type_map[generic]
+                if spelled != generic:
+                    sql = re.sub(
+                        rf"\b{re.escape(generic)}\b", spelled, sql
+                    )
+        return sql
+
+
+_DIALECTS = {
+    "sqlite3": SqliteDialect,
+    "postgresql": PostgresDialect,
+}
+
+
+def dialect_for(connection_string: str) -> Dialect:
+    """Dialect for a ``<scheme>://...`` connection string.  Postgres
+    strings resolve (the seam is real) even though ``Database`` itself
+    still refuses to CONNECT to them in this environment — the refusal
+    stays in Database._parse, the mapping lives here."""
+    scheme = connection_string.split("://", 1)[0]
+    cls = _DIALECTS.get(scheme)
+    if cls is None:
+        raise ValueError(
+            f"unsupported DATABASE connection string: {connection_string}"
+        )
+    return cls()

@@ -1,0 +1,1230 @@
+"""Herder — glue between SCP and the rest of the node
+(reference: src/herder/HerderImpl.{h,cpp}).
+
+Implements SCPDriver over the application: slot = ledger sequence, value =
+XDR-encoded ``StellarValue{txSetHash, closeTime, upgrades}``.  Owns the
+4-generation pending-transaction queues, the ledger trigger timer, and the
+tracking/not-tracking consensus state machine (herder/readme.md).
+
+Batch-verify note (the TPU angle): inbound SCP envelope signatures all
+funnel through ``verify_envelope`` → the shared verify cache; envelopes
+arriving through the overlay are coalesced per crank and verified in one
+SigBackend batch by ``OverlayManager._flush_scp_batch`` before being fed
+here one by one, so the eager check is a cache hit (same pattern as
+TxSetFrame.check_valid).
+"""
+
+from __future__ import annotations
+
+import heapq
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+from ..crypto import PubKeyUtils, sha256
+from ..scp import SCP, SCPDriver
+from ..scp.quorum import iter_all_nodes
+from ..scp.quorum import qset_hash as compute_qset_hash
+from ..scp.slot import Slot
+from ..util import VirtualTimer, fs, xlog
+from ..xdr.base import xdr_getfield, xdr_to_opaque
+from ..xdr.entries import EnvelopeType
+from ..xdr.ledger import (
+    LedgerUpgrade,
+    LedgerUpgradeType,
+    StellarValue,
+)
+from ..xdr.overlay import MessageType, StellarMessage
+from ..xdr.scp import SCPEnvelope, SCPQuorumSet
+from ..xdr.txs import TransactionResultCode
+from ..xdr.xtypes import NodeID, PublicKey
+from .ledgerclose import LedgerCloseData
+from .pendingenvelopes import PendingEnvelopes
+from .txset import TxSetFrame
+
+log = xlog.logger("Herder")
+
+# protocol cadence constants (reference: src/herder/Herder.cpp:7-12)
+EXP_LEDGER_TIMESPAN_SECONDS = 5
+MAX_SCP_TIMEOUT_SECONDS = 240
+CONSENSUS_STUCK_TIMEOUT_SECONDS = 35
+MAX_TIME_SLIP_SECONDS = 60
+NODE_EXPIRATION_SECONDS = 240
+LEDGER_VALIDITY_BRACKET = 1000
+MAX_SLOTS_TO_REMEMBER = 4
+
+# storage kill-points (util/fs.py): the SCP-state persist is the boot
+# reconciliation's third leg next to the header chain + publish queue
+KP_SCP_PERSIST_PRE = fs.register_kill_point(
+    "scp.persist:pre", "lastscpdata row about to be written"
+)
+KP_SCP_PERSIST_POST = fs.register_kill_point(
+    "scp.persist:post", "lastscpdata row written (autocommit durable)"
+)
+
+# TransactionSubmitStatus (herder/Herder.h)
+TX_STATUS_PENDING = "PENDING"
+TX_STATUS_DUPLICATE = "DUPLICATE"
+TX_STATUS_ERROR = "ERROR"
+
+# Herder::State
+HERDER_SYNCING_STATE = "HERDER_SYNCING_STATE"
+HERDER_TRACKING_STATE = "HERDER_TRACKING_STATE"
+
+
+@dataclass
+class ConsensusData:
+    """Last tracked consensus slot + value (HerderImpl.h ConsensusData)."""
+
+    index: int
+    value: StellarValue
+
+
+@dataclass
+class TxMap:
+    """Per-account pending transactions (HerderImpl.h TxMap)."""
+
+    transactions: Dict[bytes, object] = field(default_factory=dict)  # fullhash -> tx
+    max_seq: int = 0
+    total_fees: int = 0
+
+    def add_tx(self, tx) -> None:
+        h = tx.get_full_hash()
+        if h in self.transactions:
+            return
+        self.transactions[h] = tx
+        self.max_seq = max(tx.get_seq_num(), self.max_seq)
+        self.total_fees += tx.get_fee()
+
+    def recalculate(self) -> None:
+        self.max_seq = max((t.get_seq_num() for t in self.transactions.values()), default=0)
+        self.total_fees = sum(t.get_fee() for t in self.transactions.values())
+
+
+class Herder(SCPDriver):
+    def __init__(self, app):
+        self.app = app
+        self.ledger_manager = app.ledger_manager
+        cfg = app.config
+
+        if cfg.NODE_SEED is None:
+            raise ValueError("NODE_SEED required to run a herder")
+        self.secret_key = cfg.NODE_SEED
+        self.scp = SCP(
+            self,
+            self.secret_key.get_public_key(),
+            cfg.NODE_IS_VALIDATOR,
+            cfg.QUORUM_SET,
+        )
+        self.pending_envelopes = PendingEnvelopes(app, self)
+        # publish our own quorum set so statements referencing it resolve
+        self.pending_envelopes.recv_scp_quorum_set(
+            self.scp.local_qset_hash, cfg.QUORUM_SET
+        )
+
+        # 4 generations of received txs, shifted at each close
+        # (HerderImpl.h:157, HerderImpl.cpp:611-628)
+        self.received_transactions: List[Dict[bytes, TxMap]] = [{} for _ in range(4)]
+        # ingest-rate fast lane over the generations: every pending tx
+        # hash (duplicate checks go through
+        # ONE set instead of a per-generation probe) and a per-account
+        # cache of (total fees, highest seq) summed ACROSS generations.
+        # Aging only moves txs between generations — the cross-generation
+        # aggregate is invariant under it — so the cache is dropped only
+        # where txs actually leave the queue (_remove_received_txs).
+        self._pending_tx_ids: set = set()
+        self._acct_agg: Dict[bytes, List[int]] = {}
+
+        self.tracking: Optional[ConsensusData] = None
+        self.current_value: bytes = b""
+        self.last_trigger: Optional[float] = None
+
+        clock = app.clock
+        self.trigger_timer = VirtualTimer(clock)
+        self.rebroadcast_timer = VirtualTimer(clock)
+        self.tracking_timer = VirtualTimer(clock)
+        # slot -> timer_id -> VirtualTimer (SCP nomination/ballot timers)
+        self.scp_timers: Dict[int, Dict[int, VirtualTimer]] = {}
+
+        # trace/ spans keyed by slot index: whole-slot consensus
+        # (nominate → externalize), the currently-open nomination round,
+        # and the ballot phase.  Dangling spans for slots that never
+        # externalize are dropped (never ring-recorded) when a newer slot
+        # completes.
+        self._trace_slot_spans: Dict[int, object] = {}
+        self._trace_nom_spans: Dict[int, object] = {}
+        self._trace_ballot_spans: Dict[int, object] = {}
+
+        # consensus-liveness counters (chaos-plane scoreboard,
+        # stellar_tpu/scenarios/scoreboard.py): how many nomination rounds
+        # opened and how many ballot rounds (max counter reached per slot)
+        # consensus burned — under faults these climb while
+        # ledgers-closed/wall-time falls, which is exactly the liveness
+        # story the scoreboard tells
+        self.n_nomination_rounds = 0
+        self.n_ballot_rounds = 0
+        self._ballot_round_high: Dict[int, int] = {}
+
+        # per-slot aggregation buckets (TRUSTED post-verify accounting):
+        # slot -> {statement-type int -> count} for envelopes that passed
+        # the eager signature gate.  This is the herder-side ledger of
+        # what the aggregate scheme's slot buckets saw — surfaced via
+        # dump_info / the chaos scoreboard, trimmed with slot_closed.
+        # Reads come from cxdrpack.getfield over the envelope's raw XDR
+        # (HerderImpl.cpp:347-364's type switch), never a re-decode.
+        # Hard-capped: while NOT tracking there is no slot bracket, so a
+        # flood of validly-self-signed envelopes with arbitrary far-future
+        # slot indexes would otherwise grow this dict unboundedly (the
+        # close-time trim never reaches slots above the chain tip); when
+        # full, the farthest-future slot loses its telemetry — honest
+        # traffic clusters at the bracket's low end.
+        self.scp_slot_buckets: Dict[int, Dict[int, int]] = {}
+        self.MAX_SLOT_BUCKETS = 1024
+        # lazy-deletion max-heap (negated slots) over scp_slot_buckets:
+        # the at-cap evict decision is O(log n) per envelope instead of a
+        # max() scan over 1024 keys — the scan would sit on exactly the
+        # flood path the cap defends (valid-sig envelopes with arbitrary
+        # fresh far-future slots).  Entries for slots trimmed elsewhere
+        # (slot_closed) go stale in place and are popped when they
+        # surface; a periodic rebuild bounds the stale mass.
+        self._slot_bucket_heap: List[int] = []
+
+        m = app.metrics
+        self.m_envelope_sign = m.new_meter(("scp", "envelope", "sign"), "envelope")
+        self.m_envelope_validsig = m.new_meter(("scp", "envelope", "validsig"), "envelope")
+        self.m_envelope_invalidsig = m.new_meter(("scp", "envelope", "invalidsig"), "envelope")
+        self.m_envelope_receive = m.new_meter(("scp", "envelope", "receive"), "envelope")
+        self.m_envelope_emit = m.new_meter(("scp", "envelope", "emit"), "envelope")
+        self.m_value_valid = m.new_meter(("scp", "value", "valid"), "value")
+        self.m_value_invalid = m.new_meter(("scp", "value", "invalid"), "value")
+        # time-slip rejections: the closeTime gates
+        # in _validate_value_helper used to drop too-old/too-future values
+        # SILENTLY — under inter-node clock skew these meters are the only
+        # observable telling an operator "my clock disagrees with the
+        # quorum" apart from unexplained liveness loss.  Surfaced in
+        # dump_info and digested by the chaos scoreboard's skew classes.
+        self.m_value_close_past = m.new_meter(
+            ("herder", "value", "reject-closetime-past"), "value"
+        )
+        self.m_value_close_future = m.new_meter(
+            ("herder", "value", "reject-closetime-future"), "value"
+        )
+        # stalled-while-tracking SCP-state probes: how often
+        # this node, seeing signed evidence the quorum moved on without
+        # it, asked its peers to replay their recent SCP state
+        self.m_scp_state_probe = m.new_meter(
+            ("herder", "scp-state", "probe"), "probe"
+        )
+        # duplicate tx submissions: a silent return
+        # before this counter — under flood this is the cheapest reject in the node
+        # and the meter is the only observable of re-flooded traffic
+        self.m_tx_duplicate = m.new_meter(("herder", "tx", "duplicate"), "tx")
+        # stall-probe bookkeeping (see _note_quorum_ahead): last local
+        # consensus progress and last probe, on the app clock; the
+        # quorum-member set is cached keyed by local qset hash
+        self._last_progress_at = app.clock.now()
+        self._last_probe_at = float("-inf")
+        self._quorum_members: Optional[tuple] = None
+        self.m_value_externalize = m.new_meter(("scp", "value", "externalize"), "value")
+        self.m_quorum_heard = m.new_meter(("scp", "quorum", "heard"), "quorum")
+        self.m_lost_sync = m.new_meter(("scp", "sync", "lost"), "sync")
+        # post-verify per-statement-type meters (the reference's type
+        # switch right after the eager verify, HerderImpl.cpp:347-364)
+        from ..xdr.scp import SCPStatementType
+
+        self.m_envelope_type = {
+            int(t): m.new_meter(
+                ("scp", "envelope", t.name.replace("SCP_ST_", "").lower()),
+                "envelope",
+            )
+            for t in SCPStatementType
+        }
+
+    # ------------------------------------------------------------------
+    # state machine
+    # ------------------------------------------------------------------
+    def get_state(self) -> str:
+        return HERDER_TRACKING_STATE if self.tracking else HERDER_SYNCING_STATE
+
+    def last_consensus_ledger_index(self) -> int:
+        return self.tracking.index if self.tracking else 0
+
+    def next_consensus_ledger_index(self) -> int:
+        return self.last_consensus_ledger_index() + 1
+
+    def get_current_ledger_seq(self) -> int:
+        if self.tracking:
+            return self.tracking.index
+        return self.ledger_manager.get_last_closed_ledger_num()
+
+    def shutdown(self) -> None:
+        """Cancel every timer this herder armed on the (possibly shared)
+        clock.  A crashed/stopped validator in a multi-node simulation must
+        never fire a trigger or rebroadcast against its closed database —
+        the chaos plane's crash/restart fault depends on this."""
+        self.pending_envelopes.shutdown()
+        self.trigger_timer.cancel()
+        self.rebroadcast_timer.cancel()
+        self.tracking_timer.cancel()
+        for slot_timers in self.scp_timers.values():
+            for t in slot_timers.values():
+                t.cancel()
+        self.scp_timers.clear()
+
+    def bootstrap(self) -> None:
+        """Force-join SCP from local state (FORCE_SCP; HerderImpl.cpp:160)."""
+        assert self.scp.is_validator
+        lcl = self.ledger_manager.get_last_closed_ledger_header()
+        self.tracking = ConsensusData(lcl.header.ledgerSeq, lcl.header.scpValue)
+        self._last_progress_at = self.app.clock.now()
+        self._tracking_heartbeat()
+        self.last_trigger = self.app.clock.now() - EXP_LEDGER_TIMESPAN_SECONDS
+        self.ledger_closed()
+
+    def _is_slot_compatible_with_current_state(self, slot_index: int) -> bool:
+        return (
+            self.ledger_manager.is_synced()
+            and slot_index == self.ledger_manager.get_last_closed_ledger_num() + 1
+        )
+
+    def _tracking_heartbeat(self) -> None:
+        if self.app.config.MANUAL_CLOSE:
+            return
+        assert self.tracking
+        self.tracking_timer.expires_from_now(CONSENSUS_STUCK_TIMEOUT_SECONDS)
+        self.tracking_timer.async_wait(self._out_of_sync)
+
+    def _out_of_sync(self) -> None:
+        log.info("Lost track of consensus")
+        self.m_lost_sync.mark()
+        self.tracking = None
+        self.process_scp_queue()
+
+    def lost_sync(self) -> None:
+        """External notification (catchup started)."""
+        pass
+
+    # ------------------------------------------------------------------
+    # SCPDriver: crypto
+    # ------------------------------------------------------------------
+    def _envelope_payload(self, envelope: SCPEnvelope) -> bytes:
+        return xdr_to_opaque(
+            self.app.network_id, EnvelopeType.ENVELOPE_TYPE_SCP, envelope.statement
+        )
+
+    def sign_envelope(self, envelope: SCPEnvelope) -> None:
+        self.m_envelope_sign.mark()
+        envelope.signature = self.secret_key.sign(self._envelope_payload(envelope))
+
+    def _scheme(self):
+        """The node's SCP signature scheme (Config.SCP_SIG_SCHEME); a
+        bare test harness without an Application-built scheme rides the
+        reference per-envelope path."""
+        scheme = getattr(self.app, "scp_scheme", None)
+        if scheme is None:
+            from ..crypto.aggregate import make_scheme
+            from ..crypto.keys import verify_cache
+
+            scheme = make_scheme(
+                "ed25519", self.app.sig_backend, verify_cache()
+            )
+            self.app.scp_scheme = scheme
+        return scheme
+
+    def verify_envelope(self, envelope: SCPEnvelope) -> bool:
+        """The second runtime ed25519 hot spot (SURVEY §2.8 site 2);
+        routed through the scheme seam — under either scheme this is a
+        warm-cache hit for envelopes the overlay batch flush (or an
+        aggregate-accepted slot bucket) already verified."""
+        ok = self._scheme().verify_envelope_cached(
+            envelope.statement.nodeID,
+            envelope.signature,
+            self._envelope_payload(envelope),
+        )
+        (self.m_envelope_validsig if ok else self.m_envelope_invalidsig).mark()
+        return ok
+
+    def envelope_verify_triple(self, envelope: SCPEnvelope):
+        """(pubkey, msg, sig) for SigBackend batch pre-warming."""
+        return (
+            envelope.statement.nodeID.value,
+            self._envelope_payload(envelope),
+            envelope.signature,
+        )
+
+    # ------------------------------------------------------------------
+    # SCPDriver: values
+    # ------------------------------------------------------------------
+    def _validate_value_helper(self, slot_index: int, sv: StellarValue) -> bool:
+        compat = self._is_slot_compatible_with_current_state(slot_index)
+        if compat:
+            last_close_time = (
+                self.ledger_manager.get_last_closed_ledger_header().header.scpValue.closeTime
+            )
+        else:
+            if not self.tracking:
+                return True  # not much more we can check
+            if self.next_consensus_ledger_index() > slot_index:
+                return True  # old slot: let it flow for final messages
+            if self.next_consensus_ledger_index() < slot_index:
+                log.error("validate_value: future message while tracking")
+                return False
+            last_close_time = self.tracking.value.closeTime
+
+        if sv.closeTime <= last_close_time:
+            self.m_value_close_past.mark()
+            return False
+        if sv.closeTime > self.app.time_now() + MAX_TIME_SLIP_SECONDS:
+            self.m_value_close_future.mark()
+            return False
+        if not compat:
+            return True
+
+        tx_set = self.pending_envelopes.get_tx_set(sv.txSetHash)
+        if tx_set is None:
+            log.error("validate_value: txset %s not found", sv.txSetHash.hex()[:8])
+            return False
+        return tx_set.check_valid(self.app)
+
+    def _validate_upgrade_step(self, raw: bytes) -> Optional[LedgerUpgradeType]:
+        try:
+            up = LedgerUpgrade.from_xdr(raw)
+        except Exception:
+            return None
+        cfg = self.app.config
+        if up.type == LedgerUpgradeType.LEDGER_UPGRADE_VERSION:
+            ok = up.value == cfg.LEDGER_PROTOCOL_VERSION
+        elif up.type == LedgerUpgradeType.LEDGER_UPGRADE_BASE_FEE:
+            ok = cfg.DESIRED_BASE_FEE * 0.5 <= up.value <= cfg.DESIRED_BASE_FEE * 2
+        elif up.type == LedgerUpgradeType.LEDGER_UPGRADE_MAX_TX_SET_SIZE:
+            ok = (
+                cfg.DESIRED_MAX_TX_PER_LEDGER * 7 // 10
+                <= up.value
+                <= cfg.DESIRED_MAX_TX_PER_LEDGER * 13 // 10
+            )
+        else:
+            ok = False
+        return up.type if ok else None
+
+    def validate_value(self, slot_index: int, value: bytes) -> bool:
+        try:
+            sv = StellarValue.from_xdr(value)
+        except Exception:
+            self.m_value_invalid.mark()
+            return False
+        res = self._validate_value_helper(slot_index, sv)
+        if res:
+            last_type = -1
+            for raw in sv.upgrades:
+                t = self._validate_upgrade_step(raw)
+                if t is None or int(t) <= last_type:
+                    res = False
+                    break
+                last_type = int(t)
+        (self.m_value_valid if res else self.m_value_invalid).mark()
+        return res
+
+    def extract_valid_value(self, slot_index: int, value: bytes) -> bytes:
+        try:
+            sv = StellarValue.from_xdr(value)
+        except Exception:
+            return b""
+        if not self._validate_value_helper(slot_index, sv):
+            return b""
+        # drop just the upgrade steps we disagree with
+        sv.upgrades = [u for u in sv.upgrades if self._validate_upgrade_step(u) is not None]
+        return sv.to_xdr()
+
+    def combine_candidates(self, slot_index: int, candidates) -> bytes:
+        """Composite: max closeTime, per-type max upgrades, biggest txset
+        (ties by hash xored with the candidates hash) — HerderImpl.cpp:646."""
+        from .txset import less_than_xored
+
+        lcl = self.ledger_manager.get_last_closed_ledger_header()
+        comp = StellarValue(b"\x00" * 32, 0, [], 0)
+        upgrades: Dict[LedgerUpgradeType, LedgerUpgrade] = {}
+        candidates_hash = bytearray(32)
+        values = []
+        for c in sorted(candidates):
+            sv = StellarValue.from_xdr(c)
+            values.append(sv)
+            h = sha256(c)
+            candidates_hash = bytearray(a ^ b for a, b in zip(candidates_hash, h))
+            comp.closeTime = max(comp.closeTime, sv.closeTime)
+            for raw in sv.upgrades:
+                up = LedgerUpgrade.from_xdr(raw)
+                cur = upgrades.get(up.type)
+                if cur is None or cur.value < up.value:
+                    upgrades[up.type] = up
+
+        best_tx_set = None
+        highest = b"\x00" * 32
+        for sv in values:
+            cand = self.pending_envelopes.get_tx_set(sv.txSetHash)
+            if cand is None or cand.previous_ledger_hash != lcl.hash:
+                continue
+            if (
+                best_tx_set is None
+                or cand.size() > best_tx_set.size()
+                or (
+                    cand.size() == best_tx_set.size()
+                    and less_than_xored(highest, sv.txSetHash, bytes(candidates_hash))
+                )
+            ):
+                best_tx_set = cand
+                highest = sv.txSetHash
+
+        for t in sorted(upgrades):
+            comp.upgrades.append(upgrades[t].to_xdr())
+
+        if best_tx_set is None:
+            # every candidate's txset is missing locally (LRU eviction or
+            # candidates validated while out of sync): propose an empty set
+            # rather than crash — peers will converge on someone else's value
+            log.warning("combine_candidates: no usable candidate txset")
+            best_tx_set = TxSetFrame(lcl.hash)
+            self.pending_envelopes.recv_tx_set(
+                best_tx_set.get_contents_hash(), best_tx_set
+            )
+
+        # defensively re-trim: candidates went through validate_value but the
+        # intersection of upgrades/sets must still be valid
+        removed = best_tx_set.trim_invalid(self.app)
+        comp.txSetHash = best_tx_set.get_contents_hash()
+        if removed:
+            log.warning("candidate set had %d invalid transactions", len(removed))
+            self.app.clock.post(
+                lambda: self.pending_envelopes.recv_tx_set(
+                    best_tx_set.get_contents_hash(), best_tx_set
+                )
+            )
+        return comp.to_xdr()
+
+    def get_value_string(self, value: bytes) -> str:
+        if not value:
+            return "[:empty:]"
+        try:
+            sv = StellarValue.from_xdr(value)
+            return f"[txH: {sv.txSetHash.hex()[:8]}, ct: {sv.closeTime}, upgrades: {len(sv.upgrades)}]"
+        except Exception:
+            return "[:invalid:]"
+
+    # ------------------------------------------------------------------
+    # SCPDriver: infrastructure
+    # ------------------------------------------------------------------
+    def get_qset(self, qs_hash: bytes) -> Optional[SCPQuorumSet]:
+        return self.pending_envelopes.get_qset(qs_hash)
+
+    def setup_timer(self, slot_index: int, timer_id: int, timeout: float, cb) -> None:
+        # don't arm timers for old slots
+        if self.tracking and slot_index < self.tracking.index:
+            self.scp_timers.pop(slot_index, None)
+            return
+        slot_timers = self.scp_timers.setdefault(slot_index, {})
+        timer = slot_timers.get(timer_id)
+        if timer is None:
+            timer = slot_timers.setdefault(timer_id, VirtualTimer(self.app.clock))
+        timer.cancel()
+        if cb is not None:
+            timer.expires_from_now(timeout)
+            timer.async_wait(cb)
+
+    def emit_envelope(self, envelope: SCPEnvelope) -> None:
+        if not self.scp.is_validator:
+            return
+        slot_index = envelope.statement.slotIndex
+        # don't broadcast state changes made while out of sync
+        if not self._is_slot_compatible_with_current_state(slot_index) and (
+            not self.tracking or not self.ledger_manager.is_synced()
+        ):
+            return
+        # persist for the emitted slot, not get_ledger_num(): when an emit
+        # cascades synchronously into externalize + close (single-node
+        # networks), the close advances the ledger pointer before this line
+        # runs and persisting "current" would store an empty blob
+        self.persist_scp_state(slot_index)
+        self._broadcast(envelope)
+        self._start_rebroadcast_timer()
+
+    def _broadcast(self, envelope: SCPEnvelope) -> None:
+        if self.app.config.MANUAL_CLOSE:
+            return
+        om = self.app.overlay_manager
+        if om is None:
+            return
+        self.m_envelope_emit.mark()
+        om.broadcast_message(
+            StellarMessage(MessageType.SCP_MESSAGE, envelope), force=True
+        )
+
+    def _rebroadcast(self) -> None:
+        for e in self.scp.get_latest_messages_send(self.ledger_manager.get_ledger_num()):
+            self._broadcast(e)
+        self._start_rebroadcast_timer()
+
+    def _start_rebroadcast_timer(self) -> None:
+        self.rebroadcast_timer.expires_from_now(2)
+        self.rebroadcast_timer.async_wait(self._rebroadcast)
+
+    # ------------------------------------------------------------------
+    # SCPDriver: monitoring
+    # ------------------------------------------------------------------
+    def ballot_did_hear_from_quorum(self, slot_index: int, ballot) -> None:
+        self.m_quorum_heard.mark()
+
+    def nominating_value(self, slot_index: int, value: bytes) -> None:
+        log.debug("nominating value i=%d v=%s", slot_index, self.get_value_string(value))
+
+    def nomination_round_started(
+        self, slot_index: int, round_number: int, timed_out: bool
+    ) -> None:
+        """Per-round nomination latency: round N's span closes when round
+        N+1 starts (its timer fired), a ballot begins, or the slot
+        externalizes."""
+        self.n_nomination_rounds += 1
+        tr = self.app.tracer
+        tr.end(self._trace_nom_spans.pop(slot_index, None))
+        self._trace_nom_spans[slot_index] = tr.begin(
+            "scp.nominate_round",
+            slot=slot_index,
+            round=round_number,
+            timed_out=timed_out,
+        )
+
+    def started_ballot_protocol(self, slot_index: int, ballot) -> None:
+        # liveness: the highest ballot counter this slot reached is its
+        # ballot-round count; accumulated into n_ballot_rounds when the
+        # slot externalizes (or discarded with the stale-slot sweep there)
+        high = self._ballot_round_high.get(slot_index, 0)
+        self._ballot_round_high[slot_index] = max(high, ballot.counter)
+        tr = self.app.tracer
+        tr.end(self._trace_nom_spans.pop(slot_index, None))
+        # only the FIRST ballot opens the span — later bump_state calls are
+        # counter bumps inside the same ballot phase
+        if slot_index not in self._trace_ballot_spans:
+            self._trace_ballot_spans[slot_index] = tr.begin(
+                "scp.ballot", slot=slot_index
+            )
+
+    # ------------------------------------------------------------------
+    # externalization
+    # ------------------------------------------------------------------
+    def value_externalized(self, slot_index: int, value: bytes) -> None:
+        self.m_value_externalize.mark()
+        self.n_ballot_rounds += self._ballot_round_high.pop(slot_index, 0)
+        tr = self.app.tracer
+        tr.end(self._trace_nom_spans.pop(slot_index, None))
+        tr.end(self._trace_ballot_spans.pop(slot_index, None))
+        tr.end(self._trace_slot_spans.pop(slot_index, None))
+        for d in (
+            self._trace_nom_spans,
+            self._trace_ballot_spans,
+            self._trace_slot_spans,
+            self._ballot_round_high,
+        ):
+            for stale in [s for s in d if s < slot_index]:
+                d.pop(stale)
+        self.scp_timers.pop(slot_index, None)
+        sv = StellarValue.from_xdr(value)  # validated upstream; crash if not
+
+        self.current_value = b""
+        self.tracking = ConsensusData(slot_index, sv)
+        self._last_progress_at = self.app.clock.now()
+        self._tracking_heartbeat()
+
+        externalized_set = self.pending_envelopes.get_tx_set(sv.txSetHash)
+        self.trigger_timer.cancel()
+
+        ledger_data = LedgerCloseData(slot_index, externalized_set, sv)
+        self.ledger_manager.externalize_value(ledger_data)
+
+        self._remove_received_txs(externalized_set.transactions)
+
+        # rebroadcast generation-1 leftovers in apply order
+        om = self.app.overlay_manager
+        if om is not None:
+            leftovers = TxSetFrame(b"\x00" * 32)
+            for txmap in self.received_transactions[1].values():
+                for tx in txmap.transactions.values():
+                    leftovers.add_transaction(tx)
+            for tx in leftovers.sort_for_apply():
+                om.broadcast_message(tx.to_stellar_message())
+
+        if slot_index > MAX_SLOTS_TO_REMEMBER:
+            self.scp.purge_slots(slot_index - MAX_SLOTS_TO_REMEMBER)
+
+        self._age_pending_transactions()
+        self.ledger_closed()
+
+    def _age_pending_transactions(self) -> None:
+        """Shift each generation up one; the oldest generation keeps
+        accumulating (HerderImpl.cpp:611-628)."""
+        for n in range(len(self.received_transactions) - 1, 0, -1):
+            curr, prev = self.received_transactions[n], self.received_transactions[n - 1]
+            for acc, txmap in prev.items():
+                dst = curr.setdefault(acc, TxMap())
+                for tx in txmap.transactions.values():
+                    dst.add_tx(tx)
+            prev.clear()
+
+    def ledger_closed(self) -> None:
+        """Arm the next trigger (HerderImpl.cpp:1090-1160)."""
+        self.trigger_timer.cancel()
+        last_index = self.last_consensus_ledger_index()
+        self.pending_envelopes.slot_closed(last_index)
+        for s in [s for s in self.scp_slot_buckets if s <= last_index]:
+            del self.scp_slot_buckets[s]
+        om = self.app.overlay_manager
+        if om is not None:
+            om.ledger_closed(last_index)
+
+        next_index = self.next_consensus_ledger_index()
+        # process statements for the new slot (may externalize immediately)
+        self._process_scp_queue_at_index(next_index)
+        if next_index != self.next_consensus_ledger_index():
+            return  # externalized a newer slot; obsolete trigger
+
+        if not self.scp.is_validator or not self.ledger_manager.is_synced():
+            return
+
+        seconds = EXP_LEDGER_TIMESPAN_SECONDS
+        if self.app.config.ARTIFICIALLY_ACCELERATE_TIME_FOR_TESTING:
+            seconds = 1
+
+        now = self.app.clock.now()
+        if self.last_trigger is not None and (now - self.last_trigger) < seconds:
+            self.trigger_timer.expires_from_now(seconds - (now - self.last_trigger))
+        else:
+            self.trigger_timer.expires_from_now(0)
+        if not self.app.config.MANUAL_CLOSE:
+            self.trigger_timer.async_wait(lambda: self.trigger_next_ledger(next_index))
+
+    # ------------------------------------------------------------------
+    # transaction queue
+    # ------------------------------------------------------------------
+    def recv_transaction(self, tx) -> str:
+        acc = tx.source_bytes()
+        tx_id = tx.get_full_hash()
+
+        # O(1) duplicate check against ALL generations (a tx hash lives in
+        # at most one generation; aging moves it, removal discards it)
+        if tx_id in self._pending_tx_ids:
+            self.m_tx_duplicate.mark()
+            return TX_STATUS_DUPLICATE
+
+        agg = self._acct_agg.get(acc)
+        if agg is None:
+            fees = 0
+            high_seq = 0
+            for gen in self.received_transactions:
+                txmap = gen.get(acc)
+                if txmap is not None:
+                    fees += txmap.total_fees
+                    high_seq = max(high_seq, txmap.max_seq)
+            agg = [fees, high_seq]
+            self._acct_agg[acc] = agg
+        tot_fee = tx.get_fee() + agg[0]
+
+        if not tx.check_valid(self.app, agg[1]):
+            return TX_STATUS_ERROR
+
+        if tx.signing_account.get_balance_above_reserve(self.ledger_manager) < tot_fee:
+            tx.set_result_code(TransactionResultCode.txINSUFFICIENT_BALANCE)
+            return TX_STATUS_ERROR
+
+        self.received_transactions[0].setdefault(acc, TxMap()).add_tx(tx)
+        self._pending_tx_ids.add(tx_id)
+        agg[0] += tx.get_fee()
+        if tx.get_seq_num() > agg[1]:
+            agg[1] = tx.get_seq_num()
+        return TX_STATUS_PENDING
+
+    def recv_tx_set_txs(self, txset) -> bool:
+        """Feed every tx of a downloaded set into the queue — through the
+        ingest plane's replay edge when it exists (ONE batched signature
+        dispatch per accumulator fill instead of per-tx eager verifies;
+        no rate/surge admission on replay), else per-tx."""
+        txs = txset.sort_for_apply()
+        ingest = getattr(self.app, "ingest", None)
+        if ingest is not None:
+            statuses = ingest.submit_replay(txs)
+            return all(s == TX_STATUS_PENDING for s in statuses)
+        ok = True
+        for tx in txs:
+            if self.recv_transaction(tx) != TX_STATUS_PENDING:
+                ok = False
+        return ok
+
+    def num_pending_txs(self) -> int:
+        """Queue depth across all generations (the ingest plane's surge
+        high-water measure)."""
+        return len(self._pending_tx_ids)
+
+    def get_max_seq_in_pending_txs(self, acc: PublicKey) -> int:
+        high = 0
+        for gen in self.received_transactions:
+            txmap = gen.get(acc.value)
+            if txmap is not None:
+                high = max(high, txmap.max_seq)
+        return high
+
+    def _remove_received_txs(self, drop_txs) -> None:
+        for gen in self.received_transactions:
+            if not gen:
+                continue
+            dirty = set()
+            for tx in drop_txs:
+                acc = tx.source_bytes()
+                txmap = gen.get(acc)
+                if txmap is None:
+                    continue
+                if txmap.transactions.pop(tx.get_full_hash(), None) is not None:
+                    self._pending_tx_ids.discard(tx.get_full_hash())
+                    if not txmap.transactions:
+                        del gen[acc]
+                    else:
+                        dirty.add(acc)
+            for acc in dirty:
+                if acc in gen:
+                    gen[acc].recalculate()
+        # fee/seq aggregates for the touched accounts are stale now;
+        # recomputed lazily at the next submission from each account
+        for tx in drop_txs:
+            self._acct_agg.pop(tx.source_bytes(), None)
+
+    # ------------------------------------------------------------------
+    # SCP envelope queue
+    # ------------------------------------------------------------------
+    def recv_scp_envelope(self, envelope: SCPEnvelope) -> None:
+        if self.app.config.MANUAL_CLOSE:
+            return
+        self.m_envelope_receive.mark()
+        if self.tracking:
+            min_seq = self.next_consensus_ledger_index()
+            max_seq = min_seq + LEDGER_VALIDITY_BRACKET
+            if not (min_seq <= envelope.statement.slotIndex <= max_seq):
+                return
+        # flood fast-reject (the reference's eager verify,
+        # HerderImpl.cpp:347-364): an envelope whose signature fails must
+        # never reach the fetch plane — a byzantine flood of invalid-sig
+        # envelopes referencing made-up qset/txset hashes would otherwise
+        # wedge in `fetching` forever AND spray item-fetch requests for
+        # hashes nobody has.  Routed through the scheme seam: the
+        # overlay's per-crank batch flush (per-envelope or aggregate)
+        # already verified-and-dropped its batch, so this check is a
+        # warm-cache hit for every honest envelope; only the reject marks
+        # here — the accept mark stays at SCP's own pre-process verify so
+        # validsig/invalidsig stay one-mark-per-envelope.
+        ok = self._scheme().verify_envelope_cached(
+            envelope.statement.nodeID,
+            envelope.signature,
+            self._envelope_payload(envelope),
+        )
+        if not ok:
+            self.m_envelope_invalidsig.mark()
+            return
+        # TRUSTED post-verify plane from here on: the envelope's raw XDR
+        # (packed from our own decode, signature just checked) serves the
+        # hot slot-index / statement-type reads via the C field accessors
+        # — no re-decode — and doubles as the pending-envelope identity
+        # key, so the queue never re-packs it (reference anchor
+        # HerderImpl.cpp:347-364's post-verify type switch; the UNTRUSTED
+        # pre-verify ingest above keeps full decode, per the
+        # rationale in pendingenvelopes._required_items).
+        raw = envelope.to_xdr()
+        slot = xdr_getfield(SCPEnvelope, raw, "statement.slotIndex")
+        stype = xdr_getfield(SCPEnvelope, raw, ("statement", "pledges"))
+        meter = self.m_envelope_type.get(stype)
+        if meter is not None:
+            meter.mark()
+        # stalled-while-tracking recovery: a signed envelope
+        # for a FUTURE slot from a node IN OUR TRANSITIVE QUORUM is
+        # evidence the quorum externalized slots we never closed.  A
+        # node that stalls WITHOUT losing its connections — one-way
+        # partition (it hears nothing but is heard), beyond-slip clock
+        # skew (it hears everything and rejects it) — never gets the
+        # on-connect SCP-state replay that heals a reconnecting node,
+        # and before the probe its only way back was a full history-archive
+        # catchup once the gap outgrew MAX_SLOTS_TO_REMEMBER.  Probe
+        # instead: ask peers to replay their recent state while the gap
+        # is still inside the window.  The membership gate keeps an
+        # unprivileged valid-sig key from repeatedly wiping the flood
+        # dedup + triggering GET_SCP_STATE amplification on a merely
+        # slow (not left-behind) node.
+        if (
+            self.tracking
+            and slot > self.next_consensus_ledger_index()
+            and self._in_transitive_quorum(envelope.statement.nodeID)
+        ):
+            self._note_quorum_ahead()
+        bucket = self.scp_slot_buckets.get(slot)
+        if bucket is None:
+            make = True
+            if len(self.scp_slot_buckets) >= self.MAX_SLOT_BUCKETS:
+                evict = self._slot_bucket_max()
+                if evict is not None and slot < evict:
+                    del self.scp_slot_buckets[evict]
+                    heapq.heappop(self._slot_bucket_heap)
+                else:
+                    make = False  # farther than everything tracked
+            if make:
+                bucket = self.scp_slot_buckets.setdefault(slot, {})
+                heapq.heappush(self._slot_bucket_heap, -slot)
+                # stale entries from slot_closed trims accrue even far
+                # below cap (one per closed slot, forever)
+                self._maybe_rebuild_slot_bucket_heap()
+        if bucket is not None:
+            bucket[stype] = bucket.get(stype, 0) + 1
+        self.pending_envelopes.recv_scp_envelope(envelope, raw=raw)
+
+    def _maybe_rebuild_slot_bucket_heap(self) -> None:
+        """Rebuild the lazy heap when stale entries outnumber live ones
+        ~3:1 — the bound is relative to LIVE size (not the cap) so a
+        healthy below-cap node's per-closed-slot stale entries can never
+        accumulate; amortized O(1) over the pushes that grew it."""
+        heap = self._slot_bucket_heap
+        if len(heap) > 4 * max(len(self.scp_slot_buckets), 16):
+            heap[:] = [-s for s in self.scp_slot_buckets]
+            heapq.heapify(heap)
+
+    def _slot_bucket_max(self) -> Optional[int]:
+        """Largest slot currently tracked in scp_slot_buckets, via the
+        lazy-deletion heap: stale tops (slots trimmed by slot_closed)
+        pop here; amortized cost O(log n) per envelope."""
+        self._maybe_rebuild_slot_bucket_heap()
+        heap = self._slot_bucket_heap
+        while heap:
+            s = -heap[0]
+            if s in self.scp_slot_buckets:
+                return s
+            heapq.heappop(heap)
+        return None
+
+    def _in_transitive_quorum(self, node_id) -> bool:
+        """Is ``node_id`` mentioned anywhere in our (nested) local quorum
+        set?  Cached keyed by the local qset hash so the walk happens
+        once per qset, not per envelope."""
+        qh = self.scp.local_qset_hash
+        cached = self._quorum_members
+        if cached is None or cached[0] != qh:
+            members = frozenset(
+                n.value for n in iter_all_nodes(self.scp.local_qset)
+            )
+            self._quorum_members = cached = (qh, members)
+        return node_id.value in cached[1]
+
+    def _trigger_cadence(self) -> float:
+        """The expected seconds between closes on this node's config."""
+        if self.app.config.ARTIFICIALLY_ACCELERATE_TIME_FOR_TESTING:
+            return 1.0
+        return float(EXP_LEDGER_TIMESPAN_SECONDS)
+
+    def _note_quorum_ahead(self) -> None:
+        """Signed evidence arrived that the quorum is past our next slot.
+        If we have made no local progress for two close cadences, the
+        quorum externalized without us — rate-limited to one probe per
+        cadence, ask every authenticated peer for its recent SCP state
+        (GET_SCP_STATE 0 → send_scp_state_to_peer replays max-3..max),
+        the same ≤MAX_SLOTS_TO_REMEMBER replay a reconnecting peer gets
+        at AUTH.  Before probing, the pending-envelope plane forgets the
+        gap slots: envelopes we already handed to SCP may have been
+        rejected under conditions that no longer hold (a healed clock
+        re-validates the same closeTime), and the replies re-deliver the
+        identical packed bytes the processed-dedup would otherwise
+        swallow."""
+        now = self.app.clock.now()
+        cadence = self._trigger_cadence()
+        if now - self._last_progress_at < 2 * cadence:
+            return
+        if now - self._last_probe_at < cadence:
+            return
+        om = self.app.overlay_manager
+        if om is None:
+            return
+        peers = om.authenticated_peers()
+        if not peers:
+            return
+        self._last_probe_at = now
+        self.pending_envelopes.forget_above(
+            self.last_consensus_ledger_index()
+        )
+        # ...and the overlay's at-most-once flood memory for the same
+        # window: the replies re-deliver packed-identical messages the
+        # floodgate would otherwise drop before the herder sees them
+        om.floodgate.forget_from(self.next_consensus_ledger_index())
+        self.m_scp_state_probe.mark()
+        log.info(
+            "quorum ahead of slot %d with no local progress: probing %d"
+            " peer(s) for recent SCP state",
+            self.next_consensus_ledger_index(),
+            len(peers),
+        )
+        for peer in peers:
+            peer.send_message(
+                StellarMessage(MessageType.GET_SCP_STATE, 0)
+            )
+
+    def note_envelope_rejected(self, envelope: SCPEnvelope) -> None:
+        """The overlay's batch flush verified this envelope's signature
+        invalid and dropped it before the herder — account it exactly like
+        the eager-reject path above would have."""
+        self.m_envelope_receive.mark()
+        self.m_envelope_invalidsig.mark()
+
+    def recv_scp_quorum_set(self, qs_hash: bytes, qset: SCPQuorumSet) -> None:
+        self.pending_envelopes.recv_scp_quorum_set(qs_hash, qset)
+
+    def recv_tx_set(self, ts_hash: bytes, txset) -> None:
+        self.pending_envelopes.recv_tx_set(ts_hash, txset)
+
+    def peer_doesnt_have(self, msg_type, item_id: bytes, peer) -> None:
+        self.pending_envelopes.peer_doesnt_have(msg_type, item_id, peer)
+
+    def get_tx_set(self, ts_hash: bytes):
+        return self.pending_envelopes.get_tx_set(ts_hash)
+
+    def process_scp_queue(self) -> None:
+        # drain holdoff around the whole sweep: when several slots are
+        # externalizable (a healed partition's replay run readied them in
+        # one batch), each value_externalized ENQUEUES through the close
+        # pipeline and the closes happen at release as one pipelined
+        # backlog — slot N+1's signature prewarm dispatches while slot N
+        # applies (ledger/closepipeline.py; ROADMAP #3's remaining leg).
+        # Everything is still synchronous within this call: by return,
+        # every enqueued ledger has closed.
+        self.ledger_manager.hold_pipeline_drains()
+        try:
+            if self.tracking:
+                self.pending_envelopes.erase_below(
+                    self.next_consensus_ledger_index()
+                )
+                self._process_scp_queue_at_index(
+                    self.next_consensus_ledger_index()
+                )
+            else:
+                for slot in self.pending_envelopes.ready_slots():
+                    self._process_scp_queue_at_index(slot)
+                    if self.tracking:
+                        break  # a slot externalized; back to the regular flow
+        finally:
+            self.ledger_manager.release_pipeline_drains()
+
+    def _process_scp_queue_at_index(self, slot_index: int) -> None:
+        while True:
+            env = self.pending_envelopes.pop(slot_index)
+            if env is None:
+                return
+            self.scp.receive_envelope(env)
+
+    def send_scp_state_to_peer(self, ledger_seq: int, peer) -> None:
+        if ledger_seq == 0:
+            max_seq = self.get_current_ledger_seq()
+            min_seq = max(2, max_seq - 3) if max_seq >= 5 else 2
+        else:
+            min_seq = max_seq = ledger_seq
+        for seq in range(min_seq, max_seq + 1):
+            for e in self.scp.get_current_state(seq):
+                self.m_envelope_emit.mark()
+                peer.send_message(StellarMessage(MessageType.SCP_MESSAGE, e))
+
+    # ------------------------------------------------------------------
+    # triggering the next ledger
+    # ------------------------------------------------------------------
+    def trigger_next_ledger(self, ledger_seq_to_trigger: int) -> None:
+        if not self.tracking or not self.ledger_manager.is_synced():
+            log.debug("trigger_next_ledger: skipping (out of sync)")
+            return
+
+        lcl = self.ledger_manager.get_last_closed_ledger_header()
+        proposed = TxSetFrame(lcl.hash)
+        for gen in self.received_transactions:
+            for txmap in gen.values():
+                for tx in txmap.transactions.values():
+                    proposed.add_transaction(tx)
+
+        removed = proposed.trim_invalid(self.app)
+        self._remove_received_txs(removed)
+        proposed.surge_pricing_filter(self.ledger_manager)
+
+        if not proposed.check_valid(self.app):
+            raise RuntimeError("wanting to emit an invalid txSet")
+
+        tx_set_hash = proposed.get_contents_hash()
+        self.pending_envelopes.recv_tx_set(tx_set_hash, proposed)
+
+        slot_index = lcl.header.ledgerSeq + 1
+        if ledger_seq_to_trigger != slot_index:
+            return  # externalize happened on a more recent ledger
+
+        self.last_trigger = self.app.clock.now()
+        next_close_time = max(int(self.app.time_now()), lcl.header.scpValue.closeTime + 1)
+
+        new_value = StellarValue(tx_set_hash, next_close_time, [], 0)
+
+        cfg = self.app.config
+        upgrades = []
+        if lcl.header.ledgerVersion != cfg.LEDGER_PROTOCOL_VERSION:
+            upgrades.append(
+                LedgerUpgrade(
+                    LedgerUpgradeType.LEDGER_UPGRADE_VERSION, cfg.LEDGER_PROTOCOL_VERSION
+                )
+            )
+        if lcl.header.baseFee != cfg.DESIRED_BASE_FEE:
+            upgrades.append(
+                LedgerUpgrade(LedgerUpgradeType.LEDGER_UPGRADE_BASE_FEE, cfg.DESIRED_BASE_FEE)
+            )
+        if lcl.header.maxTxSetSize != cfg.DESIRED_MAX_TX_PER_LEDGER:
+            upgrades.append(
+                LedgerUpgrade(
+                    LedgerUpgradeType.LEDGER_UPGRADE_MAX_TX_SET_SIZE,
+                    cfg.DESIRED_MAX_TX_PER_LEDGER,
+                )
+            )
+        for up in upgrades:
+            raw = up.to_xdr()
+            if len(raw) < 128:
+                new_value.upgrades.append(raw)
+
+        self.current_value = new_value.to_xdr()
+        prev_value = lcl.header.scpValue.to_xdr()
+        # whole-slot consensus span: nominate → value_externalized (must be
+        # registered BEFORE nominate — a single-node network externalizes
+        # synchronously inside this call)
+        self._trace_slot_spans[slot_index] = self.app.tracer.begin(
+            "scp.consensus", slot=slot_index, txs=proposed.size()
+        )
+        self.scp.nominate(slot_index, self.current_value, prev_value)
+
+    # ------------------------------------------------------------------
+    # SCP state persistence (HerderImpl.cpp:1442-1531)
+    # ------------------------------------------------------------------
+    def persist_scp_state(self, slot_index: Optional[int] = None) -> None:
+        import base64
+
+        from ..main.persistentstate import K_LAST_SCP_DATA
+        from ..xdr.base import pack_var_array_of
+        from ..xdr.ledger import TransactionSet
+
+        if slot_index is None:
+            slot_index = self.ledger_manager.get_ledger_num()
+        envs = self.scp.get_latest_messages_send(slot_index)
+        txsets: Dict[bytes, object] = {}
+        qsets: Dict[bytes, SCPQuorumSet] = {}
+        for e in envs:
+            for v in Slot.statement_values(e.statement):
+                # only the txSetHash is needed: C field accessor over the
+                # value bytes, no full StellarValue decode
+                try:
+                    h = xdr_getfield(StellarValue, v, "txSetHash")
+                except Exception:
+                    continue
+                ts = self.pending_envelopes.get_tx_set(h)
+                if ts is not None:
+                    txsets[h] = ts
+            qh = Slot.companion_qset_hash(e.statement)
+            if qh is not None:
+                qs = self.pending_envelopes.get_qset(qh)
+                if qs is not None:
+                    qsets[qh] = qs
+
+        blob = (
+            pack_var_array_of(SCPEnvelope, envs)
+            + pack_var_array_of(TransactionSet, [t.to_xdr() for t in txsets.values()])
+            + pack_var_array_of(SCPQuorumSet, list(qsets.values()))
+        )
+        fs.kill_point(KP_SCP_PERSIST_PRE, ctx=self.app.database)
+        self.app.persistent_state.set_state(
+            K_LAST_SCP_DATA, base64.b64encode(blob).decode()
+        )
+        fs.kill_point(KP_SCP_PERSIST_POST, ctx=self.app.database)
+
+    def restore_scp_state(self) -> None:
+        import base64
+
+        from ..main.persistentstate import K_LAST_SCP_DATA
+        from ..xdr.base import unpack_var_arrays
+        from ..xdr.ledger import TransactionSet
+
+        latest64 = self.app.persistent_state.get_state(K_LAST_SCP_DATA)
+        if not latest64:
+            return
+        blob = base64.b64decode(latest64)
+        # crash on unrecognized data: participating with bad SCP state is
+        # unsafe; the way out is --newdb + catchup
+        envs, txset_xdrs, qsets = unpack_var_arrays(
+            blob, (SCPEnvelope, TransactionSet, SCPQuorumSet)
+        )
+        for xs in txset_xdrs:
+            ts = TxSetFrame.from_xdr_set(self.app.network_id, xs)
+            self.pending_envelopes.recv_tx_set(ts.get_contents_hash(), ts)
+        for qs in qsets:
+            self.pending_envelopes.recv_scp_quorum_set(compute_qset_hash(qs), qs)
+        for e in envs:
+            self.scp.set_state_from_envelope(e.statement.slotIndex, e)
+        if envs:
+            self._start_rebroadcast_timer()
+        self._replay_interrupted_close(envs)
+
+    def _replay_interrupted_close(self, envs) -> None:
+        """Finish a close the previous life died inside (the crash-
+        survival plane).  A node killed between SCP
+        externalize and the close's SQL COMMIT restarts with LCL = n-1
+        while its restored slot-n state is already in EXTERNALIZE phase
+        — set_state_from_envelope never re-fires value_externalized, so
+        without this the node can neither close n itself nor (its vote
+        being gated on sync) help a 3-of-3 quorum move past n+1.  The
+        decision for slot n is final (quorum externalized it; our own
+        restored statement proves we saw that quorum), so re-driving
+        the close from the persisted value + txset is deterministic
+        replay, not re-deciding — the kill-sweep pins the resulting
+        hashes bit-exact against an unkilled control."""
+        from ..xdr.scp import SCPStatementType
+
+        lcl = self.ledger_manager.get_last_closed_ledger_num()
+        for e in envs:
+            st = e.statement
+            if (
+                st.pledges.type != SCPStatementType.SCP_ST_EXTERNALIZE
+                or st.slotIndex != lcl + 1
+            ):
+                continue
+            try:
+                sv = StellarValue.from_xdr(st.pledges.value.commit.value)
+            except Exception:
+                continue  # value undecodable: leave it to catchup
+            ts = self.pending_envelopes.get_tx_set(sv.txSetHash)
+            if ts is None:
+                continue  # txset not persisted: leave it to catchup
+            log.info(
+                "replaying interrupted close of ledger %d from restored"
+                " SCP state",
+                st.slotIndex,
+            )
+            self.ledger_manager.externalize_value(
+                LedgerCloseData(st.slotIndex, ts, sv)
+            )
+            return
+
+    # ------------------------------------------------------------------
+    # misc
+    # ------------------------------------------------------------------
+    def is_quorum_set_sane(self, node_id: NodeID, qset: SCPQuorumSet) -> bool:
+        # delegates to SCP so the self-absence rule lives in one place
+        # (reference: HerderImpl.cpp:1396 -> LocalNode::isQuorumSetSane)
+        return self.scp.is_qset_sane_for(node_id, qset)
+
+    def dump_info(self) -> dict:
+        return {
+            "state": self.get_state(),
+            "tracking": self.tracking.index if self.tracking else None,
+            "queue": self.pending_envelopes.dump_info(),
+            "scp": self.scp.dump_info(),
+            "sig_scheme": self._scheme().stats(),
+            "slot_buckets": {
+                s: dict(v) for s, v in self.scp_slot_buckets.items()
+            },
+            "closetime_rejects": {
+                "past": self.m_value_close_past.count,
+                "future": self.m_value_close_future.count,
+            },
+            "scp_state_probes": self.m_scp_state_probe.count,
+        }

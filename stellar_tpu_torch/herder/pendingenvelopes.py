@@ -1,0 +1,270 @@
+"""PendingEnvelopes — holds SCP envelopes until their dependencies are here
+(reference: src/herder/PendingEnvelopes.{h,cpp}).
+
+An SCP envelope can only be fed to consensus once its companion quorum set
+and every tx set its values reference are locally known; missing items are
+anycast-fetched from peers through the overlay's ItemFetchers.  Caches are
+LRU so a malicious flood of hashes can't grow memory unboundedly.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Dict, List, Optional
+
+from ..util import xlog
+from ..xdr.ledger import StellarValue
+from ..xdr.overlay import MessageType
+from ..xdr.scp import SCPEnvelope, SCPQuorumSet
+from ..scp.quorum import qset_hash as compute_qset_hash
+
+log = xlog.logger("Herder")
+
+QSET_CACHE_SIZE = 10000
+TXSET_CACHE_SIZE = 10000
+
+
+class _LRU:
+    def __init__(self, cap: int):
+        self.cap = cap
+        self.d: OrderedDict = OrderedDict()
+
+    def get(self, k):
+        if k in self.d:
+            self.d.move_to_end(k)
+            return self.d[k]
+        return None
+
+    def put(self, k, v):
+        self.d[k] = v
+        self.d.move_to_end(k)
+        while len(self.d) > self.cap:
+            self.d.popitem(last=False)
+
+    def __contains__(self, k):
+        return k in self.d
+
+
+class PendingEnvelopes:
+    def __init__(self, app, herder):
+        self.app = app
+        self.herder = herder
+        # slot -> {envelope_bytes: envelope}
+        self.processed: Dict[int, Dict[bytes, SCPEnvelope]] = {}
+        self.fetching: Dict[int, Dict[bytes, SCPEnvelope]] = {}
+        self.pending: Dict[int, List[SCPEnvelope]] = {}
+        self.qset_cache = _LRU(QSET_CACHE_SIZE)
+        self.txset_cache = _LRU(TXSET_CACHE_SIZE)
+        self._recheck_posted = False
+        self._shut_down = False
+        self._size_counter = app.metrics.new_counter(
+            ("scp", "memory", "pending-envelopes")
+        )
+
+    # -- item arrival -------------------------------------------------------
+    def recv_scp_quorum_set(self, qs_hash: bytes, qset: SCPQuorumSet) -> None:
+        self.qset_cache.put(qs_hash, qset)
+        om = self.app.overlay_manager
+        if om is not None:
+            om.qset_fetcher.recv(qs_hash)
+        self._post_recheck()
+
+    def recv_tx_set(self, ts_hash: bytes, txset) -> None:
+        self.txset_cache.put(ts_hash, txset)
+        om = self.app.overlay_manager
+        if om is not None:
+            om.tx_set_fetcher.recv(ts_hash)
+        self._post_recheck()
+
+    def _post_recheck(self) -> None:
+        """Coalesce dependency rechecks per crank (the overlay's SCP-batch
+        idiom): fetch responses for several items routinely land in one
+        delivery burst, and per-message rechecks both rescan ``fetching``
+        O(items × envelopes) and — worse — cascade each newly-ready
+        EXTERNALIZE into a synchronous ledger close MID-BURST.  One posted
+        sweep readies the whole batch first, so a healed/lagging node's
+        missed slots externalize back-to-back and drain through the close
+        pipeline as a real >1-ledger backlog (dispatch-ahead prewarms the
+        next txset while the current one applies) instead of closing
+        serially inside the message handlers."""
+        if self._recheck_posted:
+            return
+        # nothing wedged ⇒ nothing a recheck could ready — do NOT post:
+        # an unconditional post would keep every crank non-idle, and a
+        # VIRTUAL clock never leaps to its next timer while cranks have
+        # work (the herder's own trigger path calls recv_tx_set on every
+        # proposal, so this would freeze virtual time on quiet nodes)
+        if not any(self.fetching.values()):
+            return
+        self._recheck_posted = True
+        self.app.clock.post(self._run_posted_recheck)
+
+    def shutdown(self) -> None:
+        """Neutralize any already-posted recheck: clock.post callbacks
+        cannot be cancelled, and a crashed/stopped node's posted sweep
+        must not externalize ledgers against a closed database (the
+        chaos plane's crash fault fires mid-crank)."""
+        self._shut_down = True
+
+    def _run_posted_recheck(self) -> None:
+        self._recheck_posted = False
+        if self._shut_down:
+            return
+        self._recheck_fetching()
+
+    def get_qset(self, qs_hash: bytes) -> Optional[SCPQuorumSet]:
+        return self.qset_cache.get(qs_hash)
+
+    def get_tx_set(self, ts_hash: bytes):
+        return self.txset_cache.get(ts_hash)
+
+    def peer_doesnt_have(self, msg_type: MessageType, item_id: bytes, peer) -> None:
+        om = self.app.overlay_manager
+        if om is None:
+            return
+        if msg_type == MessageType.TX_SET:
+            om.tx_set_fetcher.doesnt_have(item_id, peer)
+        elif msg_type == MessageType.SCP_QUORUMSET:
+            om.qset_fetcher.doesnt_have(item_id, peer)
+
+    # -- dependencies -------------------------------------------------------
+    def _required_items(self, envelope: SCPEnvelope):
+        """(qset_hash, [txset hashes]) the envelope depends on."""
+        from ..scp.slot import Slot
+
+        st = envelope.statement
+        qs = Slot.companion_qset_hash(st)  # None for EXTERNALIZE (self-quorum)
+        txsets = []
+        for v in Slot.statement_values(st):
+            # FULL decode, deliberately not the cheaper xdr_getfield
+            # (persist_scp_state uses it on our OWN statements): these
+            # values arrive from unverified peers, and a value malformed
+            # beyond a plausible-looking 32-byte prefix must be SKIPPED —
+            # treating its prefix as a txset dependency would wedge the
+            # envelope in `fetching` forever and spray item-fetch requests
+            # for a hash nobody has
+            try:
+                sv = StellarValue.from_xdr(v)
+            except Exception:
+                continue
+            txsets.append(sv.txSetHash)
+        return qs, txsets
+
+    def is_fully_fetched(self, envelope: SCPEnvelope) -> bool:
+        qs, txsets = self._required_items(envelope)
+        if qs is not None and qs not in self.qset_cache:
+            return False
+        return all(h in self.txset_cache for h in txsets)
+
+    def _start_fetch(self, envelope: SCPEnvelope) -> None:
+        om = self.app.overlay_manager
+        if om is None:
+            return
+        qs, txsets = self._required_items(envelope)
+        if qs is not None and qs not in self.qset_cache:
+            om.qset_fetcher.fetch(qs, envelope)
+        for h in txsets:
+            if h not in self.txset_cache:
+                om.tx_set_fetcher.fetch(h, envelope)
+
+    # -- envelope flow ------------------------------------------------------
+    def recv_scp_envelope(
+        self, envelope: SCPEnvelope, raw: Optional[bytes] = None
+    ) -> None:
+        """``raw`` is the envelope's packed XDR when the caller already
+        has it (the herder's post-verify plane packs it once for its
+        getfield accounting) — the identity key here, saving a re-pack
+        per envelope per queue touch."""
+        slot = envelope.statement.slotIndex
+        key = raw if raw is not None else envelope.to_xdr()
+        if key in self.processed.get(slot, {}):
+            return
+        if key in self.fetching.get(slot, {}):
+            return
+        if self.is_fully_fetched(envelope):
+            self._envelope_ready(envelope, key=key)
+        else:
+            self.fetching.setdefault(slot, {})[key] = envelope
+            self._size_counter.inc()
+            self._start_fetch(envelope)
+
+    def _envelope_ready(
+        self,
+        envelope: SCPEnvelope,
+        process: bool = True,
+        key: Optional[bytes] = None,
+    ) -> None:
+        slot = envelope.statement.slotIndex
+        if key is None:
+            key = envelope.to_xdr()
+        self.processed.setdefault(slot, {})[key] = envelope
+        # flood the now-complete envelope onward (PendingEnvelopes.cpp
+        # envelopeReady) — the Floodgate dedups, so relaying here is what
+        # lets consensus traverse non-fully-meshed topologies
+        om = self.app.overlay_manager
+        if om is not None:
+            from ..xdr.overlay import StellarMessage
+
+            om.broadcast_message(
+                StellarMessage(MessageType.SCP_MESSAGE, envelope)
+            )
+        self.pending.setdefault(slot, []).append(envelope)
+        if process:
+            self.herder.process_scp_queue()
+
+    def _recheck_fetching(self) -> None:
+        ready = []
+        for slot, envs in self.fetching.items():
+            for key, env in list(envs.items()):
+                if self.is_fully_fetched(env):
+                    del envs[key]
+                    self._size_counter.dec()
+                    ready.append((env, key))
+        # queue the WHOLE ready batch before processing: when the batch
+        # spans several externalizable slots (a lagging node's replay),
+        # the herder's sweep sees them all pending and the ledger closes
+        # drain as one pipelined backlog rather than one close per item
+        for env, key in ready:
+            self._envelope_ready(env, process=False, key=key)
+        if ready:
+            self.herder.process_scp_queue()
+
+    def pop(self, slot_index: int) -> Optional[SCPEnvelope]:
+        lst = self.pending.get(slot_index)
+        if lst:
+            return lst.pop(0)
+        return None
+
+    def ready_slots(self) -> List[int]:
+        return sorted(s for s, lst in self.pending.items() if lst)
+
+    def erase_below(self, slot_index: int) -> None:
+        for d in (self.processed, self.fetching, self.pending):
+            for s in [s for s in d if s < slot_index]:
+                del d[s]
+
+    def forget_above(self, slot_index: int) -> None:
+        """Forget the PROCESSED memory for every slot past ``slot_index``
+        (the herder's stall probe): envelopes already handed
+        to SCP may have been value-rejected under local conditions that
+        no longer hold (a healed clock), and the probe's replies carry
+        the IDENTICAL packed bytes — without this the processed-dedup
+        would swallow the replay.  Re-processing is safe: SCP statement
+        handling is idempotent and the floodgate dedups the relay.
+        ``fetching`` keeps its entries (still waiting on dependencies);
+        ``pending`` keeps its queue (duplicates just re-feed SCP the
+        same statement)."""
+        for s in [s for s in self.processed if s > slot_index]:
+            del self.processed[s]
+
+    def slot_closed(self, slot_index: int) -> None:
+        """Drop all state at or below the closed slot (keep newer)."""
+        self.erase_below(slot_index + 1)
+
+    def dump_info(self) -> dict:
+        return {
+            "pending": {s: len(v) for s, v in self.pending.items()},
+            "fetching": {s: len(v) for s, v in self.fetching.items()},
+            "qsets": len(self.qset_cache.d),
+            "txsets": len(self.txset_cache.d),
+        }

@@ -1,0 +1,275 @@
+"""TxSetFrame (reference: src/herder/TxSetFrame.{h,cpp}).
+
+Canonical form: transactions sorted by full hash; contents hash =
+SHA256(previousLedgerHash ‖ envelopes-in-hash-order).  Apply order re-sorts
+per account by sequence number with hash-XOR randomized interleave.
+
+**Batch-verify hot spot** (SURVEY.md §2.2): ``check_valid``/``trim_invalid``
+first collect every hint-matched (pubkey, contentsHash, sig) candidate across
+the whole set and flush them through the app's SigBackend (TPU or CPU) into
+the shared verify cache — one device round-trip for the entire set — then run
+the reference's exact eager algorithm, which now hits only cache.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+from ..crypto import SHA256
+from ..trace import tracer_of
+from ..tx.frame import TransactionFrame
+from ..xdr.ledger import TransactionSet
+from ..xdr.xtypes import PublicKey
+
+
+def less_than_xored(l: bytes, r: bytes, x: bytes) -> bool:
+    """util/types.cpp lessThanXored."""
+    v1 = bytes(a ^ b for a, b in zip(x, l))
+    v2 = bytes(a ^ b for a, b in zip(x, r))
+    return v1 < v2
+
+
+class TxSetFrame:
+    def __init__(self, previous_ledger_hash: bytes, transactions=None):
+        self.previous_ledger_hash = previous_ledger_hash
+        self.transactions: List[TransactionFrame] = list(transactions or [])
+        self._hash: Optional[bytes] = None
+        self._triples_memo: Optional[list] = None
+
+    @classmethod
+    def from_xdr_set(cls, network_id: bytes, xdr_set: TransactionSet) -> "TxSetFrame":
+        txs = [
+            TransactionFrame.make_from_wire(network_id, env) for env in xdr_set.txs
+        ]
+        return cls(xdr_set.previousLedgerHash, txs)
+
+    # -- canonical ordering & hash -----------------------------------------
+    def sort_for_hash(self) -> None:
+        self.transactions.sort(key=lambda tx: tx.get_full_hash())
+        self._hash = None
+
+    def get_contents_hash(self) -> bytes:
+        if self._hash is None:
+            self.sort_for_hash()
+            h = SHA256()
+            h.add(self.previous_ledger_hash)
+            for tx in self.transactions:
+                h.add(tx.env_xdr())
+            self._hash = h.finish()
+        return self._hash
+
+    def add_transaction(self, tx: TransactionFrame) -> None:
+        self.transactions.append(tx)
+        self._hash = None
+        self._triples_memo = None
+
+    def remove_tx(self, tx: TransactionFrame) -> None:
+        try:
+            self.transactions.remove(tx)
+        except ValueError:
+            pass
+        self._hash = None
+        self._triples_memo = None
+
+    def size(self) -> int:
+        return len(self.transactions)
+
+    def to_xdr(self) -> TransactionSet:
+        self.sort_for_hash()
+        return TransactionSet(
+            self.previous_ledger_hash, [tx.envelope for tx in self.transactions]
+        )
+
+    # -- apply order (TxSetFrame.cpp:93-131) -------------------------------
+    def sort_for_apply(self) -> List[TransactionFrame]:
+        txs = sorted(self.transactions, key=lambda tx: tx.get_seq_num())
+        batches: List[List[TransactionFrame]] = [[] for _ in range(4)]
+        seen_count: Dict[bytes, int] = {}
+        for tx in txs:
+            v = seen_count.get(tx.source_bytes(), 0)
+            if v >= len(batches):
+                batches.extend([] for _ in range(4))
+            batches[v].append(tx)
+            seen_count[tx.source_bytes()] = v + 1
+
+        # lessThanXored(l, r, x) is a lexicographic compare of l^x vs r^x,
+        # which equals comparing the big-endian integers (l^x) < (r^x) —
+        # so a key sort, not a comparator sort
+        xh = int.from_bytes(self.get_contents_hash(), "big")
+        out: List[TransactionFrame] = []
+        for batch in batches:
+            batch.sort(
+                key=lambda tx: int.from_bytes(tx.get_full_hash(), "big") ^ xh
+            )
+            out.extend(batch)
+        return out
+
+    def collect_account_ids(self) -> set:
+        """Every account this set can touch: tx sources, op sources, and
+        op targets (create/payment/path destinations, merge target,
+        allow-trust trustor).  Feeds AccountFrame.bulk_warm_cache before
+        apply so big random-access ledgers avoid per-miss point SELECTs."""
+        from ..xdr.txs import OperationType as OT
+
+        ids = set()
+        for tx in self.transactions:
+            ids.add(tx.get_source_id())
+            for op in tx.envelope.tx.operations:
+                if op.sourceAccount is not None:
+                    ids.add(op.sourceAccount)
+                t = op.body.type
+                v = op.body.value
+                if t in (OT.CREATE_ACCOUNT, OT.PAYMENT, OT.PATH_PAYMENT):
+                    ids.add(v.destination)
+                elif t == OT.ACCOUNT_MERGE:
+                    ids.add(v)  # merge body is the destination AccountID
+                elif t == OT.ALLOW_TRUST:
+                    ids.add(v.trustor)
+        return ids
+
+    # -- shared validity core ----------------------------------------------
+    def _collect_signature_triples(self, app) -> list:
+        """Memoized per set: collection does a readonly account load per tx
+        (hint-matching needs the signers), and close_ledger prewarms the
+        same set check_valid just prewarmed.  The triples are a pure
+        prefetch — the eager check_signature path re-verifies anything the
+        batch missed — so a memo gone stale against DB signer changes can
+        only weaken the prefetch, never change a result.  Invalidated on
+        add_transaction/remove_tx."""
+        if self._triples_memo is None:
+            triples = []
+            for tx in self.transactions:
+                triples.extend(tx.candidate_signature_pairs(app.database))
+            self._triples_memo = triples
+        return self._triples_memo
+
+    def _prewarm_signature_cache(self, app) -> None:
+        """One SigBackend batch for the entire set (the TPU flush point)."""
+        backend = getattr(app, "sig_backend", None)
+        if backend is None:
+            return
+        triples = self._collect_signature_triples(app)
+        if triples:
+            backend.verify_batch(triples)
+
+    def prewarm_signature_cache_async(self, app):
+        """Start the signature-cache prewarm via the backend's async flush
+        surface (SigBackend.verify_batch_async); returns a join() the
+        caller must invoke before any signature check can depend on the
+        warmed cache.
+
+        Triple collection (DB reads via candidate_signature_pairs) happens
+        on the CALLER's thread — sqlite connections are not shared across
+        threads here.  Only the pure-compute flush (hashing + device/
+        libsodium verify + at-completion cache latch, SigFlushFuture) runs
+        on the worker, which lets ledger close overlap it with fee
+        processing (LedgerManager.close_ledger).
+
+        join() is bounded even through a wedged accelerator transport:
+        TpuSigBackend.verify_batch carries its own DEVICE_TIMEOUT + host
+        fallback (covering every call site, not just this one); a worker
+        error re-raises at join()."""
+        from ..crypto.sigbackend import CALLER_CLOSE
+
+        backend = getattr(app, "sig_backend", None)
+        if backend is None or not hasattr(backend, "verify_batch_async"):
+            return lambda: None
+        triples = self._collect_signature_triples(app)
+        if not triples:
+            return lambda: None
+        fut = backend.verify_batch_async(triples, caller=CALLER_CLOSE)
+        return fut.result
+
+    def _account_tx_map(self) -> Dict[bytes, List[TransactionFrame]]:
+        m: Dict[bytes, List[TransactionFrame]] = {}
+        for tx in self.transactions:
+            m.setdefault(tx.source_bytes(), []).append(tx)
+        return m
+
+    @staticmethod
+    def _check_account_chain(app, txs: List[TransactionFrame]):
+        """Per-account: seq chain valid + can afford total fees.
+        Returns (ok, invalid_txs)."""
+        txs.sort(key=lambda t: t.get_seq_num())
+        invalid = []
+        last_tx = None
+        last_seq = 0
+        tot_fee = 0
+        for tx in txs:
+            if not tx.check_valid(app, last_seq):
+                invalid.append(tx)
+                continue
+            tot_fee += tx.get_fee()
+            last_tx = tx
+            last_seq = tx.get_seq_num()
+        if last_tx is not None:
+            acct = last_tx.signing_account
+            if acct.get_balance() - tot_fee < acct.get_minimum_balance(
+                app.ledger_manager
+            ):
+                return False, txs  # whole account group is bad
+        return True, invalid
+
+    def check_valid(self, app) -> bool:
+        """TxSetFrame.cpp:247-330."""
+        with tracer_of(app).span("txset.validate", txs=len(self.transactions)):
+            lcl = app.ledger_manager.get_last_closed_ledger_header()
+            if lcl.hash != self.previous_ledger_hash:
+                return False
+            if len(self.transactions) > lcl.header.maxTxSetSize:
+                return False
+
+            last_hash = b"\x00" * 32
+            for tx in self.transactions:
+                if tx.get_full_hash() < last_hash:
+                    return False  # not in canonical order
+                last_hash = tx.get_full_hash()
+
+            self._prewarm_signature_cache(app)
+
+            for txs in self._account_tx_map().values():
+                ok, invalid = self._check_account_chain(app, list(txs))
+                if not ok or invalid:
+                    return False
+            return True
+
+    def trim_invalid(self, app) -> List[TransactionFrame]:
+        """Remove invalid txs; returns the trimmed ones (TxSetFrame.cpp:190)."""
+        self.sort_for_hash()
+        self._prewarm_signature_cache(app)
+        trimmed: List[TransactionFrame] = []
+        for txs in self._account_tx_map().values():
+            ok, invalid = self._check_account_chain(app, list(txs))
+            if not ok:
+                for tx in txs:
+                    trimmed.append(tx)
+                    self.remove_tx(tx)
+            else:
+                for tx in invalid:
+                    trimmed.append(tx)
+                    self.remove_tx(tx)
+        return trimmed
+
+    # -- surge pricing (TxSetFrame.cpp:156-186) ----------------------------
+    def surge_pricing_filter(self, lm) -> None:
+        max_size = lm.get_max_tx_set_size()
+        if len(self.transactions) <= max_size:
+            return
+        account_fee: Dict[bytes, float] = {}
+        for tx in self.transactions:
+            r = tx.get_fee() / tx.get_min_fee(lm)
+            cur = account_fee.get(tx.source_bytes(), 0.0)
+            if cur == 0 or r < cur:
+                account_fee[tx.source_bytes()] = r
+
+        def surge_key(tx):
+            # higher fee ratio first; ties by account id; within an account by seq
+            return (
+                -account_fee[tx.source_bytes()],
+                tx.source_bytes(),
+                tx.get_seq_num(),
+            )
+
+        ordered = sorted(self.transactions, key=surge_key)
+        for tx in ordered[max_size:]:
+            self.remove_tx(tx)

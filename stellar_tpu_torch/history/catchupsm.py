@@ -1,0 +1,420 @@
+"""Catchup state machine — BEGIN → ANCHORED → FETCHING → VERIFYING →
+APPLYING → END (reference: src/history/CatchupStateMachine.{h,cpp}).
+
+Two modes (HistoryManager.h:186-197):
+
+- MINIMAL: fetch the anchor checkpoint's bucket files, verify the anchor
+  ledger-header chain, replay the buckets into the SQL store
+  (Bucket.apply), adopt the bucket-list shape (assumeState), and jump the
+  LCL to the anchor header.
+- COMPLETE: fetch every ledger/transactions/results checkpoint from the
+  local LCL forward, verify the header hash-chain back from the anchor,
+  and replay each ledger through the normal ``close_ledger`` path (full
+  signature checks — this is the reference's replay semantics).
+
+Failures retry with a fresh random archive after a backoff, up to
+``MAX_RETRIES`` (CatchupStateMachine.h RETRYING loop).
+"""
+
+from __future__ import annotations
+
+import os
+import random
+from typing import Callable, Dict, List, Optional
+
+from ..util import VirtualTimer, xlog
+from ..util.xdrstream import XDRInputFileStream
+from ..xdr.ledger import (
+    LedgerHeaderHistoryEntry,
+    TransactionHistoryEntry,
+)
+from .archive import WELL_KNOWN_PATH, HistoryArchive, HistoryArchiveState
+from .filetransfer import (
+    CAT_BUCKET,
+    CAT_LEDGER,
+    CAT_TRANSACTIONS,
+    FILE_FAILED,
+    FILE_VERIFIED,
+    FileTransferInfo,
+)
+
+log = xlog.logger("History")
+
+CATCHUP_MINIMAL = "minimal"
+CATCHUP_COMPLETE = "complete"
+# fetch bucket files referenced by a known-good local state but missing on
+# disk (reference: CATCHUP_BUCKET_REPAIR, HistoryManager.h:197,
+# HistoryManagerImpl::downloadMissingBuckets at .cpp:700)
+CATCHUP_BUCKET_REPAIR = "bucket-repair"
+
+MAX_RETRIES = 5
+RETRY_DELAY_SECONDS = 2.0
+
+
+class CatchupStateMachine:
+    # per-process construction counter feeding the archive-pick seed (see
+    # __init__): deterministic within a run, rotates across sessions
+    _nonce = 0
+
+    def __init__(
+        self,
+        app,
+        mode: str,
+        done: Callable[[bool, Optional[object]], None],
+        desired_state: Optional[HistoryArchiveState] = None,
+    ):
+        """``done(ok, anchor_header_frame_or_None)`` fires on completion.
+        The fetch range is derived from the local LCL and the archive
+        anchor, not from the ledgers that triggered the catchup.  In
+        CATCHUP_BUCKET_REPAIR mode, ``desired_state`` names the buckets the
+        LOCAL node needs (the archive's own state is only used to pick a
+        reachable archive)."""
+        self.app = app
+        self.mode = mode
+        self.done = done
+        self.desired_state = desired_state
+        self.state = "BEGIN"
+        self.retries = 0
+        self.archive: Optional[HistoryArchive] = None
+        self.has: Optional[HistoryArchiveState] = None
+        self.tmp = app.tmp_dirs.tmp_dir("catchup")
+        self.headers: Dict[int, LedgerHeaderHistoryEntry] = {}
+        self.tx_sets: Dict[int, object] = {}
+        self._timer = VirtualTimer(app.clock)
+        # archive spread is load-balancing; seed the pick from the node's
+        # identity XOR a per-process construction nonce so a catchup run
+        # replays identically (same construction order => same picks)
+        # while successive catchup sessions — and distinct nodes — still
+        # rotate across archives instead of pinning one forever
+        # (determinism rule — module-level random would diverge two
+        # otherwise-equal runs)
+        seed = getattr(app.config, "NODE_SEED", None)
+        ident = (
+            int.from_bytes(seed.get_public_key().value[:8], "big")
+            if seed is not None
+            else 0xCA7C4
+        )
+        CatchupStateMachine._nonce += 1
+        self._rng = random.Random(ident ^ (CatchupStateMachine._nonce << 16))
+
+    # -- BEGIN: pick archive, fetch root state -----------------------------
+    def begin(self) -> None:
+        self.state = "BEGIN"
+        readable = [
+            HistoryArchive(name, spec)
+            for name, spec in self.app.config.HISTORY.items()
+            if spec.get("get")
+        ]
+        if not readable:
+            log.error("catchup: no readable history archives configured")
+            self._fail()
+            return
+        self.archive = self._rng.choice(readable)
+        local = os.path.join(self.tmp.get_name(), "remote-state.json")
+
+        def got(rc):
+            if rc != 0:
+                log.info("catchup: could not fetch %s state", self.archive.name)
+                self._retry()
+                return
+            try:
+                with open(local) as f:
+                    self.has = HistoryArchiveState.from_json(f.read())
+            except Exception as e:
+                log.info("catchup: bad archive state: %s", e)
+                self._retry()
+                return
+            self._anchored()
+
+        self.app.process_manager.run_process(
+            self.archive.get_file_cmd(WELL_KNOWN_PATH, local), got
+        )
+
+    # -- ANCHORED: pick range, queue files ---------------------------------
+    def _anchored(self) -> None:
+        self.state = "ANCHORED"
+        if self.mode == CATCHUP_BUCKET_REPAIR:
+            # repair wants the LOCAL state's buckets, regardless of how far
+            # along the archive is (CatchupStateMachine.cpp:564-573)
+            bm = self.app.bucket_manager
+            missing = bm.check_for_missing_bucket_files(self.desired_state)
+            for h in self.app.history_manager.missing_publish_queue_buckets():
+                if h not in missing:
+                    missing.append(h)
+            self._fetch(
+                [
+                    FileTransferInfo.for_bucket(self.tmp.get_name(), h)
+                    for h in missing
+                ]
+            )
+            return
+        anchor = self.has.current_ledger
+        lcl = self.app.ledger_manager.get_last_closed_ledger_num()
+        if anchor <= lcl:
+            log.info(
+                "catchup: archive at %d is not ahead of LCL %d; retrying later",
+                anchor,
+                lcl,
+            )
+            self._retry()
+            return
+        freq = self.app.config.CHECKPOINT_FREQUENCY
+        files: List[FileTransferInfo] = []
+        if self.mode == CATCHUP_MINIMAL:
+            needed = []  # deduped: a hash can be referenced by several levels
+            for h in self.has.all_bucket_hashes():
+                if h not in needed and not self.app.bucket_manager.has_bucket(h):
+                    needed.append(h)
+            for h in needed:
+                files.append(FileTransferInfo.for_bucket(self.tmp.get_name(), h))
+            files.append(
+                FileTransferInfo.for_checkpoint(self.tmp.get_name(), CAT_LEDGER, anchor)
+            )
+        else:
+            # every checkpoint covering (lcl, anchor]
+            from .manager import checkpoint_containing_ledger
+
+            start_cp = min(checkpoint_containing_ledger(lcl + 1, freq), anchor)
+            checkpoints = list(range(start_cp, anchor + 1, freq))
+            if checkpoints and checkpoints[-1] != anchor:
+                checkpoints.append(anchor)
+            if not checkpoints:
+                checkpoints = [anchor]
+            for cp in checkpoints:
+                files.append(
+                    FileTransferInfo.for_checkpoint(self.tmp.get_name(), CAT_LEDGER, cp)
+                )
+                files.append(
+                    FileTransferInfo.for_checkpoint(
+                        self.tmp.get_name(), CAT_TRANSACTIONS, cp
+                    )
+                )
+        self._fetch(files)
+
+    # -- FETCHING: download + gunzip each ----------------------------------
+    def _fetch(self, files: List[FileTransferInfo]) -> None:
+        self.state = "FETCHING"
+        if not files:
+            self._verify([])
+            return
+        counter = {"left": len(files), "ok": True}
+
+        def file_done(fi, ok):
+            fi.state = FILE_VERIFIED if ok else FILE_FAILED
+            counter["left"] -= 1
+            counter["ok"] = counter["ok"] and ok
+            if counter["left"] == 0:
+                if counter["ok"]:
+                    self._verify(files)
+                else:
+                    self._retry()
+
+        for fi in files:
+            self._download_one(fi, file_done)
+
+    def _download_one(self, fi: FileTransferInfo, cb) -> None:
+        def got(rc):
+            if rc != 0:
+                log.info("catchup: download failed: %s", fi.remote_name)
+                cb(fi, False)
+                return
+
+            def gunzipped(rc2):
+                cb(fi, rc2 == 0)
+
+            self.app.process_manager.run_process(
+                f"gzip -d -f '{fi.local_path_gz}'", gunzipped
+            )
+
+        self.app.process_manager.run_process(
+            self.archive.get_file_cmd(fi.remote_name, fi.local_path_gz), got
+        )
+
+    # -- VERIFYING: ledger-header hash chain -------------------------------
+    def _verify(self, files: List[FileTransferInfo]) -> None:
+        self.state = "VERIFYING"
+        if self.mode == CATCHUP_BUCKET_REPAIR:
+            # bucket files verify against their own content hash during
+            # adoption (CatchupStateMachine.cpp:718-721); no header chain
+            self._apply(files)
+            return
+        try:
+            self.headers.clear()
+            self.tx_sets.clear()
+            for fi in files:
+                if fi.category == CAT_LEDGER:
+                    with XDRInputFileStream(fi.local_path) as f:
+                        for lhe in f.read_all(LedgerHeaderHistoryEntry):
+                            self.headers[lhe.header.ledgerSeq] = lhe
+                elif fi.category == CAT_TRANSACTIONS:
+                    with XDRInputFileStream(fi.local_path) as f:
+                        for the in f.read_all(TransactionHistoryEntry):
+                            self.tx_sets[the.ledgerSeq] = the.txSet
+            ok = self._verify_header_chain()
+        except Exception as e:
+            log.error("catchup: verification error: %s", e)
+            ok = False
+        if not ok:
+            self._retry()
+            return
+        self._apply(files)
+
+    def _verify_header_chain(self) -> bool:
+        """Each header's hash must be self-consistent and chain to its
+        predecessor (HistoryManager VerifyHashStatus)."""
+        from ..crypto import sha256
+        from ..ledger.headerframe import LedgerHeaderFrame
+
+        anchor = self.has.current_ledger
+        if anchor not in self.headers:
+            log.error("catchup: anchor header %d missing from archive", anchor)
+            return False
+        for seq in sorted(self.headers):
+            lhe = self.headers[seq]
+            recomputed = sha256(lhe.header.to_xdr())
+            if recomputed != lhe.hash:
+                log.error("catchup: header %d hash mismatch", seq)
+                return False
+            prev = self.headers.get(seq - 1)
+            if prev is not None and lhe.header.previousLedgerHash != prev.hash:
+                log.error("catchup: header chain broken at %d", seq)
+                return False
+        # chain must connect to our own LCL when replaying forward
+        if self.mode == CATCHUP_COMPLETE:
+            lcl = self.app.ledger_manager.last_closed
+            nxt = self.headers.get(lcl.header.ledgerSeq + 1)
+            if nxt is not None and nxt.header.previousLedgerHash != lcl.hash:
+                log.error("catchup: archive chain does not connect to local LCL")
+                return False
+        return True
+
+    # -- APPLYING ----------------------------------------------------------
+    def _apply(self, files: List[FileTransferInfo]) -> None:
+        self.state = "APPLYING"
+        if self.mode == CATCHUP_BUCKET_REPAIR:
+            try:
+                self._adopt_bucket_files(files)
+            except Exception as e:
+                log.error("bucket repair: adopt failed: %s", e)
+                self._retry()
+                return
+            self.state = "END"
+            self.done(True, None)
+            self.app.tmp_dirs.forget(self.tmp)
+            return
+        try:
+            if self.mode == CATCHUP_MINIMAL:
+                self._apply_minimal(files)
+            else:
+                self._apply_complete()
+        except Exception as e:
+            log.error("catchup: apply failed: %s", e)
+            self._retry()
+            return
+        anchor = self.headers[self.has.current_ledger]
+        try:
+            self.state = "END"
+            self.done(True, anchor)
+        except Exception as e:
+            # completion handler found a deeper inconsistency (e.g. anchor
+            # bucket hash mismatch) — treat like any other failed round
+            log.error("catchup: completion handler rejected result: %s", e)
+            self.state = "APPLYING"
+            self._retry()
+            return
+        self.app.tmp_dirs.forget(self.tmp)
+
+    def _adopt_bucket_files(self, files: List[FileTransferInfo]) -> None:
+        """Verify each fetched bucket file against its content hash and
+        adopt it into the bucket dir.  Archive names carry the v2
+        state-plane hash (bucket/hashplane.py), so verification is the
+        same batched per-record re-hash the boot self-check runs — a
+        malformed frame stream fails verification like any wrong hash."""
+        from ..bucket import hashplane
+
+        bm = self.app.bucket_manager
+        for fi in files:
+            if fi.category != CAT_BUCKET:
+                continue
+            try:
+                got, _count = hashplane.hash_file(
+                    fi.local_path, config=self.app.config
+                )
+            except ValueError:
+                raise RuntimeError(
+                    f"bucket {fi.base_name} has malformed frames"
+                )
+            want = bytes.fromhex(fi.base_name[7:-4])
+            if got != want:
+                raise RuntimeError(f"bucket {fi.base_name} hash mismatch")
+            bm.adopt_file_as_bucket(fi.local_path, want, 0)
+
+    def _apply_minimal(self, files: List[FileTransferInfo]) -> None:
+        """Adopt fetched buckets, wipe ledger-object state, replay buckets
+        oldest→newest, assume the bucket-list shape."""
+        from ..bucket.bucket import ZERO_HASH
+
+        # validate BEFORE any destructive step: the HAS must reconstruct
+        # the anchor header's bucketListHash, or this archive is lying and
+        # we must retry without having wiped anything
+        anchor = self.headers[self.has.current_ledger]
+        if self.has.bucket_list_hash() != anchor.header.bucketListHash:
+            raise RuntimeError(
+                "archive bucket list does not hash to the anchor header"
+            )
+        self._adopt_bucket_files(files)
+        bm = self.app.bucket_manager
+        db = self.app.database
+        with db.transaction():
+            for table in ("accounts", "signers", "trustlines", "offers"):
+                db.execute(f"DELETE FROM {table}")
+            from ..ledger.entryframe import entry_cache_of
+
+            entry_cache_of(db).clear()
+            # oldest level first so younger entries overwrite older ones
+            has = self.has
+            for lev_state in reversed(has.current_buckets):
+                for h in (lev_state.snap, lev_state.curr):
+                    if h != ZERO_HASH:
+                        bm.get_bucket_by_hash(h).apply(db)
+        bm.assume_state(has.to_json())
+
+    def _apply_complete(self) -> None:
+        """Replay each fetched ledger through close_ledger (full checks)."""
+        from ..herder.ledgerclose import LedgerCloseData
+        from ..herder.txset import TxSetFrame
+
+        lm = self.app.ledger_manager
+        seq = lm.get_last_closed_ledger_num() + 1
+        anchor = self.has.current_ledger
+        while seq <= anchor:
+            lhe = self.headers.get(seq)
+            if lhe is None:
+                raise RuntimeError(f"missing header {seq} in archive")
+            xdr_set = self.tx_sets.get(seq)
+            if xdr_set is not None:
+                ts = TxSetFrame.from_xdr_set(self.app.network_id, xdr_set)
+            else:
+                ts = TxSetFrame(lm.last_closed.hash)
+            lm.close_ledger(LedgerCloseData(seq, ts, lhe.header.scpValue))
+            if lm.last_closed.hash != lhe.hash:
+                raise RuntimeError(
+                    f"replayed ledger {seq} hash mismatch vs archive"
+                )
+            seq += 1
+
+    # -- retry loop --------------------------------------------------------
+    def _retry(self) -> None:
+        self.retries += 1
+        if self.retries > MAX_RETRIES:
+            self._fail()
+            return
+        self.state = "RETRYING"
+        log.info("catchup: retry %d/%d", self.retries, MAX_RETRIES)
+        self._timer.expires_from_now(RETRY_DELAY_SECONDS)
+        self._timer.async_wait(self.begin)
+
+    def _fail(self) -> None:
+        self.state = "FAILED"
+        self.app.tmp_dirs.forget(self.tmp)
+        self.done(False, None)

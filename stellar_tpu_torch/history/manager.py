@@ -1,0 +1,180 @@
+"""HistoryManager (reference: src/history/HistoryManagerImpl.{h,cpp}).
+
+Owns checkpoint cadence, the crash-safe publish queue, and the catchup
+entry point.  Checkpoints are queued INSIDE the ledger-close SQL
+transaction (LedgerManagerImpl.cpp:710-736) and published asynchronously
+afterwards; a crash between the two just republishes on next boot.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+from ..util import xlog
+from . import publish as publish_queue
+from .catchupsm import CATCHUP_COMPLETE, CATCHUP_MINIMAL, CatchupStateMachine
+from .publishsm import PublishRun
+
+log = xlog.logger("History")
+
+
+def checkpoint_containing_ledger(ledger: int, freq: int = 64) -> int:
+    """First checkpoint ledger >= ledger (boundaries at freq-1, 2*freq-1...)."""
+    return ((ledger // freq) + 1) * freq - 1
+
+
+class HistoryManager:
+    def __init__(self, app):
+        self.app = app
+        self.publishing = False
+        self.catchup: Optional[CatchupStateMachine] = None
+        self._publish_success = 0
+        self._publish_failure = 0
+
+    @property
+    def checkpoint_frequency(self) -> int:
+        return self.app.config.CHECKPOINT_FREQUENCY
+
+    @property
+    def has_archives(self) -> bool:
+        return bool(self.app.config.HISTORY)
+
+    @property
+    def has_writable_archives(self) -> bool:
+        return any(spec.get("put") for spec in self.app.config.HISTORY.values())
+
+    @property
+    def has_readable_archives(self) -> bool:
+        return any(spec.get("get") for spec in self.app.config.HISTORY.values())
+
+    def next_checkpoint_ledger(self, ledger: int) -> int:
+        return checkpoint_containing_ledger(ledger, self.checkpoint_frequency)
+
+    # -- publishing --------------------------------------------------------
+    def maybe_queue_history_checkpoint(self) -> None:
+        # called after ledger pointers advanced: the just-closed ledger is
+        # LCL.  Checkpoints close at seqs freq-1, 2*freq-1, ... (the
+        # reference queues when the NEXT ledger is a frequency multiple).
+        closed_seq = self.app.ledger_manager.last_closed.header.ledgerSeq
+        if (closed_seq + 1) % self.checkpoint_frequency != 0:
+            return
+        if not self.has_writable_archives:
+            return
+        publish_queue.queue_checkpoint(
+            self.app.database,
+            closed_seq,
+            self.app.bucket_manager.archive_state_json(closed_seq),
+        )
+        log.info("queued checkpoint at ledger %d", closed_seq)
+
+    def publish_queued_history(self) -> int:
+        """Drain the publish queue one checkpoint at a time; returns how
+        many checkpoints are queued (reference publishQueuedHistory
+        returns the count kicked off)."""
+        if not self.has_writable_archives or self.publishing:
+            return 0
+        if getattr(self.app.database, "closed", False):
+            return 0  # app shut down while a publish-kick was queued
+        from ..ledger.manager import LedgerState
+
+        if self.app.ledger_manager.state == LedgerState.LM_CATCHING_UP_STATE:
+            # replaying history re-queues old checkpoints; publishing them
+            # now would regress the archive root state — drain after catchup
+            return 0
+        queued = publish_queue.queued_checkpoints(self.app.database)
+        if not queued:
+            return 0
+        seq, state_json = queued[0]
+        self.publishing = True
+
+        def done(ok: bool):
+            self.publishing = False
+            if ok:
+                self._publish_success += 1
+                publish_queue.dequeue_checkpoint(self.app.database, seq)
+                log.info("published checkpoint %d", seq)
+                # more may be queued (e.g. after catchup replay)
+                self.app.clock.post(self.publish_queued_history)
+            else:
+                self._publish_failure += 1
+                log.error("publishing checkpoint %d failed; will retry", seq)
+
+        PublishRun(self.app, seq, state_json, done).start()
+        return len(queued)
+
+    # -- catchup -----------------------------------------------------------
+    def catchup_history(
+        self, mode: Optional[str] = None, done_cb: Callable = None
+    ) -> None:
+        """Start (or restart) the catchup FSM toward the newest archive
+        state.  ``done_cb(ok, anchor_header)`` defaults to the
+        LedgerManager's completion handler."""
+        if self.catchup is not None and self.catchup.state not in ("END", "FAILED"):
+            return  # already running
+        if mode is None:
+            mode = (
+                CATCHUP_COMPLETE
+                if self.app.config.CATCHUP_COMPLETE
+                else CATCHUP_MINIMAL
+            )
+        if done_cb is None:
+            done_cb = self.app.ledger_manager.catchup_finished
+        self.catchup = CatchupStateMachine(self.app, mode, done_cb)
+        self.catchup.begin()
+
+    # -- bucket repair (HistoryManagerImpl::downloadMissingBuckets) --------
+    def download_missing_buckets(
+        self, state_json: str, handler: Callable[[bool], None]
+    ) -> None:
+        """Fetch bucket files referenced by ``state_json`` (and the publish
+        queue) that are missing from the bucket dir, then call
+        ``handler(ok)`` (reference: HistoryManagerImpl.cpp:700-718)."""
+        from .archive import HistoryArchiveState
+        from .catchupsm import CATCHUP_BUCKET_REPAIR
+
+        if self.catchup is not None and self.catchup.state not in (
+            "END",
+            "FAILED",
+        ):
+            raise RuntimeError("a catchup state machine is already running")
+        desired = HistoryArchiveState.from_json(state_json)
+
+        def done(ok, _anchor):
+            self.catchup = None
+            handler(ok)
+
+        self.catchup = CatchupStateMachine(
+            self.app, CATCHUP_BUCKET_REPAIR, done, desired_state=desired
+        )
+        self.catchup.begin()
+
+    def missing_publish_queue_buckets(self) -> list:
+        """Bucket hashes referenced by queued-but-unpublished checkpoints
+        with no file on disk (reference:
+        getMissingBucketsReferencedByPublishQueue)."""
+        from .archive import HistoryArchiveState
+
+        bm = self.app.bucket_manager
+        missing = []
+        for _seq, state_json in publish_queue.queued_checkpoints(
+            self.app.database
+        ):
+            try:
+                has = HistoryArchiveState.from_json(state_json)
+            except Exception:
+                continue
+            for h in bm.check_for_missing_bucket_files(has):
+                if h not in missing:
+                    missing.append(h)
+        return missing
+
+    def get_min_ledger_queued_to_publish(self) -> int:
+        """Smallest queued-but-unpublished checkpoint ledger, 0 if none
+        (reference: getMinLedgerQueuedToPublish, gates maintenance)."""
+        return publish_queue.min_queued(self.app.database)
+
+    def get_publish_success_count(self) -> int:
+        return self._publish_success
+
+    def get_publish_failure_count(self) -> int:
+        return self._publish_failure

@@ -1,0 +1,379 @@
+"""Verify-at-ingest admission plane.
+
+The submission edge — ``/tx`` via the CommandHandler, overlay tx flood
+via ``Peer.recv_transaction``, LoadGenerator submits, and catchup txset
+replay — used to pay ad-hoc per-tx signature costs inside
+``herder.recv_transaction`` with no admission control.  This plane puts
+a batched front door in front of the herder's tx queue:
+
+* **Micro-batched verify.**  Submitted and flooded txs accumulate into a
+  size/deadline-bounded accumulator on the VirtualClock and ride the
+  SAME SigBackend dispatch the close path uses, under their own
+  ``CALLER_INGEST`` class (so a wedged ingest dispatch latches only the
+  ingest plane onto host — close/prewarm/overlay flushes keep the
+  device).  The flush owns the peek/verify/latch split at ingest
+  granularity: cached verdicts are peeked first, only misses reach the
+  inner backend, and VALID verdicts latch into the shared verify cache —
+  the same valid-only quarantine contract as ``CachingSigBackend`` (a
+  byzantine flood of distinct invalid-sig txs must not evict honest
+  entries from the bounded LRU).  By the time an admitted tx reaches the
+  herder's eager ``check_signature`` — and later the close/prewarm
+  flush — every one of its signatures is an all-hit by construction.
+
+* **Edge shedding.**  A tx whose hint-matched candidate triples ALL
+  verify invalid can never satisfy ``check_signature`` (the candidate
+  set covers every (key, sig) pair the eager loop would try), so it is
+  shed at the edge — metered ``ingest.reject-badsig`` — before
+  ``check_valid``, account loads, or flood fan-out spend anything on it.
+  Txs with no candidate triples (unknown source account, no hint match)
+  pass through untouched: the herder's validity path stays the oracle,
+  which is what keeps INGEST_BATCH on/off ledger-bit-exact.
+
+* **Admission control.**  Per-account token-bucket rate limits
+  (``INGEST_RATE_LIMIT``/``INGEST_RATE_BURST``, clocked on the
+  VirtualClock) and fee-based surge admission: when the pending backlog
+  (herder queue + accumulator) exceeds ``INGEST_SURGE_HIGH_WATER``, the
+  lowest fee-per-min-fee tx loses its seat — the same fee ordering
+  ``TxSetFrame.surge_pricing_filter`` applies at close, generalized to
+  the front door.  Both reject with ``TRY_AGAIN_LATER`` surfaced to
+  ``/tx`` (the reference's TX_STATUS for an overloaded queue).
+
+Catchup replay (``Herder.recv_tx_set_txs``) rides ``submit_replay``:
+batched verify, but NO rate/surge admission — replayed sets were
+already externalized somewhere and must reach the queue.
+
+Determinism: the plane runs entirely on the caller's crank — enqueue,
+size-triggered flush, and the VirtualTimer deadline flush are all pure
+functions of crank order and clock time, so chaos-scenario replay
+digests stay byte-identical (the ``determinism`` analysis rule scopes
+``ingest/``).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional
+
+from ..crypto.keys import verify_cache
+from ..crypto.sigbackend import CALLER_INGEST, CachingSigBackend
+from ..util import VirtualTimer
+from ..xdr.txs import TransactionResultCode
+
+# TX_STATUS vocabulary: the herder owns PENDING/DUPLICATE/ERROR; the
+# admission plane adds the reference's overload answer.
+INGEST_STATUS_TRY_AGAIN = "TRY_AGAIN_LATER"
+
+
+class _Entry:
+    """One queued submission: the tx plus its decision callback (the
+    overlay floods / the HTTP handler answers only once the batch
+    verdict lands)."""
+
+    __slots__ = ("tx", "on_status", "status", "fee_ratio", "seq")
+
+    def __init__(self, tx, on_status, fee_ratio, seq):
+        self.tx = tx
+        self.on_status = on_status
+        self.status: Optional[str] = None
+        self.fee_ratio = fee_ratio
+        self.seq = seq  # arrival index: deterministic surge tie-break
+
+
+class _TokenBucket:
+    __slots__ = ("tokens", "stamp")
+
+    def __init__(self, burst: float, now: float):
+        self.tokens = burst
+        self.stamp = now
+
+
+class IngestPlane:
+    """Batched admission front door in front of ``Herder.recv_transaction``.
+
+    All four submission edges route through here; with
+    ``Config.INGEST_BATCH`` off every call falls through to the herder
+    per-tx (bit-exact pre-plane behavior — the differential suite pins
+    it)."""
+
+    def __init__(self, app):
+        self.app = app
+        cfg = app.config
+        self.enabled = bool(cfg.INGEST_BATCH)
+        self.batch_max = int(cfg.INGEST_BATCH_MAX)
+        self.deadline_s = cfg.INGEST_BATCH_DEADLINE_MS / 1000.0
+        self.rate_limit = int(cfg.INGEST_RATE_LIMIT)
+        self.rate_burst = int(cfg.INGEST_RATE_BURST)
+        self.surge_high_water = int(cfg.INGEST_SURGE_HIGH_WATER)
+
+        # the flush owns the peek/verify/latch split (CachingSigBackend
+        # would re-hash + re-peek every key on the miss path) — unwrap to
+        # the inner backend and the shared cache it latches
+        be = app.sig_backend
+        if isinstance(be, CachingSigBackend):
+            self._inner, self._cache = be.inner, be.cache
+        else:
+            self._inner, self._cache = be, verify_cache()
+
+        self._queue: List[_Entry] = []
+        self._arrivals = 0
+        self._buckets: Dict[bytes, _TokenBucket] = {}
+        self._timer = VirtualTimer(app.clock)
+        self._timer_armed = False
+        self._shutting_down = False
+
+        m = app.metrics
+        self.m_admit = m.new_meter(("ingest", "tx", "admit"), "tx")
+        self.m_passthrough = m.new_meter(("ingest", "tx", "passthrough"), "tx")
+        self.m_reject_badsig = m.new_meter(("ingest", "reject", "badsig"), "tx")
+        self.m_reject_rate = m.new_meter(("ingest", "reject", "ratelimit"), "tx")
+        self.m_reject_surge = m.new_meter(("ingest", "reject", "surge"), "tx")
+        self.m_flush = m.new_meter(("ingest", "batch", "flush"), "batch")
+        self.h_batch_size = m.new_histogram(("ingest", "batch", "size"))
+        self.h_occupancy = m.new_histogram(("ingest", "batch", "occupancy"))
+        self.c_cache_hits = m.new_counter(("ingest", "verify", "cache-hits"))
+        self.c_verified = m.new_counter(("ingest", "verify", "triples"))
+
+    # ------------------------------------------------------------------
+    # submission edges
+    # ------------------------------------------------------------------
+    def submit(self, tx, on_status: Optional[Callable[[str], None]] = None) -> Optional[str]:
+        """Queue one tx (overlay flood edge).  Returns the status when it
+        is decided immediately (bypass / rate-limited / surge-rejected /
+        size-triggered flush), else None — ``on_status`` fires when the
+        batch verdict lands."""
+        if not self.enabled or self._shutting_down:
+            status = self.app.herder.recv_transaction(tx)
+            if on_status is not None:
+                on_status(status)
+            return status
+        entry = self._admit(tx, on_status)
+        if entry is None:
+            return INGEST_STATUS_TRY_AGAIN
+        if len(self._queue) >= self.batch_max:
+            self.flush_now()
+            return entry.status
+        self._arm_deadline()
+        return None
+
+    def submit_sync(self, tx) -> str:
+        """Queue + flush immediately (the ``/tx`` and LoadGenerator
+        edges need a synchronous answer); everything already queued
+        rides the same dispatch."""
+        if not self.enabled or self._shutting_down:
+            return self.app.herder.recv_transaction(tx)
+        entry = self._admit(tx, None)
+        if entry is None:
+            return INGEST_STATUS_TRY_AGAIN
+        if entry.status is None:
+            self.flush_now()
+        return entry.status if entry.status is not None else INGEST_STATUS_TRY_AGAIN
+
+    def submit_replay(self, txs) -> List[str]:
+        """Catchup/downloaded-txset edge: batched verify, NO rate/surge
+        admission (the set was externalized somewhere; admission control
+        on replay would wedge catchup)."""
+        if not self.enabled or self._shutting_down:
+            return [self.app.herder.recv_transaction(tx) for tx in txs]
+        entries = []
+        for tx in txs:
+            e = _Entry(tx, None, 0.0, self._arrivals)
+            self._arrivals += 1
+            self._queue.append(e)
+            entries.append(e)
+            if len(self._queue) >= self.batch_max:
+                self.flush_now()
+        self.flush_now()
+        return [e.status for e in entries]
+
+    # ------------------------------------------------------------------
+    # admission control
+    # ------------------------------------------------------------------
+    def _fee_ratio(self, tx) -> float:
+        # surge_pricing_filter's ordering key, generalized to the front
+        # door: fee per min-fee unit (≈ fee per operation)
+        try:
+            min_fee = tx.get_min_fee(self.app.ledger_manager)
+        except Exception:
+            min_fee = 0
+        return tx.get_fee() / float(max(1, min_fee))
+
+    def _admit(self, tx, on_status) -> Optional[_Entry]:
+        """Rate-limit + surge gate; returns the queued entry or None
+        (rejected — the caller answers TRY_AGAIN_LATER)."""
+        if self.rate_limit > 0 and not self._take_token(tx.source_bytes()):
+            self.m_reject_rate.mark()
+            if on_status is not None:
+                on_status(INGEST_STATUS_TRY_AGAIN)
+            return None
+        entry = _Entry(tx, on_status, self._fee_ratio(tx), self._arrivals)
+        self._arrivals += 1
+        if self.surge_high_water > 0:
+            backlog = self.app.herder.num_pending_txs() + len(self._queue)
+            if backlog >= self.surge_high_water and self._queue:
+                # lowest fee-ratio loses its seat; ties keep the EARLIER
+                # arrival (deterministic: arrival index, never id()/hash)
+                victim = min(self._queue, key=lambda e: (e.fee_ratio, -e.seq))
+                if victim.fee_ratio < entry.fee_ratio:
+                    self._queue.remove(victim)
+                    victim.status = INGEST_STATUS_TRY_AGAIN
+                    self.m_reject_surge.mark()
+                    if victim.on_status is not None:
+                        victim.on_status(INGEST_STATUS_TRY_AGAIN)
+                else:
+                    self.m_reject_surge.mark()
+                    if on_status is not None:
+                        on_status(INGEST_STATUS_TRY_AGAIN)
+                    return None
+            elif backlog >= self.surge_high_water:
+                self.m_reject_surge.mark()
+                if on_status is not None:
+                    on_status(INGEST_STATUS_TRY_AGAIN)
+                return None
+        self._queue.append(entry)
+        return entry
+
+    def _take_token(self, acc: bytes) -> bool:
+        now = self.app.clock.now()
+        b = self._buckets.get(acc)
+        if b is None:
+            b = _TokenBucket(float(self.rate_burst), now)
+            self._buckets[acc] = b
+        else:
+            b.tokens = min(
+                float(self.rate_burst),
+                b.tokens + (now - b.stamp) * self.rate_limit,
+            )
+            b.stamp = now
+        if b.tokens >= 1.0:
+            b.tokens -= 1.0
+            return True
+        return False
+
+    # ------------------------------------------------------------------
+    # flush
+    # ------------------------------------------------------------------
+    def _arm_deadline(self) -> None:
+        if self._timer_armed or not self._queue:
+            return
+        self._timer_armed = True
+        self._timer.expires_from_now(self.deadline_s)
+        self._timer.async_wait(self._on_deadline)
+
+    def _on_deadline(self) -> None:
+        self._timer_armed = False
+        self.flush_now()
+
+    def flush_now(self) -> None:
+        """Drain the accumulator through ONE backend dispatch; decide and
+        deliver every queued entry's status."""
+        if self._timer_armed:
+            self._timer.cancel()
+            self._timer_armed = False
+        batch, self._queue = self._queue, []
+        if not batch:
+            return
+        self.m_flush.mark()
+        self.h_batch_size.update(len(batch))
+        self.h_occupancy.update(len(batch) / float(max(1, self.batch_max)))
+        sp = self.app.tracer.begin("ingest.flush")
+
+        db = self.app.database
+        cache = self._cache
+        # per-entry candidate triples; triple-less txs pass through (the
+        # herder's eager path stays the validity oracle for them)
+        slices = []  # (entry, start, end) into the concatenated triples
+        keys: List[bytes] = []
+        triples = []
+        for e in batch:
+            try:
+                cand = e.tx.candidate_signature_pairs(db)
+            except Exception:
+                cand = []
+            start = len(triples)
+            triples.extend(cand)
+            keys.extend(cache.key_for(pk, sig, msg) for pk, msg, sig in cand)
+            slices.append((e, start, len(triples)))
+
+        cached = cache.peek_many(keys)
+        miss_idx = [i for i, c in enumerate(cached) if c is None]
+        self.c_cache_hits.inc(len(keys) - len(miss_idx))
+        self.c_verified.inc(len(miss_idx))
+        if miss_idx:
+            fresh = self._inner.verify_batch(
+                [triples[i] for i in miss_idx], caller=CALLER_INGEST
+            )
+            # valid-only latch — the CachingSigBackend quarantine
+            # contract at ingest granularity: a flood of distinct
+            # invalid-sig txs must never evict honest cache entries, and
+            # re-verifying an invalid triple later is cheap and pure
+            cache.put_many(
+                (keys[i], ok) for i, ok in zip(miss_idx, fresh) if ok
+            )
+            for i, ok in zip(miss_idx, fresh):
+                cached[i] = ok
+
+        n_shed = 0
+        herder = self.app.herder
+        for e, start, end in slices:
+            if end > start and not any(cached[start:end]):
+                # every (key, sig) pair the eager check_signature loop
+                # could try verifies invalid — shed at the edge
+                e.tx.set_result_code(TransactionResultCode.txBAD_AUTH)
+                e.status = "ERROR"
+                n_shed += 1
+                self.m_reject_badsig.mark()
+            else:
+                if end == start:
+                    self.m_passthrough.mark()
+                e.status = herder.recv_transaction(e.tx)
+                if e.status == "PENDING":
+                    self.m_admit.mark()
+            if e.on_status is not None:
+                e.on_status(e.status)
+        self.app.tracer.end(
+            sp, batch=len(batch), triples=len(keys), shed=n_shed
+        )
+
+    # ------------------------------------------------------------------
+    # lifecycle / introspection
+    # ------------------------------------------------------------------
+    def shutdown(self) -> None:
+        """Drain the accumulator (every queued submitter gets an answer),
+        then fall back to per-tx pass-through for any late arrivals."""
+        if self._shutting_down:
+            return
+        self.flush_now()
+        self._shutting_down = True
+        self._timer.cancel()
+        self._timer_armed = False
+
+    def stats(self) -> dict:
+        """The ``/ingest`` admin route's payload (and bench's occupancy
+        source)."""
+        flushes = self.m_flush.count
+        return {
+            "enabled": self.enabled,
+            "queued": len(self._queue),
+            "batch_max": self.batch_max,
+            "deadline_ms": self.deadline_s * 1000.0,
+            "flushes": flushes,
+            "batch_size_mean": self.h_batch_size.mean,
+            "batch_size_p95": self.h_batch_size.percentile(0.95),
+            "occupancy_mean": self.h_occupancy.mean,
+            "admitted": self.m_admit.count,
+            "passthrough": self.m_passthrough.count,
+            "rejects": {
+                "badsig": self.m_reject_badsig.count,
+                "ratelimit": self.m_reject_rate.count,
+                "surge": self.m_reject_surge.count,
+            },
+            "verify": {
+                "cache_hits": self.c_cache_hits.count,
+                "triples_verified": self.c_verified.count,
+            },
+            "rate_limit": {
+                "per_account_tx_per_s": self.rate_limit,
+                "burst": self.rate_burst,
+                "tracked_accounts": len(self._buckets),
+            },
+            "surge_high_water": self.surge_high_water,
+        }

@@ -1,0 +1,193 @@
+"""InvariantManager — runs the configured invariant set at ledger close
+(reference: src/invariant/InvariantManagerImpl.{h,cpp}).
+
+Owned by the Application (``app.invariants``) and driven by
+``LedgerManager._close_ledger_txn`` right before ``delta.commit()``:
+
+- ``Config.INVARIANT_CHECKS`` picks the set (``["all"]`` default, ``[]``
+  off); ``INVARIANT_SAMPLED`` trades per-entry coverage for cost (exact
+  header checks stay exact; per-entry scans cap at
+  ``INVARIANT_CACHE_SAMPLE`` seeded-random picks; the whole-ledger
+  balance sum is skipped unless inflation ran);
+- ``Config.INVARIANT_FAIL_POLICY``: ``raise`` aborts the close (an
+  ``InvariantViolation`` propagates out of the close's SQL transaction,
+  which rolls back — nothing forked persists), ``log`` records + meters
+  the violation and lets the close commit (operator-triage mode, the
+  reference's onlyMeter analogue);
+- every run lands an ``invariant.<name>`` trace span plus an
+  ``invariant.<name>.run`` timer and ``invariant.<name>.violation``
+  meter in the medida registry (both ride the metrics fast lane);
+- ``dump_info`` backs the ``/invariants`` admin route: per-invariant run
+  counts, last violation, and p50/p95 cost.
+
+The injection seam (``inject_once``; see ``invariant/testing.py``) lets
+tests corrupt frames/SQL/cache INSIDE the close, immediately before the
+checks run — proving each invariant actually detects its failure class,
+not just that it stays quiet on healthy closes.
+"""
+
+from __future__ import annotations
+
+import random
+from collections import deque
+from time import perf_counter
+from typing import Callable, List, Optional
+
+from ..util import xlog
+from .invariants import InvariantContext, InvariantViolation, resolve_invariants
+
+log = xlog.logger("Ledger")
+
+FAIL_POLICIES = ("raise", "log")
+
+
+class InvariantManager:
+    def __init__(self, app):
+        cfg = app.config
+        self.app = app
+        self._invariants = resolve_invariants(
+            getattr(cfg, "INVARIANT_CHECKS", ["all"])
+        )
+        self.fail_policy = getattr(cfg, "INVARIANT_FAIL_POLICY", "raise")
+        if self.fail_policy not in FAIL_POLICIES:
+            raise ValueError(
+                f"INVARIANT_FAIL_POLICY must be one of {FAIL_POLICIES}, "
+                f"got {self.fail_policy!r}"
+            )
+        self.sampled = bool(getattr(cfg, "INVARIANT_SAMPLED", False))
+        self.sample_cap = int(getattr(cfg, "INVARIANT_CACHE_SAMPLE", 16))
+        self.total_violations = 0
+        self.closes_checked = 0
+        # per-close total invariant cost in ms, most recent last — bench.py
+        # reads this for invariant_overhead_ms (all-on vs sampled vs off)
+        self.close_costs = deque(maxlen=256)
+        self._stats = {
+            inv.name: {"runs": 0, "violations": 0, "last_violation": None}
+            for inv in self._invariants
+        }
+        self._injections: List[Callable] = []
+        self._baseline_ms = 0.0
+
+    # -- introspection ------------------------------------------------------
+    @property
+    def enabled_names(self) -> List[str]:
+        return [inv.name for inv in self._invariants]
+
+    def stats(self) -> dict:
+        return self._stats
+
+    def dump_info(self) -> dict:
+        """The /invariants admin payload."""
+        metrics = self.app.metrics
+        out = {}
+        for name, st in self._stats.items():
+            timer = metrics.get(("invariant", name, "run"))
+            cost = None
+            if timer is not None:
+                cost = {
+                    "p50_ms": round(timer.histogram.percentile(0.5), 4),
+                    "p95_ms": round(timer.histogram.percentile(0.95), 4),
+                    "max_ms": round(timer.histogram.max_value, 4),
+                }
+            out[name] = {
+                "runs": st["runs"],
+                "violations": st["violations"],
+                "last_violation": st["last_violation"],
+                "cost_ms": cost,
+            }
+        return {
+            "enabled": self.enabled_names,
+            "fail_policy": self.fail_policy,
+            "sampled": self.sampled,
+            "closes_checked": self.closes_checked,
+            "total_violations": self.total_violations,
+            "invariants": out,
+        }
+
+    # -- close-start baseline (LedgerManager) -------------------------------
+    def close_baseline(self, db, header):
+        """CloseBaseline for a close about to start.  The whole-ledger
+        balance sum is captured ONLY when conservation is enabled in
+        all-on mode — it is the invariant plane's one full-table scan,
+        and sampled mode trades it away (bench.py measures the trade as
+        invariant_overhead_ms)."""
+        from .invariants import CloseBaseline
+
+        want_sum = not self.sampled and any(
+            inv.name == "ConservationOfLumens" for inv in self._invariants
+        )
+        t0 = perf_counter()
+        baseline = CloseBaseline.of(header, db if want_sum else None)
+        # the baseline's full-table scan is half of all-on mode's cost;
+        # charge it to the close it serves so close_costs (and bench.py's
+        # invariant_overhead_ms) carry the WHOLE per-close overhead
+        self._baseline_ms = (perf_counter() - t0) * 1000.0
+        return baseline
+
+    # -- test injection seam ------------------------------------------------
+    def inject_once(self, fn: Callable) -> None:
+        """Queue a one-shot corruption hook; it runs inside the NEXT
+        checked close, after flush and immediately before the invariants,
+        with the close's InvariantContext (invariant/testing.py builds
+        the standard ones)."""
+        self._injections.append(fn)
+
+    # -- the close-time entry point (LedgerManager) -------------------------
+    def check_close(self, delta, db, pre=None, txs=None) -> None:
+        """Run the enabled invariants for a close about to commit.  ``pre``
+        is the CloseBaseline captured at close start (None on callers that
+        have no start snapshot — the header-delta checks are skipped)."""
+        invs = self._invariants
+        if not invs:
+            self._injections.clear()
+            return
+        header = delta.header_ro()
+        ctx = InvariantContext(
+            app=self.app,
+            db=db,
+            delta=delta,
+            header=header,
+            pre=pre,
+            txs=txs,
+            sampled=self.sampled,
+            sample_cap=max(1, self.sample_cap),
+            # seeded per close: sampled picks are deterministic for a given
+            # ledger (differential on/off runs stay comparable)
+            rng=random.Random(header.ledgerSeq),
+        )
+        if self._injections:
+            pending, self._injections = self._injections, []
+            for fn in pending:
+                fn(ctx)
+        tracer = self.app.tracer
+        metrics = self.app.metrics
+        failures = []
+        close_ms, self._baseline_ms = self._baseline_ms, 0.0
+        self.closes_checked += 1
+        for inv in invs:
+            st = self._stats[inv.name]
+            with tracer.span("invariant." + inv.name):
+                t0 = perf_counter()
+                msg = inv.check(ctx)
+                dt = perf_counter() - t0
+            close_ms += dt * 1000.0
+            st["runs"] += 1
+            metrics.new_timer(("invariant", inv.name, "run")).update(dt)
+            if msg is not None:
+                st["violations"] += 1
+                st["last_violation"] = {
+                    "ledger_seq": header.ledgerSeq,
+                    "message": msg,
+                }
+                self.total_violations += 1
+                metrics.new_meter(
+                    ("invariant", inv.name, "violation"), "violation"
+                ).mark()
+                log.error(
+                    "invariant %s violated at ledger %d: %s",
+                    inv.name, header.ledgerSeq, msg,
+                )
+                failures.append((inv.name, msg))
+        self.close_costs.append(close_ms)
+        if failures and self.fail_policy == "raise":
+            raise InvariantViolation(failures)

@@ -1,0 +1,553 @@
+"""AccountFrame: accounts + signers tables (reference: src/ledger/AccountFrame.*)."""
+
+from __future__ import annotations
+
+import base64
+from typing import List, Optional
+
+from ..crypto import strkey
+from ..xdr.entries import (
+    AccountEntry,
+    AccountFlags,
+    LedgerEntry,
+    LedgerEntryData,
+    LedgerEntryType,
+    PublicKey,
+    Signer,
+    ThresholdIndexes,
+)
+from ..xdr.base import xdr_copy
+from ..xdr.ledger import LedgerKey, LedgerKeyAccount
+from .entryframe import EntryFrame, key_bytes
+from .framecontext import active_frame_context
+from .storebuffer import active_buffer
+
+
+_ACCT_KEY_PREFIX = LedgerKey(
+    LedgerEntryType.ACCOUNT,
+    LedgerKeyAccount(PublicKey.from_ed25519(b"\x00" * 32)),
+).to_xdr()[:-32]
+
+
+def _aid(pk: PublicKey) -> str:
+    return strkey.to_account_strkey(pk.value)
+
+
+def _from_aid(s: str) -> PublicKey:
+    return PublicKey.from_ed25519(strkey.from_account_strkey(s))
+
+
+class AccountFrame(EntryFrame):
+    entry_type = LedgerEntryType.ACCOUNT
+
+    def __init__(self, entry: LedgerEntry = None, account_id: PublicKey = None):
+        if entry is None:
+            ae = AccountEntry(
+                accountID=account_id,
+                balance=0,
+                seqNum=0,
+                numSubEntries=0,
+                inflationDest=None,
+                flags=0,
+                homeDomain="",
+                thresholds=b"\x01\x00\x00\x00",  # master weight 1
+                signers=[],
+                ext=0,
+            )
+            entry = LedgerEntry(0, LedgerEntryData(LedgerEntryType.ACCOUNT, ae), 0)
+        self.account: AccountEntry = entry.data.value
+        super().__init__(entry)
+
+    def _compute_key(self) -> LedgerKey:
+        return LedgerKey(
+            LedgerEntryType.ACCOUNT, LedgerKeyAccount(self.account.accountID)
+        )
+
+    def _rebind_entry(self) -> None:
+        self.account = self.entry.data.value
+
+    # -- accessors (AccountFrame.h:60-100) ---------------------------------
+    def get_id(self) -> PublicKey:
+        return self.account.accountID
+
+    def get_balance(self) -> int:
+        return self.account.balance
+
+    def set_balance(self, v: int) -> None:
+        self.mut().balance = v
+
+    def add_balance(self, delta: int) -> bool:
+        new = self.account.balance + delta
+        if new < 0:
+            return False
+        self.mut().balance = new
+        return True
+
+    def get_seq_num(self) -> int:
+        return self.account.seqNum
+
+    def set_seq_num(self, v: int) -> None:
+        self.mut().seqNum = v
+
+    def get_num_sub_entries(self) -> int:
+        return self.account.numSubEntries
+
+    def is_auth_required(self) -> bool:
+        return bool(self.account.flags & AccountFlags.AUTH_REQUIRED_FLAG)
+
+    def is_auth_revocable(self) -> bool:
+        return bool(self.account.flags & AccountFlags.AUTH_REVOCABLE_FLAG)
+
+    def is_immutable_auth(self) -> bool:
+        return bool(self.account.flags & AccountFlags.AUTH_IMMUTABLE_FLAG)
+
+    def get_master_weight(self) -> int:
+        return self.account.thresholds[ThresholdIndexes.THRESHOLD_MASTER_WEIGHT]
+
+    def get_low_threshold(self) -> int:
+        return self.account.thresholds[ThresholdIndexes.THRESHOLD_LOW]
+
+    def get_medium_threshold(self) -> int:
+        return self.account.thresholds[ThresholdIndexes.THRESHOLD_MED]
+
+    def get_high_threshold(self) -> int:
+        return self.account.thresholds[ThresholdIndexes.THRESHOLD_HIGH]
+
+    def get_minimum_balance(self, lm) -> int:
+        return lm.get_min_balance(self.account.numSubEntries)
+
+    def get_balance_above_reserve(self, lm) -> int:
+        avail = self.get_balance() - lm.get_min_balance(self.account.numSubEntries)
+        return max(avail, 0)
+
+    def add_num_entries(self, count: int, lm) -> bool:
+        """Adjust numSubEntries, enforcing reserve on increase
+        (AccountFrame.cpp:150-166)."""
+        new_count = self.account.numSubEntries + count
+        if count > 0 and self.get_balance() < lm.get_min_balance(new_count):
+            return False
+        self.mut().numSubEntries = new_count
+        return True
+
+    @classmethod
+    def make_auth_only(cls, account_id: PublicKey) -> "AccountFrame":
+        """Signature-check-only shell for not-yet-existing op sources during
+        validation (AccountFrame::makeAuthOnlyAccount): negative balance trips
+        any attempt to persist it (the accounts CHECK constraint)."""
+        f = cls(account_id=account_id)
+        f.mut().balance = -0x8000000000000000
+        return f
+
+    @staticmethod
+    def process_for_inflation(db, max_winners: int):
+        """[(votes, inflation_dest_pk)] — vote tally grouped by inflationdest,
+        min 100 XLM balance to vote (AccountFrame::processForInflation)."""
+        buf = active_buffer(db)
+        if buf is not None:
+            # an aggregate over ALL accounts can't read through the overlay
+            # — write pending rows inside the current savepoint first
+            buf.flush_through(db)
+        rows = db.query_all(
+            "SELECT sum(balance) AS votes, inflationdest FROM accounts"
+            " WHERE inflationdest IS NOT NULL AND balance >= 1000000000"
+            " GROUP BY inflationdest ORDER BY votes DESC, inflationdest DESC"
+            " LIMIT ?",
+            (max_winners,),
+        )
+        return [(votes, _from_aid(dest)) for votes, dest in rows]
+
+    # -- SQL ---------------------------------------------------------------
+    @staticmethod
+    def drop_all(db) -> None:
+        db.execute("DROP TABLE IF EXISTS accounts")
+        db.execute("DROP TABLE IF EXISTS signers")
+        db.execute(
+            """CREATE TABLE accounts (
+                accountid     VARCHAR(56) PRIMARY KEY,
+                balance       BIGINT NOT NULL CHECK (balance >= 0),
+                seqnum        BIGINT NOT NULL,
+                numsubentries INT NOT NULL CHECK (numsubentries >= 0),
+                inflationdest VARCHAR(56),
+                homedomain    VARCHAR(32) NOT NULL,
+                thresholds    TEXT NOT NULL,
+                flags         INT NOT NULL,
+                lastmodified  INT NOT NULL
+            )"""
+        )
+        db.execute(
+            """CREATE TABLE signers (
+                accountid VARCHAR(56) NOT NULL,
+                publickey VARCHAR(56) NOT NULL,
+                weight    INT NOT NULL,
+                PRIMARY KEY (accountid, publickey)
+            )"""
+        )
+        db.execute("CREATE INDEX accountbalances ON accounts (balance)")
+        entry_cache = getattr(db, "_entry_cache", None)
+        if entry_cache is not None:
+            entry_cache.clear()
+
+    @classmethod
+    def load_account(
+        cls, account_id: PublicKey, db, readonly: bool = False,
+        signing: bool = False,
+    ) -> Optional["AccountFrame"]:
+        """readonly=True skips the defensive cache-hit copy: the returned
+        frame SHARES the cached entry and must never be mutated or stored
+        (EntryFrame._assert_mutable enforces the store half).  Validation
+        paths load ~3x per tx and only read — the copy is ~40% of a warm
+        load.
+
+        signing=True marks a tx-SOURCE load (TransactionFrame.load_account
+        — fee charging, validity at apply): inside an active close the
+        FrameContext identity map serves these with ONE frame per account
+        per close, so the per-load xdr_copy is paid once instead of per
+        touch.  ONLY signing loads take the map — the reference aliases
+        exactly one handle (mSigningAccount) per tx and snapshots
+        everything else, and destination/winner loads must keep that
+        fresh-snapshot semantics (a self path-payment's interleaved
+        credit/debit depends on it).  Readonly hits get a shell sharing
+        the context frame's live entry with the store guard set."""
+        # account cache keys are prefix+pubkey on the wire; building the
+        # bytes directly skips two XDR packs on the hottest load path
+        kb = _ACCT_KEY_PREFIX + account_id.value
+        ctx = active_frame_context(db) if signing else None
+        if ctx is not None:
+            frame = ctx.lend(kb, not readonly)
+            if frame is not None:
+                if readonly:
+                    # live-state readonly shell, memoized per context
+                    # frame: readonly callers may only read, so sharing
+                    # one store-refusing wrapper is as safe as sharing
+                    # the entry itself
+                    shell = frame.__dict__.get("_ro_shell")
+                    if shell is None:
+                        shell = cls(frame.entry)
+                        shell._readonly = True
+                        frame._ro_shell = shell
+                    return shell
+                return frame
+        cache = cls.cache_of(db)
+        hit, cached = cache.peek(kb) if readonly else cache.get(kb)
+        if hit:
+            if cached is None:
+                return None
+            if readonly:
+                # the readonly FRAME is as shareable as the cached entry
+                # it wraps (both immutable to callers): memoize one shell
+                # per cache line, invalidated naturally when put_owned
+                # replaces the line with a new entry object.  Validation
+                # loads ~3x/tx; this drops their per-load frame ctor.
+                frame = cached.__dict__.get("_ro_frame")
+                if frame is None:
+                    frame = cls(cached)
+                    frame._readonly = True
+                    cached._ro_frame = frame
+                return frame
+            frame = cls(cached)
+            if ctx is not None:
+                ctx.adopt(kb, frame)
+            return frame
+        buf = active_buffer(db)
+        if buf is not None:
+            # pending write evicted from the LRU: the overlay, not SQL, is
+            # authoritative for any key it holds
+            hit, pending = buf.get(kb)
+            if hit:
+                if pending is None:
+                    return None
+                if readonly:
+                    # buffer snapshots are immutable by contract
+                    # (EntryFrame._record: "all sides only read")
+                    frame = cls(pending)
+                    frame._readonly = True
+                    return frame
+                frame = cls(xdr_copy(pending))
+                if ctx is not None:
+                    ctx.adopt(kb, frame)
+                return frame
+        # the LedgerKey object is only needed on the SQL-miss path
+        # (store_in_cache); hit paths key purely on the prefix+pubkey bytes
+        key = LedgerKey(LedgerEntryType.ACCOUNT, LedgerKeyAccount(account_id))
+        key._kb = kb
+        aid = _aid(account_id)
+        with db.timed("select", "account"):
+            row = db.query_one(
+                """SELECT balance, seqnum, numsubentries, inflationdest,
+                          homedomain, thresholds, flags, lastmodified
+                   FROM accounts WHERE accountid=?""",
+                (aid,),
+            )
+        if row is None:
+            cls.store_in_cache(db, key, None)
+            return None
+        (balance, seqnum, numsub, infl, domain, thresholds, flags, lastmod) = row
+        signers = [
+            Signer(_from_aid(pk), w)
+            for pk, w in db.query_all(
+                "SELECT publickey, weight FROM signers WHERE accountid=?",
+                (aid,),
+            )
+        ]
+        # canonical order is RAW pubKey bytes (AccountFrame.cpp:299
+        # re-sorts after fetch; ORDER BY on the strkey TEXT differs —
+        # base32's '2'..'7' sort before 'A' in ASCII)
+        signers.sort(key=lambda s: s.pubKey.value)
+        ae = AccountEntry(
+            accountID=account_id,
+            balance=balance,
+            seqNum=seqnum,
+            numSubEntries=numsub,
+            inflationDest=_from_aid(infl) if infl else None,
+            flags=flags,
+            homeDomain=domain,
+            thresholds=base64.b64decode(thresholds),
+            signers=signers,
+            ext=0,
+        )
+        entry = LedgerEntry(lastmod, LedgerEntryData(LedgerEntryType.ACCOUNT, ae), 0)
+        frame = cls(entry)
+        cls.store_in_cache(db, key, entry)
+        if readonly:
+            # the miss-path frame owns its entry (store_in_cache copies),
+            # but readonly must behave identically hit or miss — a caller
+            # whose mutation "works" only on cold loads is a hidden bug
+            frame._readonly = True
+        elif ctx is not None:
+            ctx.adopt(kb, frame)
+        return frame
+
+    @classmethod
+    def bulk_warm_cache(cls, db, account_ids) -> None:
+        """Prime the entry cache for many accounts with chunked IN()
+        selects — one statement per ~500 accounts instead of one point
+        SELECT per cache miss.  Missing accounts cache as known-absent.
+
+        The close path warms every account its txset touches before apply:
+        at 10^6-account scale random payment destinations made every load
+        a point SELECT against a deep B-tree (the state ladder —
+        the 2.6x cliff's dominant term)."""
+        # runs before the store buffer activates (close_ledger warms first,
+        # then turns the buffer on), so SQL rows are never stale here
+        cache = cls.cache_of(db)
+        todo = []
+        for pk in account_ids:
+            if not cache.contains(_ACCT_KEY_PREFIX + pk.value):
+                todo.append(pk)
+        CHUNK = 500
+        for lo in range(0, len(todo), CHUNK):
+            chunk = todo[lo : lo + CHUNK]
+            aids = [_aid(pk) for pk in chunk]
+            ph = ",".join("?" * len(chunk))
+            with db.timed("select", "account-bulk"):
+                rows = db.query_all(
+                    f"""SELECT accountid, balance, seqnum, numsubentries,
+                               inflationdest, homedomain, thresholds, flags,
+                               lastmodified
+                        FROM accounts WHERE accountid IN ({ph})""",
+                    aids,
+                )
+                srows = db.query_all(
+                    f"""SELECT accountid, publickey, weight FROM signers
+                        WHERE accountid IN ({ph})""",
+                    aids,
+                )
+            by_aid = {r[0]: r for r in rows}
+            signers_by = {}
+            for aid, spk, w in srows:
+                signers_by.setdefault(aid, []).append(
+                    Signer(_from_aid(spk), w)
+                )
+            for lst in signers_by.values():
+                # raw-byte canonical order, like load_account
+                lst.sort(key=lambda s: s.pubKey.value)
+            for pk, aid in zip(chunk, aids):
+                kb = _ACCT_KEY_PREFIX + pk.value
+                row = by_aid.get(aid)
+                if row is None:
+                    cache.put_owned(kb, None)
+                    continue
+                (_, balance, seqnum, numsub, infl, domain, thresholds,
+                 flags, lastmod) = row
+                ae = AccountEntry(
+                    accountID=pk,
+                    balance=balance,
+                    seqNum=seqnum,
+                    numSubEntries=numsub,
+                    inflationDest=_from_aid(infl) if infl else None,
+                    flags=flags,
+                    homeDomain=domain,
+                    thresholds=base64.b64decode(thresholds),
+                    signers=signers_by.get(aid, []),
+                    ext=0,
+                )
+                cache.put_owned(
+                    kb,
+                    LedgerEntry(
+                        lastmod,
+                        LedgerEntryData(LedgerEntryType.ACCOUNT, ae),
+                        0,
+                    ),
+                )
+
+    @classmethod
+    def exists(cls, db, key: LedgerKey) -> bool:
+        buf = active_buffer(db)
+        if buf is not None:
+            hit, pending = buf.get(key_bytes(key))
+            if hit:
+                return pending is not None
+        return (
+            db.query_one(
+                "SELECT 1 FROM accounts WHERE accountid=?",
+                (_aid(key.value.accountID),),
+            )
+            is not None
+        )
+
+    def _normalize(self) -> None:
+        """Canonical signer order is RAW pubKey bytes
+        (AccountFrame::normalize / signerCompare) — enforced at the WRITE
+        path so the cached snapshot, the delta entry, the SQL rows, and
+        every hash preimage agree regardless of where the entry came from
+        (SetOptions mutation, bucket apply during catchup, tests)."""
+        s = self.account.signers
+        if len(s) > 1:
+            if self._sealed:
+                # a sealed entry was normalized at its last store, so the
+                # in-place sort is a no-op on it; skip it rather than CoW
+                # for nothing (a re-store of an unmutated frame stays
+                # copy-free).  Out-of-order signers on a sealed frame
+                # would mean someone mutated the shared snapshot — CoW
+                # and re-sort so the corruption at least stays private.
+                if all(
+                    s[i].pubKey.value <= s[i + 1].pubKey.value
+                    for i in range(len(s) - 1)
+                ):
+                    return
+                self.touch()
+                s = self.account.signers
+            s.sort(key=lambda sg: sg.pubKey.value)
+
+    def store_add(self, delta, db) -> None:
+        # guard BEFORE _normalize: its in-place signer sort would mutate a
+        # readonly frame's cache-shared entry, then raise — too late
+        self._assert_mutable()
+        self._normalize()
+        super().store_add(delta, db)
+
+    def store_change(self, delta, db) -> None:
+        self._assert_mutable()
+        self._normalize()
+        super().store_change(delta, db)
+
+    @staticmethod
+    def _sql_row(a, lastmod: int):
+        """The one accounts-row serialization — shared by the per-store
+        _persist path and the store-buffer's batched upsert so the two
+        write modes can never drift (consensus-critical: PARANOID_MODE
+        audits decoded rows against the delta)."""
+        return (
+            a.balance,
+            a.seqNum,
+            a.numSubEntries,
+            _aid(a.inflationDest) if a.inflationDest else None,
+            a.homeDomain,
+            base64.b64encode(a.thresholds).decode(),
+            a.flags,
+            lastmod,
+            _aid(a.accountID),
+        )
+
+    def _persist(self, db, insert: bool) -> None:
+        a = self.account
+        params = self._sql_row(a, self.last_modified)
+        if insert:
+            with db.timed("insert", "account"):
+                db.execute(
+                    """INSERT INTO accounts (balance, seqnum, numsubentries,
+                       inflationdest, homedomain, thresholds, flags,
+                       lastmodified, accountid)
+                       VALUES (?,?,?,?,?,?,?,?,?)""",
+                    params,
+                )
+        else:
+            with db.timed("update", "account"):
+                db.execute(
+                    """UPDATE accounts SET balance=?, seqnum=?, numsubentries=?,
+                       inflationdest=?, homedomain=?, thresholds=?, flags=?,
+                       lastmodified=? WHERE accountid=?""",
+                    params,
+                )
+        # replace signer rows wholesale (simpler than the reference's diffing,
+        # same observable state)
+        aid = _aid(a.accountID)
+        db.execute("DELETE FROM signers WHERE accountid=?", (aid,))
+        if a.signers:
+            db.executemany(
+                "INSERT INTO signers (accountid, publickey, weight) VALUES (?,?,?)",
+                [(aid, _aid(s.pubKey), s.weight) for s in a.signers],
+            )
+
+    def store_delete(self, delta, db) -> None:
+        self._assert_mutable()
+        if not self._buffered_delete(db, self.get_key()):
+            aid = _aid(self.account.accountID)
+            with db.timed("delete", "account"):
+                db.execute("DELETE FROM accounts WHERE accountid=?", (aid,))
+            db.execute("DELETE FROM signers WHERE accountid=?", (aid,))
+        delta.delete_entry_frame(self)
+        self.store_in_cache(db, self.get_key(), None)
+        ctx = active_frame_context(db)
+        if ctx is not None:
+            # the close's identity map must not resurrect a deleted
+            # account; later loads consult the (deletion-carrying) planes
+            ctx.evict(key_bytes(self.get_key()))
+
+    @classmethod
+    def store_delete_by_key(cls, delta, db, key: LedgerKey) -> None:
+        if not cls._buffered_delete(db, key):
+            aid = _aid(key.value.accountID)
+            db.execute("DELETE FROM accounts WHERE accountid=?", (aid,))
+            db.execute("DELETE FROM signers WHERE accountid=?", (aid,))
+        delta.delete_entry(key)
+        cls.store_in_cache(db, key, None)
+        ctx = active_frame_context(db)
+        if ctx is not None:
+            ctx.evict(key_bytes(key))
+
+    # -- store-buffer flush (ledger/storebuffer.py) ------------------------
+    _UPSERT_SQL = (
+        "INSERT OR REPLACE INTO accounts (balance, seqnum, numsubentries,"
+        " inflationdest, homedomain, thresholds, flags, lastmodified,"
+        " accountid) VALUES (?,?,?,?,?,?,?,?,?)"
+    )
+
+    @classmethod
+    def upsert_batch(cls, db, entries) -> None:
+        rows, aids, signer_rows = [], [], []
+        for e in entries:
+            a = e.data.value
+            row = cls._sql_row(a, e.lastModifiedLedgerSeq)
+            aid = row[-1]
+            aids.append((aid,))
+            rows.append(row)
+            signer_rows.extend(
+                (aid, _aid(s.pubKey), s.weight) for s in a.signers
+            )
+        with db.timed("flush", "account"):
+            db.executemany(cls._UPSERT_SQL, rows)
+            db.executemany("DELETE FROM signers WHERE accountid=?", aids)
+            if signer_rows:
+                db.executemany(
+                    "INSERT INTO signers (accountid, publickey, weight)"
+                    " VALUES (?,?,?)",
+                    signer_rows,
+                )
+
+    @classmethod
+    def delete_batch(cls, db, keys) -> None:
+        aids = [(_aid(k.value.accountID),) for k in keys]
+        with db.timed("flush", "account"):
+            db.executemany("DELETE FROM accounts WHERE accountid=?", aids)
+            db.executemany("DELETE FROM signers WHERE accountid=?", aids)

@@ -1,0 +1,590 @@
+"""Conflict-partitioned parallel transaction apply (ROADMAP open item #2).
+
+Serial Python apply is the last serial wall in the close (the close
+profile's split): fees, signatures, flush and hashing are all batched or
+native, but `_apply_transactions` still walks 5000 txs one at a time.
+This module breaks the wall for the statically-partitionable part of the
+txset:
+
+- **pre-pass** (`apply.partition` span): `TransactionFrame
+  .static_footprint()` extracts each tx's account read/write footprint
+  (source, op sources, payment/create/merge destinations).  Any tx whose
+  footprint cannot be statically bounded — offers/offer-crossing, path
+  payments with non-native hops, set_options with an inflation
+  destination, inflation itself — classifies the whole set CONFLICTING
+  and the close takes the plain serial loop, bit-exact with
+  ``PARALLEL_APPLY=false`` by construction.
+- **union-find** groups txs whose footprints intersect; disjoint-account
+  groups are packed onto ``APPLY_WORKERS`` shards (greedy
+  largest-group-first onto the lightest shard — deterministic).
+- **shard planes**: each worker applies its groups against a
+  ``ShardView`` — a database stand-in exposing a shard-local entry
+  cache / store buffer / frame context that overlay the real (frozen)
+  close planes.  Workers never touch SQL and never write a main plane;
+  any out-of-footprint probe raises ``FootprintEscape`` and the whole
+  set falls back to the serial loop (`apply-shard-isolation` analysis
+  rule pins the discipline; tests/test_framecontext.py pins the
+  bit-exactness).
+- **merge** (`apply.merge` span, main thread): per-tx deltas commit into
+  the close's LedgerDelta in canonical apply order, shard cache/buffer
+  slots replay into the main planes (disjoint by construction), history
+  rows — batch-encoded in the workers via the native `_applycore` leg,
+  which releases the GIL so shards genuinely overlap — insert in one
+  executemany, exactly like the serial loop.
+
+The escape hatch is total: on ANY worker error the scheduler restores
+the fee-pass result state (feeCharged survives, nothing else does) and
+reports "not applied", so the caller's serial loop re-applies from the
+exact pre-apply state.  Shard-local writes are discarded wholesale —
+main planes were never touched, which is what makes the fallback safe.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from contextlib import contextmanager
+from typing import Dict, List, Optional, Tuple
+
+from ..util import xlog
+from ..xdr.ledger import TransactionMeta
+from .delta import LedgerDelta
+from .framecontext import FrameContext, active_frame_context
+from .storebuffer import EntryStoreBuffer, active_buffer, _ABSENT
+
+log = xlog.logger("ApplySched")
+
+
+class FootprintEscape(RuntimeError):
+    """A worker touched state outside its shard's declared footprint.
+
+    Raised by the shard planes (cache probe, buffer probe, any SQL
+    surface) the moment an apply path reaches for an account — or any
+    other entity, or the database itself — that the partition pre-pass
+    did not assign to the shard.  The scheduler catches it, discards
+    every shard, and reports the set as not-applied so the serial loop
+    re-runs it; escaping is a *correct* (if slow) outcome, never a
+    corruption."""
+
+
+class ShardEntryCache:
+    """Shard-local overlay over the frozen main entry cache.
+
+    Reads fall through to the main cache (main-thread apply is parked
+    while workers run, so main lines only move in LRU order — content
+    is frozen); writes land in a shard-local dict replayed into the
+    main cache at merge.  Every probe asserts the key is inside the
+    shard's declared footprint."""
+
+    def __init__(self, main, allowed: frozenset):
+        self._main = main
+        self._allowed = allowed
+        self._local: Dict[bytes, object] = {}
+
+    def _check(self, kb: bytes) -> None:
+        if kb not in self._allowed:
+            raise FootprintEscape(f"cache probe outside shard footprint: {kb[:8].hex()}")
+
+    def peek(self, kb: bytes):
+        self._check(kb)
+        if kb in self._local:
+            return True, self._local[kb]
+        return self._main.peek(kb)
+
+    def get(self, kb: bytes):
+        from ..xdr.base import xdr_copy
+
+        hit, e = self.peek(kb)
+        return hit, (xdr_copy(e) if hit and e is not None else None)
+
+    def put(self, kb: bytes, entry) -> None:
+        from ..xdr.base import xdr_copy
+
+        self.put_owned(kb, xdr_copy(entry) if entry is not None else None)
+
+    def put_owned(self, kb: bytes, entry) -> None:
+        # THE write-side footprint assertion: every store funnels through
+        # EntryFrame._record -> cache.put_owned, so a mis-footprinted
+        # mutation trips here before any shard state diverges
+        self._check(kb)
+        self._local[kb] = entry
+
+    def contains(self, kb: bytes) -> bool:
+        self._check(kb)
+        return kb in self._local or self._main.contains(kb)
+
+    def erase(self, kb: bytes) -> None:
+        # delta.rollback erases lines for every key the aborted scope
+        # touched.  Dropping the LOCAL line is exactly right: the shard
+        # buffer rolled its marks back in lockstep, so the next read
+        # serves the last shard-committed slot from the buffer, or falls
+        # to the untouched (pre-apply) main planes — the same state a
+        # serial rollback re-reads.  Unchecked on purpose: rollback may
+        # run while a FootprintEscape unwinds and must not mask it.
+        self._local.pop(kb, None)
+
+    def clear(self) -> None:
+        raise FootprintEscape("cache clear inside a shard leg")
+
+
+class ShardStoreBuffer(EntryStoreBuffer):
+    """Shard-local overlay over the frozen main store buffer.
+
+    Inherits the undo/mark machinery (Database.transaction drives it
+    through ShardView.transaction exactly like the real buffered
+    branch); only the read side chains to the main overlay and flush is
+    forbidden — shard slots replay into the main buffer at merge and
+    flush once, on the main thread, as always."""
+
+    def __init__(self, main: EntryStoreBuffer, allowed: frozenset):
+        super().__init__()
+        self._main = main
+        self._allowed = allowed
+        self.active = True
+
+    def record(self, kb, key, entry, cls) -> None:
+        if kb not in self._allowed:
+            raise FootprintEscape(f"store outside shard footprint: {kb[:8].hex()}")
+        super().record(kb, key, entry, cls)
+
+    def get(self, kb: bytes):
+        if kb not in self._allowed:
+            raise FootprintEscape(f"buffer probe outside shard footprint: {kb[:8].hex()}")
+        slot = self._overlay.get(kb, _ABSENT)
+        if slot is _ABSENT:
+            return self._main.get(kb)
+        return True, slot[1]
+
+    def flush(self, db) -> None:
+        raise FootprintEscape("flush inside a shard leg")
+
+    flush_through = flush
+
+
+class ShardView:
+    """Database stand-in handed to a worker thread.
+
+    Exposes exactly the surface the apply path resolves off a Database
+    object — `_entry_cache`, `_store_buffer`, `_frame_context`,
+    `_cow_entry_snapshots`, `transaction()`, `timed()` — each backed by
+    a shard plane.  Every SQL method raises ``FootprintEscape``: sqlite
+    connections are single-thread and the partition pre-pass guarantees
+    warm caches for every in-footprint account, so a worker reaching
+    SQL has, by definition, escaped its footprint."""
+
+    def __init__(self, db, allowed: frozenset):
+        from .entryframe import entry_cache_of
+
+        self._entry_cache = ShardEntryCache(entry_cache_of(db), allowed)
+        main_buf = active_buffer(db)
+        assert main_buf is not None, "parallel apply requires ENTRY_WRITE_BUFFER"
+        self._store_buffer = ShardStoreBuffer(main_buf, allowed)
+        self._frame_context = FrameContext()
+        if active_frame_context(db) is not None:
+            self._frame_context.activate()
+        self._cow_entry_snapshots = getattr(db, "_cow_entry_snapshots", True)
+
+    # -- transactionality (mirrors database.py's buffered branch, minus
+    # the SQL savepoint ledger: shard scopes are mark-only) --------------
+    @contextmanager
+    def transaction(self):
+        buf = self._store_buffer
+        fctx = self._frame_context if self._frame_context.active else None
+        buf.push_mark()
+        if fctx is not None:
+            fctx.push_mark()
+        try:
+            yield
+        except BaseException:
+            buf.rollback_mark()
+            if fctx is not None:
+                fctx.rollback_mark()
+            raise
+        else:
+            buf.release_mark()
+            if fctx is not None:
+                fctx.release_mark()
+
+    @property
+    def in_transaction(self) -> bool:
+        return True
+
+    @contextmanager
+    def timed(self, op: str, entity: str):
+        yield
+
+    # -- SQL surface: forbidden in a shard leg ---------------------------
+    def execute(self, *a, **k):
+        raise FootprintEscape("SQL execute inside a shard leg")
+
+    def executemany(self, *a, **k):
+        raise FootprintEscape("SQL executemany inside a shard leg")
+
+    def query_one(self, *a, **k):
+        raise FootprintEscape("SQL query inside a shard leg")
+
+    def query_all(self, *a, **k):
+        raise FootprintEscape("SQL query inside a shard leg")
+
+    def materialize_savepoints(self):
+        raise FootprintEscape("savepoint materialization inside a shard leg")
+
+    def close_view(self) -> None:
+        if self._frame_context.active:
+            self._frame_context.deactivate()
+
+
+class _ShardLM:
+    """LedgerManager facade whose `.database` is the shard view; every
+    other attribute (header accessors, min-balance math, fee lookup —
+    all read-only) delegates to the real manager."""
+
+    def __init__(self, lm, shard_db: ShardView):
+        self._lm = lm
+        self.database = shard_db
+
+    def __getattr__(self, name):
+        return getattr(self._lm, name)
+
+
+class _ShardApp:
+    """Application facade for one worker: `.database` and
+    `.ledger_manager` resolve to the shard planes, everything else
+    (metrics, tracer, config, clock) to the real app."""
+
+    def __init__(self, app, lm, shard_db: ShardView):
+        self._app = app
+        self.database = shard_db
+        self.ledger_manager = _ShardLM(lm, shard_db)
+
+    def __getattr__(self, name):
+        return getattr(self._app, name)
+
+
+# -- history-row encode (native leg) ------------------------------------
+
+
+def _encode_rows(items: List[Tuple[bytes, bytes, bytes, bytes]]):
+    """[(txid, body, result, meta)] bytes -> [(hex, b64, b64, b64)] str.
+
+    The native `_applycore` leg releases the GIL across the whole batch,
+    so worker threads overlap their row encoding — the dominant residual
+    Python cost of the per-tx apply tail.  Pure-Python fallback keeps
+    the path alive where the toolchain can't build the extension."""
+    from ..native import load_applycore
+
+    mod = load_applycore()
+    if mod is not None:
+        return mod.encode_history_rows(items)
+    import base64
+
+    return [
+        (
+            t.hex(),
+            base64.b64encode(b).decode(),
+            base64.b64encode(r).decode(),
+            base64.b64encode(m).decode(),
+        )
+        for t, b, r, m in items
+    ]
+
+
+# -- the scheduler -------------------------------------------------------
+
+
+class ApplyScheduler:
+    """Owns partition/dispatch/merge for one LedgerManager.
+
+    ``apply()`` returns True iff the whole txset was applied in parallel
+    (ledger delta, result set, history rows and close planes all updated
+    exactly as the serial loop would have); False means "not touched —
+    run the serial loop", which is also the answer after any escape."""
+
+    def __init__(self, lm):
+        self.lm = lm
+        self.stats = {
+            "total_txs": 0,
+            "parallel_txs": 0,
+            "conflict_fallbacks": 0,
+            "escapes": 0,
+            "groups": 0,
+            "workers": 0,
+            "closes_parallel": 0,
+            "closes_serial": 0,
+        }
+        # last-close detail for profile_close.py --apply-report
+        self.last_close: Optional[dict] = None
+
+    # -- partition -------------------------------------------------------
+    def _partition(self, txs) -> Optional[List[List[Tuple[int, object]]]]:
+        """Disjoint-account groups of (canonical_index, tx), or None if
+        any tx's footprint is unboundable (CONFLICTING set)."""
+        footprints = []
+        for tx in txs:
+            fp = tx.static_footprint()
+            if fp is None:
+                return None
+            footprints.append(sorted(fp))
+        parent: Dict[bytes, bytes] = {}
+
+        def find(x: bytes) -> bytes:
+            root = x
+            while parent[root] != root:
+                root = parent[root]
+            while parent[x] != root:  # path compression
+                parent[x], x = root, parent[x]
+            return root
+
+        for kbs in footprints:
+            first = kbs[0]
+            if first not in parent:
+                parent[first] = first
+            r = find(first)
+            for kb in kbs[1:]:
+                if kb not in parent:
+                    parent[kb] = r
+                else:
+                    parent[find(kb)] = r
+        groups: Dict[bytes, List[Tuple[int, object]]] = {}
+        for idx, (tx, kbs) in enumerate(zip(txs, footprints)):
+            groups.setdefault(find(kbs[0]), []).append((idx, tx))
+        # dict insertion order == first-tx canonical order: deterministic
+        return list(groups.values())
+
+    def _assign(self, groups, n_shards: int):
+        """Greedy bin-pack: groups largest-first onto the lightest shard
+        (ties break to the lowest shard index) — deterministic, and the
+        classic 4/3-approximation is plenty for ~uniform payment sets."""
+        order = sorted(range(len(groups)), key=lambda g: (-len(groups[g]), g))
+        shards: List[List[int]] = [[] for _ in range(n_shards)]
+        load = [0] * n_shards
+        for g in order:
+            s = min(range(n_shards), key=lambda i: (load[i], i))
+            shards[s].append(g)
+            load[s] += len(groups[g])
+        return [s for s in shards if s]
+
+    # -- worker leg ------------------------------------------------------
+    def _run_shard(self, shard_db, shard_app, jobs, ledger_delta, seq, tx_timer, tracer, outcomes, rows_out, errors):  # analysis: shard-leg
+        """Apply this shard's groups against its shard planes.
+
+        Receives every plane it may touch as an explicit parameter —
+        the apply-shard-isolation rule forbids this leg from reaching
+        a `.database` attribute or any SQL surface, so a refactor that
+        re-introduces a main-plane dependency fails analysis, not
+        production.  Mirrors the serial loop body except that per-tx
+        deltas are NOT committed here: they queue for the canonical-
+        order merge on the main thread."""
+        from ..xdr.txs import TransactionResultCode
+
+        try:
+            sp = tracer.begin(
+                "apply.group",
+                groups=len(jobs),
+                txs=sum(len(g) for g in jobs),
+            )
+            done = []
+            for group in jobs:
+                for idx, tx in group:
+                    with tx_timer.time_scope():
+                        delta = LedgerDelta(outer=ledger_delta)
+                        # nested deltas inherit _db from their outer: point
+                        # the whole chain at the shard planes so rollbacks
+                        # erase shard cache lines, never main ones
+                        delta._db = shard_db
+                        meta = TransactionMeta(0, [])
+                        try:
+                            ok = tx.apply(delta, shard_app, meta)
+                            if not ok:
+                                assert not delta.get_changes()
+                        except FootprintEscape:
+                            raise
+                        except Exception as e:  # serial-loop parity
+                            log.error("exception during tx apply: %s", e)
+                            tx.set_result_code(
+                                TransactionResultCode.txINTERNAL_ERROR
+                            )
+                            ok = False
+                    outcomes[idx] = (ok, delta)
+                    done.append((idx, tx, meta))
+            # batch the history-row encode (native leg drops the GIL, so
+            # shards overlap here even under CPython)
+            blobs = [
+                (
+                    tx.get_contents_hash(),
+                    tx.env_xdr(),
+                    tx.get_result_pair().to_xdr(),
+                    meta.to_xdr(),
+                )
+                for _idx, tx, meta in done
+            ]
+            enc = _encode_rows(blobs)
+            for (idx, _tx, _meta), (h, b, r, m) in zip(done, enc):
+                rows_out[idx] = (h, seq, idx + 1, b, r, m)
+            tracer.end(sp)
+        except BaseException as e:
+            errors.append(e)
+
+    # -- fallback --------------------------------------------------------
+    def _restore_for_serial(self, txs, fees, shard_views) -> None:
+        """Undo the only main-visible worker effects — per-tx result
+        mutations — and drop the shard planes.  feeCharged is restored
+        to the fee pass's exact value (including its take-all-they-have
+        adjustment), so the serial re-apply starts from the precise
+        pre-apply state."""
+        for tx, fee in zip(txs, fees):
+            tx.reset_results()
+            tx.result.feeCharged = fee
+        for sv in shard_views:
+            sv.close_view()
+
+    # -- entry point -----------------------------------------------------
+    def apply(self, txs, ledger_delta, tx_result_set) -> bool:
+        from ..tx import history as tx_history
+
+        lm = self.lm
+        self.stats["total_txs"] += len(txs)
+        cfg = lm.app.config
+        if not getattr(cfg, "PARALLEL_APPLY", False) or not txs:
+            return False
+        db = lm.database
+        if active_buffer(db) is None:
+            # per-shard writes merge through the store buffer; without it
+            # every store is a (single-threaded) SQL write — stay serial
+            return False
+        workers = cfg.APPLY_WORKERS or (os.cpu_count() or 1)
+        if workers <= 1:
+            return False
+        tracer = lm.app.tracer
+        with tracer.span("apply.partition", txs=len(txs)):
+            groups = self._partition(txs)
+        if groups is None:
+            self.stats["conflict_fallbacks"] += 1
+            self.stats["closes_serial"] += 1
+            self.last_close = {"mode": "serial", "reason": "conflicting-txset"}
+            return False
+        if len(groups) < 2:
+            self.stats["closes_serial"] += 1
+            self.last_close = {"mode": "serial", "reason": "single-group"}
+            return False
+        workers = min(workers, len(groups))
+        shard_groups = self._assign(groups, workers)
+
+        seq = lm.current.header.ledgerSeq
+        fees = [tx.result.feeCharged for tx in txs]
+        shard_views = [
+            ShardView(db, frozenset().union(*(
+                (kb for _i, tx in groups[g] for kb in tx.static_footprint())
+                for g in sg
+            )))
+            for sg in shard_groups
+        ]
+        outcomes: dict = {}
+        rows_out: dict = {}
+        errors: list = []
+        threads = []
+        for sv, sg in zip(shard_views, shard_groups):
+            shard_app = _ShardApp(lm.app, lm, sv)
+            t = threading.Thread(
+                target=self._run_shard,
+                args=(
+                    sv,
+                    shard_app,
+                    [groups[g] for g in sg],
+                    ledger_delta,
+                    seq,
+                    lm._tx_apply_timer,
+                    tracer,
+                    outcomes,
+                    rows_out,
+                    errors,
+                ),
+                name=f"apply-shard-{len(threads)}",
+                daemon=True,
+            )
+            threads.append(t)
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+
+        if errors or any(i not in outcomes for i in range(len(txs))):
+            for e in errors:
+                if isinstance(e, FootprintEscape):
+                    log.info("parallel apply escaped to serial: %s", e)
+                else:
+                    log.error("parallel apply worker failed: %r", e)
+            self._restore_for_serial(txs, fees, shard_views)
+            self.stats["escapes"] += 1
+            self.stats["conflict_fallbacks"] += 1
+            self.stats["closes_serial"] += 1
+            self.last_close = {"mode": "serial", "reason": "escape"}
+            return False
+
+        with tracer.span(
+            "apply.merge", shards=len(shard_views), groups=len(groups)
+        ):
+            # validation BEFORE any commit: an allowed op must never have
+            # touched the header (fee pool / idPool / inflation are all
+            # CONFLICTING classifications) — a local header here means the
+            # footprint pre-pass mis-classified, so discard everything
+            # and let the serial loop produce the truth
+            if any(
+                outcomes[i][1]._header_local is not None
+                for i in range(len(txs))
+            ):
+                log.error("parallel apply: shard delta mutated the header")
+                self._restore_for_serial(txs, fees, shard_views)
+                self.stats["escapes"] += 1
+                self.stats["conflict_fallbacks"] += 1
+                self.stats["closes_serial"] += 1
+                self.last_close = {"mode": "serial", "reason": "header-escape"}
+                return False
+            rows = []
+            for i, tx in enumerate(txs):
+                ok, delta = outcomes[i]
+                if ok:
+                    delta.commit()
+                lm._tx_count_meter.mark()
+                tx_result_set.results.append(tx.get_result_pair())
+                rows.append(rows_out[i])
+            main_cache = db._entry_cache
+            main_buf = active_buffer(db)
+            main_fctx = active_frame_context(db)
+            for sv in shard_views:
+                for kb, entry in sv._entry_cache._local.items():
+                    main_cache.put_owned(kb, entry)
+                    if main_fctx is not None:
+                        # the main context may still map a pre-apply frame
+                        # (fee pass adopted it); shard stores superseded it,
+                        # so evict — the next signing load re-copies the
+                        # merged cache line, exactly like a cold close
+                        main_fctx.evict(kb)
+                for kb, slot in sv._store_buffer._overlay.items():
+                    main_buf.record(kb, slot[0], slot[1], slot[2])
+                sv.close_view()
+            tx_history.insert_transaction_rows(lm.database, rows)
+
+        self.stats["parallel_txs"] += len(txs)
+        self.stats["groups"] += len(groups)
+        self.stats["workers"] = len(shard_views)
+        self.stats["closes_parallel"] += 1
+        self.last_close = {
+            "mode": "parallel",
+            "txs": len(txs),
+            "groups": len(groups),
+            "workers": len(shard_views),
+            "group_sizes": [len(g) for g in groups],
+            "shard_txs": [
+                sum(len(groups[g]) for g in sg) for sg in shard_groups
+            ],
+        }
+        return True
+
+
+def apply_scheduler_of(lm) -> ApplyScheduler:
+    sched = getattr(lm, "_apply_sched", None)
+    if sched is None:
+        sched = ApplyScheduler(lm)
+        lm._apply_sched = sched
+    return sched

@@ -1,0 +1,315 @@
+"""ClosePipeline — the pipelined-ledger-close scheduler (ROADMAP #3;
+reference anchor LedgerManagerImpl.cpp:845-888).
+
+The close phases run serially per ledger (``txset_validate → sig_flush →
+fees → apply → commit``), so the host idles while the signature plane
+verifies and the verify plane idles while the host applies.  This
+scheduler overlaps them ACROSS ledgers: while txset N is in
+``close.apply``, the signature prewarm for the already-externalized txset
+N+1 (and any SCP envelope batch pending in the overlay) is staged and
+dispatched asynchronously through ``SigBackend.verify_batch_async``; the
+join point moves to the TOP of N+1's close, where the future is usually
+already complete — the device/host verify cost hid inside N's apply wall.
+
+Shapes that genuinely present a >1 backlog (where the overlap pays):
+
+- catchup replay (``LedgerManager.history_caught_up``): every buffered
+  ledger enqueues before the drain closes them in sequence;
+- a validator lagging consensus: externalized values arrive faster than
+  closes complete and queue here instead of closing inline;
+- steady state still prewarms the overlay's pending SCP envelope batch,
+  so the next crank's flush is a cache hit.
+
+Correctness contract: the pipeline is a pure PREFETCH plane.  Verdicts
+enter the shared verify cache only when a flush future completes
+un-quarantined; an aborted/forked close (invariant violation, catchup
+interrupt, backend raise) quarantines every in-flight future, which both
+blocks the pending latch and evicts anything already latched — the cache
+never holds verdicts from a quarantined batch (tests/test_closepipeline.py
+pins all three abort paths).  Ledger hashes / SQL / history metas are
+bit-exact with ``CLOSE_PIPELINE = False`` (differential suite +
+``profile_close.py --pipeline-report``).
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from typing import Dict, List, Optional
+
+from ..crypto import sha256
+from ..crypto.sigbackend import CALLER_PIPELINE, SigFlushFuture
+from ..util import xlog
+
+log = xlog.logger("Ledger")
+
+# pending-SCP prewarm futures kept for quarantine bookkeeping; completed
+# ones are purged opportunistically, this only bounds a pathological pileup
+_MAX_SCP_FUTURES = 16
+
+
+def _prewarm_key(txs) -> bytes:
+    """Linkage-independent identity of a transaction bag: the txset
+    contents hash covers previousLedgerHash, which an upcoming (not yet
+    closed) set's prewarm must not depend on — the signature triples are
+    functions of the tx envelopes alone."""
+    return sha256(b"".join(sorted(tx.get_full_hash() for tx in txs)))
+
+
+class ClosePipeline:
+    """Owns the externalized-but-unclosed ledger queue and the in-flight
+    signature-flush futures.  Single-threaded like the rest of the node
+    (the crank drives it); only the verify work inside the futures runs on
+    worker threads, behind the SigBackend async surface."""
+
+    def __init__(self, app):
+        self.app = app
+        self.depth = int(getattr(app.config, "CLOSE_PIPELINE_DEPTH", 2))
+        self._queue: deque = deque()  # LedgerCloseData, consensus order
+        self._futures: Dict[bytes, SigFlushFuture] = {}
+        self._scp_futures: List[SigFlushFuture] = []
+        # upcoming txsets eligible for a prewarm dispatch: key -> [txs]
+        self._candidates: "dict[bytes, list]" = {}
+        self._draining = False
+        # >0: a multi-slot SCP sweep is in progress (Herder.process_scp_
+        # queue) — enqueues accumulate and the drain runs at release, so a
+        # lagging node's replayed run closes as ONE pipelined backlog
+        self._held = 0
+        self.n_held_sweeps = 0  # sweeps that released a >1 backlog
+        # overlap accounting (bench.py overlap_hidden_ms / profile_close
+        # --pipeline-report read these)
+        self.n_dispatched = 0
+        self.n_joined = 0
+        self.n_joined_warm = 0  # future already complete at join
+        self.n_quarantined = 0
+        self.n_fallback = 0  # joined future failed -> inline prewarm
+        self.overlap_hidden_ms = 0.0
+        self.join_wait_ms = 0.0
+        self.dispatch_ms = 0.0
+
+    # -- externalized-ledger queue ------------------------------------------
+    def queued_count(self) -> int:
+        return len(self._queue)
+
+    def enqueue(self, ledger_data) -> None:
+        """Admit an externalized-but-unclosed ledger (the herder hands
+        these over instead of closing inline).  The caller is responsible
+        for sequence ordering (LedgerManager.externalize_value checks)."""
+        self._queue.append(ledger_data)
+        self.note_upcoming(ledger_data.tx_set.transactions)
+
+    def hold(self) -> None:
+        """Open a drain holdoff (reentrancy-counted): enqueues accumulate
+        until the matching ``release``.  The herder wraps its SCP-queue
+        sweep in a hold so several externalizable slots — a healed
+        partition's replay, a post-flood burst — enqueue as ONE run and
+        the release drains them pipelined (dispatch-ahead prewarms slot
+        N+1's signatures while slot N applies).  Without the hold, each
+        ``value_externalized`` closes synchronously inside its own notify
+        cascade and the queue never stacks."""
+        self._held += 1
+
+    def release(self) -> bool:
+        """Close a holdoff; True when this was the outermost one (the
+        caller then drains)."""
+        assert self._held > 0, "release without hold"
+        self._held -= 1
+        return self._held == 0
+
+    def held(self) -> bool:
+        return self._held > 0
+
+    def drain(self, close_fn) -> None:
+        """Close queued ledgers in order via ``close_fn(ledger_data)``.
+        Reentrant submits during a close (herder notify cascading into the
+        next externalize) just enqueue — the outer drain picks them up;
+        during a hold (SCP sweep) the whole drain defers to the release.
+        A failed close quarantines every in-flight future (the abort
+        contract), returns the failed ledger to the queue head, and
+        propagates — a retry drain resumes from the same ledger, and a
+        catchup interrupt collects the full unclosed run."""
+        if self._draining or self._held:
+            return
+        if len(self._queue) > 1:
+            self.n_held_sweeps += 1
+        self._draining = True
+        try:
+            # a previous aborted drain quarantined in-flight futures AND
+            # cleared the candidate bags of the still-queued ledgers —
+            # re-register them so the retry drain pipelines again instead
+            # of silently degrading to fully-inline closes
+            for ld in self._queue:
+                self.note_upcoming(ld.tx_set.transactions)
+            while self._queue:
+                ld = self._queue.popleft()
+                try:
+                    close_fn(ld)
+                except BaseException:
+                    self.abort_inflight()
+                    self._queue.appendleft(ld)
+                    raise
+        finally:
+            self._draining = False
+
+    def interrupt(self) -> list:
+        """Catchup is taking over: quarantine in-flight futures and hand
+        the un-closed queue back (LedgerManager buffers it into
+        syncing_ledgers)."""
+        self.abort_inflight()
+        out = list(self._queue)
+        self._queue.clear()
+        return out
+
+    # -- prewarm plane -------------------------------------------------------
+    def note_upcoming(self, txs) -> None:
+        """Register a transaction bag expected to close soon as a prewarm
+        candidate; dispatch happens at the next ``dispatch_ahead`` (i.e.
+        while the current ledger applies), bounded by the pipeline depth."""
+        txs = list(txs)
+        if not txs:
+            return
+        key = _prewarm_key(txs)
+        if key not in self._candidates and key not in self._futures:
+            self._candidates[key] = txs
+
+    def dispatch_ahead(self, tracer) -> None:
+        """Stage + dispatch async signature flushes for up to ``depth``
+        upcoming txsets and the overlay's pending SCP envelope batch.
+        Called by LedgerManager right before ``close.apply`` — triple
+        collection (DB reads) runs here on the close's own thread (sqlite
+        connections stay single-threaded); only the pure-compute verify
+        rides the worker."""
+        backend = getattr(self.app, "sig_backend", None)
+        if backend is None or not self._space():
+            return
+        sp = tracer.begin("close.pipeline.dispatch")
+        t0 = time.perf_counter()
+        n_sets = n_items = n_scp = 0
+        db = self.app.database
+        while self._candidates and self._space():
+            key, txs = next(iter(self._candidates.items()))
+            del self._candidates[key]
+            triples = []
+            for tx in txs:
+                triples.extend(tx.candidate_signature_pairs(db))
+            if not triples:
+                continue
+            self._futures[key] = backend.verify_batch_async(
+                triples, caller=CALLER_PIPELINE
+            )
+            self.n_dispatched += 1
+            n_sets += 1
+            n_items += len(triples)
+        # pending SCP envelopes coalesced for this crank's batch flush:
+        # verify them while apply runs so the flush is a cache hit.  Only
+        # for schemes that verify per-envelope anyway — under
+        # SCP_SIG_SCHEME="ed25519-halfagg" a per-envelope prewarm would
+        # pre-latch every verdict and starve the aggregate path of its
+        # slot buckets (the aggregate check is the cheap path there)
+        scheme = getattr(self.app, "scp_scheme", None)
+        om = getattr(self.app, "overlay_manager", None)
+        if scheme is not None and not scheme.wants_envelope_prewarm:
+            om = None
+        if om is not None:
+            scp_triples = om.pending_scp_triples()
+            if scp_triples:
+                self._scp_futures = [
+                    f for f in self._scp_futures if not f.done()
+                ]
+                if len(self._scp_futures) < _MAX_SCP_FUTURES:
+                    self._scp_futures.append(
+                        backend.verify_batch_async(
+                            scp_triples, caller=CALLER_PIPELINE
+                        )
+                    )
+                    n_scp = len(scp_triples)
+        self.dispatch_ms += (time.perf_counter() - t0) * 1000.0
+        tracer.end(sp, sets=n_sets, items=n_items, scp_items=n_scp)
+
+    def _space(self) -> bool:
+        return len(self._futures) < self.depth
+
+    def join_prewarm(self, tx_set, tracer) -> bool:
+        """The join point at the top of a close: if an in-flight flush
+        covers this txset, wait for it (usually already complete — the
+        verify hid inside the previous apply) and report True so the
+        caller skips the inline prewarm.  A failed future is quarantined
+        and False returned — the close falls back to the inline path, no
+        less robust than pipeline-off."""
+        txs = tx_set.transactions
+        if not txs:
+            return False
+        key = _prewarm_key(txs)
+        self._candidates.pop(key, None)  # closing now; candidate is stale
+        fut = self._futures.pop(key, None)
+        if fut is None:
+            return False
+        sp = tracer.begin("close.pipeline.join", items=fut.items)
+        warm = fut.done()
+        t0 = time.perf_counter()
+        try:
+            fut.result()
+        except BaseException as e:
+            fut.quarantine()
+            self.n_quarantined += 1
+            self.n_fallback += 1
+            log.warning(
+                "pipelined sig prewarm failed (%s: %s); falling back to"
+                " the inline flush",
+                type(e).__name__,
+                e,
+            )
+            tracer.end(sp, ok=False, warm=warm)
+            return False
+        wait_ms = (time.perf_counter() - t0) * 1000.0
+        total_ms = (
+            (fut.completed_at - fut.dispatched_at) * 1000.0
+            if fut.completed_at is not None
+            else 0.0
+        )
+        hidden_ms = max(0.0, total_ms - wait_ms)
+        self.n_joined += 1
+        self.n_joined_warm += 1 if warm else 0
+        self.join_wait_ms += wait_ms
+        self.overlap_hidden_ms += hidden_ms
+        tracer.end(
+            sp,
+            ok=True,
+            warm=warm,
+            waited_ms=round(wait_ms, 3),
+            hidden_ms=round(hidden_ms, 3),
+        )
+        return True
+
+    # -- abort plane ---------------------------------------------------------
+    def abort_inflight(self) -> None:
+        """Quarantine every in-flight flush: the aborting/forked close (or
+        its successors) collected these triples against state that is
+        rolling back — their verdicts must neither latch into nor remain
+        in the shared verify cache."""
+        for fut in self._futures.values():
+            fut.quarantine()
+            self.n_quarantined += 1
+        self._futures.clear()
+        for fut in self._scp_futures:
+            fut.quarantine()
+            self.n_quarantined += 1
+        self._scp_futures.clear()
+        self._candidates.clear()
+
+    # -- telemetry -----------------------------------------------------------
+    def stats(self) -> dict:
+        return {
+            "depth": self.depth,
+            "backlog_drains": self.n_held_sweeps,
+            "queued": len(self._queue),
+            "inflight": len(self._futures),
+            "dispatched": self.n_dispatched,
+            "joined": self.n_joined,
+            "joined_warm": self.n_joined_warm,
+            "quarantined": self.n_quarantined,
+            "fallback": self.n_fallback,
+            "overlap_hidden_ms": round(self.overlap_hidden_ms, 3),
+            "join_wait_ms": round(self.join_wait_ms, 3),
+            "dispatch_ms": round(self.dispatch_ms, 3),
+        }

@@ -1,0 +1,402 @@
+"""EntryFrame base + process-wide entry cache (reference: src/ledger/EntryFrame.*).
+
+An EntryFrame wraps one XDR LedgerEntry with SQL store/load/delete.  The
+reference keeps a global LRU cache of loaded entries keyed by the XDR of the
+LedgerKey (EntryFrame.cpp cache helpers); ours lives on the Database instance
+so independent Applications in one process (simulation!) don't share state.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Optional
+
+from ..xdr.base import xdr_copy
+from ..xdr.entries import LedgerEntry, LedgerEntryType
+from ..xdr.ledger import LedgerKey
+from .framecontext import active_frame_context
+from .storebuffer import active_buffer
+
+
+class EntryCache:
+    """Small LRU of key-xdr -> Optional[LedgerEntry] (None = known-absent).
+
+    Stores decoded objects with a defensive codec-driven copy on both store
+    and hit (aliasing safety).  With the codec's struct fast paths, xdr_copy
+    of an account entry measures ~2.5x cheaper than an XDR unpack (4.4 vs
+    11.3 us), so the object cache beats the earlier bytes cache on the hot
+    load path."""
+
+    # the reference uses 4096 (EntryFrame.h); a 5000-tx ledger touches
+    # ~2x5000 distinct accounts per close, so that size thrashes exactly
+    # at the benchmark ledger shape — size for the close working set
+    CAPACITY = 131072
+
+    def __init__(self):
+        self._map: OrderedDict[bytes, Optional[LedgerEntry]] = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+
+    def get(self, key: bytes):
+        """(hit, entry-copy-or-None); the caller owns the returned entry."""
+        hit, e = self.peek(key)
+        return hit, (xdr_copy(e) if hit and e is not None else None)
+
+    def peek(self, key: bytes):
+        """(hit, SHARED-entry-or-None) — no defensive copy.  The caller
+        must treat the entry as immutable (read-only load path); a later
+        put_owned replaces the cache line's reference, never mutates it,
+        so a peeked entry stays consistent as of its load."""
+        if key in self._map:
+            self._map.move_to_end(key)
+            self.hits += 1
+            return True, self._map[key]
+        self.misses += 1
+        return False, None
+
+    def put(self, key: bytes, entry: Optional[LedgerEntry]):
+        self.put_owned(key, xdr_copy(entry) if entry is not None else None)
+
+    def put_owned(self, key: bytes, entry: Optional[LedgerEntry]):
+        """Store without copying — the caller relinquishes ownership and
+        must not mutate `entry` afterwards."""
+        self._map[key] = entry
+        self._map.move_to_end(key)
+        while len(self._map) > self.CAPACITY:
+            self._map.popitem(last=False)
+
+    def contains(self, key: bytes) -> bool:
+        """Membership probe without touching hit/miss counters or LRU
+        order (used by bulk prewarm to split warm/cold)."""
+        return key in self._map
+
+    def erase(self, key: bytes):
+        self._map.pop(key, None)
+
+    def clear(self):
+        self._map.clear()
+
+
+def key_bytes(key: LedgerKey) -> bytes:
+    """Memoized XDR encoding of a LedgerKey — cache/delta row keys are
+    derived repeatedly from the same key objects in the apply path."""
+    kb = getattr(key, "_kb", None)
+    if kb is None:
+        kb = key.to_xdr()
+        key._kb = kb
+    return kb
+
+
+def entry_cache_of(db) -> EntryCache:
+    cache = getattr(db, "_entry_cache", None)
+    if cache is None:
+        cache = EntryCache()
+        db._entry_cache = cache
+    return cache
+
+
+# seal-on-store copy-on-write counters (process-wide, monotonic — bench.py
+# differences two samples per timed close window; profile_close.py
+# --copy-report prints them next to the per-site xdr_copy attribution).
+# seals   = stores that shared the live entry instead of deep-copying
+# unseals = lazy CoW copies actually paid at the next mutating access —
+#           the old scheme paid one copy per STORE, so (seals - unseals)
+#           is the number of copies this plane elided
+_COW = {"seals": 0, "unseals": 0}
+
+
+def cow_stats() -> dict:
+    """{'seals': int, 'unseals': int} — see the counter comment above."""
+    return dict(_COW)
+
+
+class EntryFrame:
+    """Base for Account/Trust/Offer frames."""
+
+    entry_type: LedgerEntryType = None
+
+    # True on frames from a read-only load: the wrapped entry is SHARED
+    # with the entry cache (no defensive copy) or with a close-scoped
+    # context frame, so any store is a bug — guarded in
+    # store_add/store_change/store_delete
+    _readonly = False
+
+    # set when a close-scoped FrameContext owns this frame (the identity
+    # map hands the same object to fee/validity/apply); a store after the
+    # context deactivates — or after a LATER close reactivated it — would
+    # write state from a finished close, so both are refused (the
+    # generation stamp catches the reactivation case)
+    _ctx = None
+    _ctx_gen = -1
+
+    # SEAL-ON-STORE copy-on-write: after a
+    # store, self.entry IS the shared immutable snapshot sitting in the
+    # delta, the entry cache, and the store buffer — the frame is
+    # "sealed" and the next in-place mutation must pay the xdr_copy the
+    # old eager scheme paid per store (touch()).  Entries stored once and
+    # never touched again (payment destinations, trustlines, offers, the
+    # final store of a source account) therefore never copy at all.
+    _sealed = False
+
+    def __init__(self, entry: LedgerEntry):
+        self.entry = entry
+        self.m_key_calculated = False
+        self._key: Optional[LedgerKey] = None
+
+    # -- identity ----------------------------------------------------------
+    def get_key(self) -> LedgerKey:
+        if not self.m_key_calculated:
+            self._key = self._compute_key()
+            self.m_key_calculated = True
+        return self._key
+
+    def _compute_key(self) -> LedgerKey:
+        raise NotImplementedError
+
+    @property
+    def last_modified(self) -> int:
+        return self.entry.lastModifiedLedgerSeq
+
+    @last_modified.setter
+    def last_modified(self, seq: int):
+        if self._sealed:
+            if self.entry.lastModifiedLedgerSeq == seq:
+                # re-store within the same close: the stamp is a no-op, so
+                # the sealed snapshot can be re-shared without a copy
+                return
+            self.touch()
+        # analysis: off cow-mutation -- this setter IS the CoW machinery: the seal branch above either proved the stamp a no-op or paid the touch() copy
+        self.entry.lastModifiedLedgerSeq = seq
+
+    def copy(self) -> "EntryFrame":
+        return type(self)(xdr_copy(self.entry))
+
+    # -- seal-on-store CoW -------------------------------------------------
+    def touch(self) -> "EntryFrame":
+        """Copy-on-write un-seal: MUST run before any in-place mutation of
+        ``self.entry``.  After a store sealed the frame (its entry is the
+        shared snapshot in the delta/cache/store-buffer), the first
+        mutating access pays the one xdr_copy the eager scheme paid per
+        store; on an unsealed frame this is a flag check.  All mutation
+        entry points (add_balance, set_seq_num, mut(), ...) and the
+        FrameContext's mutable lend route through here."""
+        if self._sealed:
+            self.entry = xdr_copy(self.entry)
+            self._rebind_entry()
+            self._sealed = False
+            # a memoized readonly shell (framecontext lend) shares the OLD
+            # snapshot object; drop it so the next readonly lend rebuilds
+            # a shell over the live entry
+            self.__dict__.pop("_ro_shell", None)
+            _COW["unseals"] += 1
+        return self
+
+    def _rebind_entry(self) -> None:
+        """Re-point the typed alias (self.account / self.trust_line /
+        self.offer) at the fresh CoW copy — subclasses override."""
+
+    def mut(self):
+        """The mutable typed entry body (AccountEntry / TrustLineEntry /
+        OfferEntry) — CoW-unseals first.  Direct field mutation
+        (``f.mut().balance -= fee``) must come through here; reads keep
+        using the typed alias (no copy on a sealed frame)."""
+        if self._sealed:
+            self.touch()
+        return self.entry.data.value
+
+    def replace_body(self, body) -> None:
+        """Swap the typed entry body wholesale (ManageOffer's update path
+        rebuilds the OfferEntry rather than patching fields).  CoW-unseals
+        first so the swap can never reach a snapshot already shared with
+        the delta/cache/store-buffer, then re-points the typed alias."""
+        self.touch()
+        # analysis: off cow-mutation -- the one sanctioned body-swap site: touch() above paid the CoW copy and _rebind_entry below re-points the alias
+        self.entry.data.value = body
+        self._rebind_entry()
+
+    # -- store interface ---------------------------------------------------
+    def _assert_mutable(self) -> None:
+        if self._readonly:
+            raise RuntimeError(
+                f"store through a read-only {type(self).__name__} — its "
+                "entry is shared with the entry cache or a close-scoped "
+                "frame; load without readonly=True to mutate"
+            )
+        ctx = self._ctx
+        if ctx is not None and (
+            not ctx.active or self._ctx_gen != ctx.generation
+        ):
+            raise RuntimeError(
+                f"store through a stale close-scoped {type(self).__name__}"
+                " — the FrameContext that lent it was deactivated (its"
+                " close is over); reload the entry to mutate"
+            )
+
+    def store_add(self, delta, db) -> None:
+        self._assert_mutable()
+        self._stamp(delta)
+        if active_buffer(db) is None:
+            self._persist(db, insert=True)
+        self._record(delta, db, created=True)
+
+    def store_change(self, delta, db) -> None:
+        self._assert_mutable()
+        self._stamp(delta)
+        if active_buffer(db) is None:
+            self._persist(db, insert=False)
+        self._record(delta, db, created=False)
+
+    def _persist(self, db, insert: bool) -> None:
+        raise NotImplementedError
+
+    def store_delete(self, delta, db) -> None:
+        raise NotImplementedError
+
+    @classmethod
+    def _buffered_delete(cls, db, key: LedgerKey) -> bool:
+        """Route a delete into the active store buffer; False = caller must
+        issue the SQL itself (write-through mode)."""
+        buf = active_buffer(db)
+        if buf is None:
+            return False
+        buf.record(key_bytes(key), key, None, cls)
+        return True
+
+    # -- batched flush (EntryStoreBuffer) ----------------------------------
+    @classmethod
+    def upsert_batch(cls, db, entries) -> None:
+        raise NotImplementedError
+
+    @classmethod
+    def delete_batch(cls, db, keys) -> None:
+        raise NotImplementedError
+
+    # -- shared plumbing ---------------------------------------------------
+    def _stamp(self, delta) -> None:
+        if delta.update_last_modified:
+            self.last_modified = delta.header_ro().ledgerSeq
+
+    def _record(self, delta, db, *, created: bool) -> None:
+        """After a (possibly buffered) write: record the entry in the delta,
+        the entry cache, and the active store buffer with ONE shared
+        immutable snapshot (all sides only read).
+
+        With seal-on-store (COW_ENTRY_SNAPSHOTS, default) that snapshot IS
+        the frame's live entry: the frame seals itself and the copy is
+        deferred to the next mutating access (touch()), which never comes
+        for entries stored once per close.  CoW-off restores the eager
+        per-store deep copy (the differential suite runs both modes and
+        compares hashes, SQL dumps, and history metas bit-exactly)."""
+        key = self.get_key()
+        if getattr(db, "_cow_entry_snapshots", True):
+            snap = self.entry
+            self._sealed = True
+            _COW["seals"] += 1
+        else:
+            snap = xdr_copy(self.entry)
+        if created:
+            delta.add_entry_snapshot(key, snap)
+        else:
+            delta.mod_entry_snapshot(key, snap)
+        kb = key_bytes(key)
+        entry_cache_of(db).put_owned(kb, snap)
+        buf = active_buffer(db)
+        if buf is not None:
+            buf.record(kb, key, snap, type(self))
+        if self.entry_type == LedgerEntryType.ACCOUNT:
+            # the storing frame becomes the close's canonical working
+            # frame for this account (identity convergence: a frame built
+            # outside load_account — create_account, bucket apply — must
+            # not leave a stale mapped frame behind)
+            ctx = active_frame_context(db)
+            if ctx is not None:
+                ctx.record_store(kb, self)
+
+    @staticmethod
+    def cache_of(db) -> EntryCache:
+        return entry_cache_of(db)
+
+    @classmethod
+    def store_in_cache(cls, db, key: LedgerKey, entry: Optional[LedgerEntry]):
+        entry_cache_of(db).put(key_bytes(key), entry)
+
+    @classmethod
+    def flush_cached(cls, db, key: LedgerKey):
+        entry_cache_of(db).erase(key_bytes(key))
+
+    @staticmethod
+    def check_exists(db, sql: str, params) -> bool:
+        return db.query_one(sql, params) is not None
+
+
+def ledger_key_of(entry: LedgerEntry) -> LedgerKey:
+    """LedgerKey identifying a LedgerEntry (reference: LedgerEntryKey,
+    src/ledger/EntryFrame.cpp)."""
+    from ..xdr.ledger import LedgerKeyAccount, LedgerKeyOffer, LedgerKeyTrustLine
+
+    ty = entry.data.type
+    d = entry.data.value
+    if ty == LedgerEntryType.ACCOUNT:
+        return LedgerKey(ty, LedgerKeyAccount(d.accountID))
+    if ty == LedgerEntryType.TRUSTLINE:
+        return LedgerKey(ty, LedgerKeyTrustLine(d.accountID, d.asset))
+    if ty == LedgerEntryType.OFFER:
+        return LedgerKey(ty, LedgerKeyOffer(d.sellerID, d.offerID))
+    raise ValueError(f"unknown ledger entry type {ty}")
+
+
+def frame_from_entry(entry: LedgerEntry) -> "EntryFrame":
+    """Factory: wrap a LedgerEntry in its typed frame
+    (reference: EntryFrame::FromXDR, src/ledger/EntryFrame.cpp:33)."""
+    from .accountframe import AccountFrame
+    from .offerframe import OfferFrame
+    from .trustframe import TrustFrame
+
+    ty = entry.data.type
+    if ty == LedgerEntryType.ACCOUNT:
+        return AccountFrame(entry)
+    if ty == LedgerEntryType.TRUSTLINE:
+        return TrustFrame(entry)
+    if ty == LedgerEntryType.OFFER:
+        return OfferFrame(entry)
+    raise ValueError(f"unknown ledger entry type {ty}")
+
+
+def store_add_or_change(entry: LedgerEntry, delta, db) -> None:
+    """Upsert a raw LedgerEntry (reference: EntryFrame::storeAddOrChange,
+    used by Bucket::apply during catchup-minimal)."""
+    frame = frame_from_entry(entry)
+    if type(frame).exists(db, frame.get_key()):
+        frame.store_change(delta, db)
+    else:
+        frame.store_add(delta, db)
+
+
+def load_entry_by_key(key: LedgerKey, db) -> Optional["EntryFrame"]:
+    """Load whatever frame the key identifies, or None."""
+    from .accountframe import AccountFrame
+    from .offerframe import OfferFrame
+    from .trustframe import TrustFrame
+
+    if key.type == LedgerEntryType.ACCOUNT:
+        return AccountFrame.load_account(key.value.accountID, db)
+    if key.type == LedgerEntryType.TRUSTLINE:
+        return TrustFrame.load_trust_line(key.value.accountID, key.value.asset, db)
+    if key.type == LedgerEntryType.OFFER:
+        return OfferFrame.load_offer(key.value.sellerID, key.value.offerID, db)
+    raise ValueError(f"unknown ledger entry type {key.type}")
+
+
+def store_delete_key(key: LedgerKey, delta, db) -> None:
+    """Delete by LedgerKey regardless of whether the row exists
+    (reference: EntryFrame::storeDelete(delta, db, key))."""
+    from .accountframe import AccountFrame
+    from .offerframe import OfferFrame
+    from .trustframe import TrustFrame
+
+    cls = {
+        LedgerEntryType.ACCOUNT: AccountFrame,
+        LedgerEntryType.TRUSTLINE: TrustFrame,
+        LedgerEntryType.OFFER: OfferFrame,
+    }[key.type]
+    cls.store_delete_by_key(delta, db, key)

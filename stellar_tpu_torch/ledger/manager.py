@@ -1,0 +1,664 @@
+"""LedgerManager (reference: src/ledger/LedgerManagerImpl.{h,cpp}).
+
+Closes ledgers (the system's "train step", SURVEY.md §3.2), tracks the
+last-closed-ledger header chain, drives catchup on gaps, owns genesis.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional
+
+from ..crypto import sha256
+from ..crypto.keys import SecretKey
+from ..util import fs, xlog
+from ..xdr.base import xdr_copy, XdrError
+from ..xdr.ledger import (
+    LedgerHeader,
+    LedgerUpgrade,
+    LedgerUpgradeType,
+    TransactionResultSet,
+    UPGRADE_TYPE,
+)
+from ..xdr.ledger import TransactionMeta
+from ..database.database import UnrollbackableWrite
+from .accountframe import AccountFrame
+from .delta import LedgerDelta
+from .headerframe import LedgerHeaderFrame
+
+log = xlog.logger("Ledger")
+
+GENESIS_BALANCE = 1000000000000000000  # 10^18 stroops
+
+# close-path storage kill-points (util/fs.py): the in-transaction ones
+# must repair to "the close never happened" on restart, the post-commit
+# one to "the close fully happened, post-close kicks rerun at boot"
+KP_CLOSE_HEADER = fs.register_kill_point(
+    "close.header-stored", "header row written inside the close txn"
+)
+KP_CLOSE_LCL = fs.register_kill_point(
+    "close.lcl-state", "lastclosedledger/HAS state rows written in-txn"
+)
+KP_CLOSE_PRE = fs.register_kill_point(
+    "close.pre-commit", "whole close applied, enclosing COMMIT not yet run"
+)
+KP_CLOSE_POST = fs.register_kill_point(
+    "close.post-commit", "close committed, publish kick + bucket GC not run"
+)
+
+
+class LedgerState(enum.Enum):
+    LM_BOOTING_STATE = 0
+    LM_SYNCED_STATE = 1
+    LM_CATCHING_UP_STATE = 2
+
+
+@dataclass
+class LastClosedLedger:
+    hash: bytes
+    header: LedgerHeader
+
+
+class LedgerManager:
+    def __init__(self, app):
+        self.app = app
+        self.database = app.database
+        self.state = LedgerState.LM_BOOTING_STATE
+        self.current: Optional[LedgerHeaderFrame] = None
+        self.last_closed: Optional[LastClosedLedger] = None
+        self._close_timer = app.metrics.new_timer(("ledger", "ledger", "close"))
+        self._flush_timer = app.metrics.new_timer(("ledger", "store", "flush"))
+        self._tx_apply_timer = app.metrics.new_timer(
+            ("ledger", "transaction", "apply")
+        )
+        self._tx_count_meter = app.metrics.new_meter(
+            ("ledger", "transaction", "count"), "tx"
+        )
+        # catchup buffering (LedgerManagerImpl.cpp:321-408)
+        self.syncing_ledgers: List = []
+
+    # -- parameters --------------------------------------------------------
+    def get_tx_fee(self) -> int:
+        return self.current.header.baseFee
+
+    def get_min_balance(self, owner_count: int) -> int:
+        return (2 + owner_count) * self.current.header.baseReserve
+
+    def get_max_tx_set_size(self) -> int:
+        return self.current.header.maxTxSetSize
+
+    def get_ledger_num(self) -> int:
+        return self.current.header.ledgerSeq
+
+    def get_last_closed_ledger_num(self) -> int:
+        return self.last_closed.header.ledgerSeq
+
+    def get_close_time(self) -> int:
+        return self.current.header.scpValue.closeTime
+
+    def get_current_ledger_header(self) -> LedgerHeader:
+        return self.current.header
+
+    def get_last_closed_ledger_header(self) -> LastClosedLedger:
+        return self.last_closed
+
+    def is_synced(self) -> bool:
+        return self.state == LedgerState.LM_SYNCED_STATE
+
+    # -- boot (LedgerManagerImpl.cpp:154-240) ------------------------------
+    def start_new_ledger(self) -> None:
+        """Genesis: master account funded with all coins, ledger 1."""
+        skey = SecretKey.from_seed(self.app.network_id)
+        master = AccountFrame(account_id=skey.get_public_key())
+        master.mut().balance = GENESIS_BALANCE
+
+        genesis = LedgerHeader(
+            ledgerVersion=0,
+            ledgerSeq=1,
+            baseFee=100,
+            baseReserve=100000000,
+            maxTxSetSize=100,
+            totalCoins=GENESIS_BALANCE,
+        )
+        self.current = LedgerHeaderFrame(genesis)
+        with self.database.transaction():
+            delta = LedgerDelta(genesis, self.database)
+            master.store_add(delta, self.database)
+            delta.commit()
+            log.info(
+                "Established genesis ledger; root account %s",
+                skey.get_strkey_public(),
+            )
+            self._close_ledger_helper(delta)
+        self.state = LedgerState.LM_SYNCED_STATE
+
+    def load_last_known_ledger(self) -> None:
+        from ..main.persistentstate import (
+            K_HISTORY_ARCHIVE_STATE,
+            K_LAST_CLOSED_LEDGER,
+            PersistentState,
+        )
+
+        ps = PersistentState(self.database)
+        last = ps.get_state(K_LAST_CLOSED_LEDGER)
+        if not last:
+            raise RuntimeError("No ledger in the DB")
+        frame = LedgerHeaderFrame.load_by_hash(self.database, bytes.fromhex(last))
+        if frame is None:
+            raise RuntimeError("Could not load ledger from database")
+        # restore the bucket list (incl. re-launching any in-progress
+        # merges) before anything recomputes the bucket hash
+        has = ps.get_state(K_HISTORY_ARCHIVE_STATE)
+        if has:
+            self._repair_missing_buckets(has)
+            self.app.bucket_manager.assume_state(has)
+            if self.app.bucket_manager.get_hash() != frame.header.bucketListHash:
+                raise RuntimeError("bucket list hash does not match resumed header")
+        self.current = frame
+        self._advance_ledger_pointers()
+        self.state = LedgerState.LM_SYNCED_STATE
+
+    def _repair_missing_buckets(self, state_json: str) -> None:
+        """Boot-time bucket repair: fetch bucket files named by the saved
+        archive state (or the publish queue) that are missing on disk from
+        a history archive before assuming the bucket list (reference:
+        LedgerManagerImpl.cpp:233-247 -> downloadMissingBuckets)."""
+        from ..history.archive import HistoryArchiveState
+
+        bm = self.app.bucket_manager
+        hm = self.app.history_manager
+        missing = bm.check_for_missing_bucket_files(
+            HistoryArchiveState.from_json(state_json)
+        )
+        for h in hm.missing_publish_queue_buckets():
+            if h not in missing:
+                missing.append(h)
+        if not missing:
+            return
+        log.warning(
+            "%d bucket file(s) missing from the bucket dir; attempting to"
+            " recover from the history store",
+            len(missing),
+        )
+        if not hm.has_readable_archives:
+            raise RuntimeError(
+                "bucket files missing and no readable history archives"
+                " configured"
+            )
+        result = {}
+        hm.download_missing_buckets(
+            state_json, lambda ok: result.update(ok=ok)
+        )
+        # boot is synchronous: crank the (not-yet-running) clock until the
+        # repair's subprocess pipeline completes.  The cap scales with how
+        # much there is to fetch — a slow-but-progressing archive download
+        # must not abort boot just because many buckets are missing (the
+        # reference runs downloadMissingBuckets with per-file retries and
+        # no global cap).
+        timeout = max(300.0, 120.0 * len(missing))
+        self.app.clock.crank_until(lambda: "ok" in result, timeout=timeout)
+        if not result.get("ok"):
+            raise RuntimeError(
+                f"bucket repair from history archives failed or timed out "
+                f"after {timeout:.0f}s ({len(missing)} bucket(s) requested, "
+                f"completion {'reported failure' if 'ok' in result else 'never reported'})"
+            )
+
+    # -- externalize path (LedgerManagerImpl.cpp:321-408) ------------------
+    def _close_pipeline(self):
+        """The close-pipeline scheduler, or None when the knob is off —
+        callers fall back to the reference-style inline close."""
+        if not getattr(self.app.config, "CLOSE_PIPELINE", True):
+            return None
+        return getattr(self.app, "close_pipeline", None)
+
+    def _close_externalized(self, ledger_data) -> None:
+        """One externalized ledger's close + the post-close notifications
+        (shared by the inline path and the pipeline drain)."""
+        self.close_ledger(ledger_data)
+        if self.state == LedgerState.LM_BOOTING_STATE:
+            # a failed catchup round left us unsynced, but the network
+            # delivered the next ledger in order after all
+            self.state = LedgerState.LM_SYNCED_STATE
+        self.app.herder_notify_ledger_closed()
+
+    def hold_pipeline_drains(self) -> None:
+        """Defer pipelined closes until the matching release — the herder
+        brackets its SCP-queue sweep with this pair so a run of
+        externalizable slots (healed partition replay, post-flood burst)
+        enqueues whole and closes as one pipelined backlog."""
+        pipe = self._close_pipeline()
+        if pipe is not None:
+            pipe.hold()
+
+    def release_pipeline_drains(self) -> None:
+        pipe = self._close_pipeline()
+        if pipe is not None and pipe.release():
+            pipe.drain(self._close_externalized)
+
+    def externalize_value(self, ledger_data) -> None:
+        if self.state == LedgerState.LM_CATCHING_UP_STATE:
+            # keep buffering while the catchup FSM runs (:389-399)
+            self.syncing_ledgers.append(ledger_data)
+            return
+        pipe = self._close_pipeline()
+        # with the pipeline on, externalized ledgers may be queued but not
+        # yet closed: "next" means next after the queue's tail, and those
+        # extra sequences enqueue instead of looking like a gap — the
+        # drain below closes them in order, prewarming N+1's signatures
+        # while N applies (closepipeline.py)
+        queued = pipe.queued_count() if pipe is not None else 0
+        next_seq = self.last_closed.header.ledgerSeq + 1 + queued
+        if ledger_data.ledger_seq == next_seq:
+            if pipe is not None:
+                pipe.enqueue(ledger_data)
+                pipe.drain(self._close_externalized)
+            else:
+                self._close_externalized(ledger_data)
+        elif ledger_data.ledger_seq < next_seq:
+            log.debug("skipping old ledger %d", ledger_data.ledger_seq)
+        else:
+            # gap: buffer and catch up (SURVEY §3.4)
+            log.info(
+                "gap detected: have %d got %d — buffering + catchup",
+                self.last_closed.header.ledgerSeq,
+                ledger_data.ledger_seq,
+            )
+            self.syncing_ledgers.append(ledger_data)
+            self.start_catchup()
+
+    def start_catchup(self, mode: Optional[str] = None) -> None:
+        pipe = self._close_pipeline()
+        if pipe is not None:
+            # catchup interrupt: in-flight prewarm futures quarantine (the
+            # cache must not keep verdicts from a plane that just forked)
+            # and queued-but-unclosed ledgers move into the catchup buffer
+            self.syncing_ledgers.extend(pipe.interrupt())
+        self.state = LedgerState.LM_CATCHING_UP_STATE
+        self.app.request_catchup()
+        self.app.history_manager.catchup_history(mode=mode)
+
+    def catchup_finished(self, ok: bool, anchor_lhe) -> None:
+        """CatchupStateMachine completion (LedgerManagerImpl::historyCaughtup)."""
+        if not ok:
+            log.error("catchup failed; will retry on next externalize gap")
+            self.state = LedgerState.LM_BOOTING_STATE
+            # drop buffered ledgers we can no longer use; keep future ones
+            self.syncing_ledgers = [
+                ld
+                for ld in self.syncing_ledgers
+                if ld.ledger_seq > self.last_closed.header.ledgerSeq
+            ]
+            return
+        if anchor_lhe.header.ledgerSeq > self.last_closed.header.ledgerSeq:
+            # catchup-minimal: jump the LCL to the anchor header
+            self._adopt_anchor_header(anchor_lhe)
+        self.history_caught_up()
+
+    def _adopt_anchor_header(self, lhe) -> None:
+        from ..main.persistentstate import (
+            K_HISTORY_ARCHIVE_STATE,
+            K_LAST_CLOSED_LEDGER,
+            PersistentState,
+        )
+
+        frame = LedgerHeaderFrame(lhe.header)
+        if frame.get_hash() != lhe.hash:
+            raise RuntimeError("anchor header hash mismatch")
+        if self.app.bucket_manager.get_hash() != lhe.header.bucketListHash:
+            raise RuntimeError("anchor bucket list hash mismatch")
+        with self.database.transaction():
+            frame.store_insert(self.database)
+            ps = PersistentState(self.database)
+            ps.set_state(K_LAST_CLOSED_LEDGER, lhe.hash.hex())
+            ps.set_state(
+                K_HISTORY_ARCHIVE_STATE,
+                self.app.bucket_manager.archive_state_json(lhe.header.ledgerSeq),
+            )
+        self.current = frame
+        self._advance_ledger_pointers()
+        log.info("caught up (minimal) to ledger %d", lhe.header.ledgerSeq)
+
+    def history_caught_up(self) -> None:
+        """Replay any buffered ledgers then flip to synced."""
+        self.state = LedgerState.LM_SYNCED_STATE
+        buffered = sorted(self.syncing_ledgers, key=lambda l: l.ledger_seq)
+        self.syncing_ledgers.clear()
+        still_ahead = []
+        pipe = self._close_pipeline()
+        if pipe is not None:
+            # the replay backlog is THE pipelined-close shape: enqueue the
+            # whole contiguous run first, then drain — while ledger N
+            # applies, N+1's signature flush verifies on a worker
+            expected = self.last_closed.header.ledgerSeq + 1
+            for ld in buffered:
+                if ld.ledger_seq == expected:
+                    pipe.enqueue(ld)
+                    expected += 1
+                elif ld.ledger_seq >= expected:
+                    still_ahead.append(ld)
+            # close_ledger (not _close_externalized): the replay notifies
+            # the herder ONCE at the end, matching the inline path below
+            pipe.drain(self.close_ledger)
+        else:
+            for ld in buffered:
+                if ld.ledger_seq == self.last_closed.header.ledgerSeq + 1:
+                    self.close_ledger(ld)
+                elif ld.ledger_seq > self.last_closed.header.ledgerSeq:
+                    still_ahead.append(ld)
+        if still_ahead:
+            # network moved past the archive anchor while we fetched:
+            # go around again (reference restarts the catchup round)
+            self.syncing_ledgers.extend(still_ahead)
+            self.start_catchup()
+            return
+        # drain any checkpoints the replay queued, now that we're synced
+        self.app.clock.post(self.app.history_manager.publish_queued_history)
+        self.app.herder_notify_ledger_closed()
+
+    # -- THE close (LedgerManagerImpl.cpp:612-741) -------------------------
+    def close_ledger(self, ledger_data) -> None:
+        tracer = self.app.tracer
+        close_sp = tracer.begin(
+            "ledger.close",
+            seq=ledger_data.ledger_seq,
+            txs=ledger_data.tx_set.size(),
+        )
+        # phase 1 of the close trace: the txset's linkage + contents-hash
+        # audit (the expensive signature validation traces separately as
+        # txset.validate / sig.flush wherever check_valid runs)
+        with tracer.span("close.txset_validate", txs=ledger_data.tx_set.size()):
+            if ledger_data.tx_set.previous_ledger_hash != self.last_closed.hash:
+                raise RuntimeError("txset mismatch: wrong previous ledger hash")
+            if (
+                ledger_data.tx_set.get_contents_hash()
+                != ledger_data.value.txSetHash
+            ):
+                raise RuntimeError("corrupt transaction set")
+
+        try:
+            self._close_ledger_txn(ledger_data)
+            tracer.end(close_sp)
+        except BaseException:
+            # the enclosing SQL transaction rolled back, but the decoded
+            # -entry cache may hold post-apply values from the aborted
+            # close — drop it wholesale so any retry/catchup reloads
+            # committed state (failure-path perf is irrelevant)
+            cache = getattr(self.database, "_entry_cache", None)
+            if cache is not None:
+                cache.clear()
+            # and any in-flight pipelined sig flushes dispatched by this
+            # (now aborted) close quarantine: their verdicts must never
+            # latch into — or remain in — the shared verify cache
+            pipe = self._close_pipeline()
+            if pipe is not None:
+                pipe.abort_inflight()
+            raise
+
+    def _close_ledger_txn(self, ledger_data) -> None:
+        tracer = self.app.tracer
+        commit_sp = None
+        with self._close_timer.time_scope(), self.database.transaction():
+            sv = ledger_data.value
+            self.current.header.scpValue = sv
+            self.current.invalidate_hash()
+            # invariant baseline: header totals (+ the all-on-mode balance
+            # sum) BEFORE fee processing or any close write — direct-apply
+            # test helpers mutate the working header and SQL rows between
+            # closes, so the last CLOSED header is the wrong zero point
+            invariants = getattr(self.app, "invariants", None)
+            inv_baseline = (
+                invariants.close_baseline(self.database, self.current.header)
+                if invariants is not None
+                else None
+            )
+            ledger_delta = LedgerDelta(self.current.header, self.database)
+
+            txs = ledger_data.tx_set.sort_for_apply()
+            # bulk-load every account the set touches into the entry cache
+            # (chunked IN() selects) BEFORE the signature prewarm collects
+            # its triples — both it and apply then run on a warm cache
+            from .accountframe import AccountFrame
+            from .framecontext import frame_context_of
+            from .storebuffer import store_buffer_of
+
+            AccountFrame.bulk_warm_cache(
+                self.database, ledger_data.tx_set.collect_account_ids()
+            )
+            # write-back store buffer: entry mutations accumulate in an
+            # overlay (reads see through it) and flush as batched SQL
+            # before the PARANOID audit, instead of ~8 statements per tx.
+            # Must activate while only the close's outer transaction is
+            # open — savepoint marks pair with savepoints opened after
+            buf = (
+                store_buffer_of(self.database)
+                if self.app.config.ENTRY_WRITE_BUFFER
+                else None
+            )
+            if buf is not None:
+                buf.activate()
+            # close-scoped frame identity map: ONE AccountFrame per touched
+            # account across fee charging/validity/apply (framecontext.py).
+            # Activates at the same point as the buffer for the same
+            # reason: its savepoint marks pair with savepoints opened after
+            fctx = (
+                frame_context_of(self.database)
+                if getattr(self.app.config, "FRAME_CONTEXT", True)
+                else None
+            )
+            if fctx is not None:
+                fctx.activate()
+            try:
+                # pre-warm the verify cache for the whole set in one batch,
+                # overlapped with fee processing (signature checks only
+                # start at apply, after the join) — at apply every check hits.
+                # With the close pipeline, the join point is the TOP of the
+                # close: if the previous ledger's apply already hid this
+                # set's verify (closepipeline.py), close.sig_flush shrinks
+                # to the join wait — the close's true residual sig cost.
+                # Otherwise the sig_flush span covers prewarm start → join
+                # with close.fees nested, so fees show how much it hid.
+                pipe = self._close_pipeline()
+                sig_sp = tracer.begin("close.sig_flush", txs=len(txs))
+                pipelined = (
+                    pipe.join_prewarm(ledger_data.tx_set, tracer)
+                    if pipe is not None
+                    else False
+                )
+                if pipelined:
+                    tracer.end(sig_sp, pipelined=True)
+                    with tracer.span("close.fees", txs=len(txs)):
+                        self._process_fees_seq_nums(txs, ledger_delta)
+                else:
+                    join_prewarm = (
+                        ledger_data.tx_set.prewarm_signature_cache_async(
+                            self.app
+                        )
+                    )
+                    with tracer.span("close.fees", txs=len(txs)):
+                        self._process_fees_seq_nums(txs, ledger_delta)
+                    join_prewarm()
+                    tracer.end(sig_sp, pipelined=False)
+
+                # stage + dispatch the NEXT externalized txset's signature
+                # flush (and the overlay's pending SCP envelope batch)
+                # before apply starts: the verify runs on a worker while
+                # this ledger applies, and N+1's close joins it at its top
+                if pipe is not None:
+                    pipe.dispatch_ahead(tracer)
+
+                with tracer.span("close.apply", txs=len(txs)):
+                    tx_result_set = TransactionResultSet([])
+                    self._apply_transactions(txs, ledger_delta, tx_result_set)
+                    ledger_delta.header.txSetResultHash = sha256(
+                        tx_result_set.to_xdr()
+                    )
+
+                # consensus upgrades apply after the txset (validated before)
+                for raw in sv.upgrades:
+                    up = LedgerUpgrade.from_xdr(raw)
+                    h = ledger_delta.header
+                    if up.type == LedgerUpgradeType.LEDGER_UPGRADE_VERSION:
+                        h.ledgerVersion = up.value
+                    elif up.type == LedgerUpgradeType.LEDGER_UPGRADE_BASE_FEE:
+                        h.baseFee = up.value
+                    elif up.type == LedgerUpgradeType.LEDGER_UPGRADE_MAX_TX_SET_SIZE:
+                        h.maxTxSetSize = up.value
+                    else:
+                        raise RuntimeError(f"Unknown upgrade type {up.type}")
+
+                # phase 4: everything that makes the close durable — store
+                # -buffer flush, audit, delta commit, bucket add + header
+                # store + LCL pointers, and the enclosing SQL COMMIT (the
+                # span ends OUTSIDE the transaction block so fsync-dominated
+                # closes attribute that cost here, not to no phase)
+                commit_sp = tracer.begin("close.commit")
+                if buf is not None:
+                    with self._flush_timer.time_scope():
+                        buf.flush(self.database)
+            finally:
+                # success: overlay already flushed (deactivate clears
+                # nothing); exception: the enclosing SQL ROLLBACK drops the
+                # close and the pending writes are dropped with it
+                if buf is not None:
+                    buf.deactivate()
+                # the identity map dies with the close — BEFORE the
+                # PARANOID audit below, whose fresh loads must hit the
+                # DB, never a mapped frame
+                if fctx is not None:
+                    fctx.deactivate()
+
+            # the delta-vs-database audit runs against the flushed rows —
+            # the same safety net that guarded write-through guards the
+            # batched flush
+            if self.app.config.PARANOID_MODE:
+                ledger_delta.check_against_database(self.database)
+
+            # ledger-invariant plane (stellar_tpu/invariant/): checks run
+            # against the flushed rows + delta + entry cache while the SQL
+            # transaction is still open, so a violation under the `raise`
+            # fail policy aborts the close (ROLLBACK + wholesale cache
+            # clear in close_ledger) instead of persisting a forked ledger
+            if invariants is not None:
+                invariants.check_close(
+                    ledger_delta, self.database, inv_baseline, txs
+                )
+
+            ledger_delta.commit()
+            self.current.invalidate_hash()
+            self._close_ledger_helper(ledger_delta)
+
+            # queue any checkpoint inside this SQL transaction (crash-safe)
+            self.app.history_manager.maybe_queue_history_checkpoint()
+            fs.kill_point(KP_CLOSE_PRE, ctx=self.database)
+        fs.kill_point(KP_CLOSE_POST, ctx=self.database)
+        tracer.end(
+            commit_sp,
+            live=len(ledger_delta.get_live_entries()),
+            dead=len(ledger_delta.get_dead_entries()),
+        )
+
+        # outside the transaction: kick publishing + bucket GC
+        self.app.history_manager.publish_queued_history()
+        self.app.bucket_manager.forget_unreferenced_buckets()
+
+    def _process_fees_seq_nums(self, txs, delta) -> None:
+        from ..tx import history as tx_history
+
+        rows = []
+        seq = self.current.header.ledgerSeq
+        with self.database.transaction():
+            for index, tx in enumerate(txs, start=1):
+                this_tx_delta = LedgerDelta(outer=delta)
+                tx.process_fee_seq_num(this_tx_delta, self)
+                rows.append(
+                    tx.fee_history_row(seq, index, this_tx_delta.get_changes())
+                )
+                this_tx_delta.commit()
+            # direct SQL write inside a (possibly savepoint-less) buffered
+            # scope: give the scope a real savepoint first so a failure
+            # after this point can still unwind the rows
+            self.database.materialize_savepoints()
+            tx_history.insert_fee_rows(self.database, rows)
+
+    def _apply_transactions(self, txs, ledger_delta, tx_result_set) -> None:
+        from ..tx import history as tx_history
+        from ..xdr.txs import TransactionResultCode
+
+        if self.app.config.PARALLEL_APPLY:
+            from .applysched import apply_scheduler_of
+
+            # conflict-partitioned parallel apply; False means the set was
+            # not touched (CONFLICTING classification, too few groups, or
+            # a footprint escape) and the serial loop below is the truth
+            if apply_scheduler_of(self).apply(txs, ledger_delta, tx_result_set):
+                return
+
+        rows = []
+        seq = self.current.header.ledgerSeq
+        for index, tx in enumerate(txs, start=1):
+            with self._tx_apply_timer.time_scope():
+                delta = LedgerDelta(outer=ledger_delta)
+                meta = TransactionMeta(0, [])
+                try:
+                    if tx.apply(delta, self.app, meta):
+                        delta.commit()
+                    else:
+                        assert not delta.get_changes()
+                except UnrollbackableWrite:
+                    # the SQL plane could not be unwound for this tx — DB
+                    # state is unknown; the close MUST abort (close_ledger
+                    # clears the entry cache and re-raises), a
+                    # txINTERNAL_ERROR continue would commit corrupt rows
+                    raise
+                except Exception as e:  # tx must never take down the close
+                    log.error("exception during tx apply: %s", e)
+                    tx.set_result_code(TransactionResultCode.txINTERNAL_ERROR)
+            self._tx_count_meter.mark()
+            tx_result_set.results.append(tx.get_result_pair())
+            rows.append(tx.history_row(seq, index, meta))
+        tx_history.insert_transaction_rows(self.database, rows)
+
+    def _close_ledger_helper(self, delta) -> None:
+        """BucketList add + header store + LCL pointers
+        (LedgerManagerImpl.cpp:891-...)."""
+        from ..main.persistentstate import (
+            K_HISTORY_ARCHIVE_STATE,
+            K_LAST_CLOSED_LEDGER,
+            PersistentState,
+        )
+
+        self.app.bucket_manager.add_batch(
+            self.current.header.ledgerSeq,
+            delta.get_live_entries(),
+            delta.get_dead_entries(),
+        )
+        # bucketListHash + skipList rotation (BucketManagerImpl.cpp:300-331)
+        self.app.bucket_manager.snapshot_ledger(self.current.header)
+        self.current.invalidate_hash()
+        self.current.store_insert(self.database)
+        fs.kill_point(KP_CLOSE_HEADER, ctx=self.database)
+        ps = PersistentState(self.database)
+        ps.set_state(K_LAST_CLOSED_LEDGER, self.current.get_hash().hex())
+        ps.set_state(
+            K_HISTORY_ARCHIVE_STATE, self.app.bucket_manager.archive_state_json(
+                self.current.header.ledgerSeq
+            )
+        )
+        fs.kill_point(KP_CLOSE_LCL, ctx=self.database)
+        self._advance_ledger_pointers()
+
+    def _advance_ledger_pointers(self) -> None:
+        self.last_closed = LastClosedLedger(
+            self.current.get_hash(),
+            xdr_copy(self.current.header),
+        )
+        self.current = LedgerHeaderFrame.from_previous(self.current)
+
+    @staticmethod
+    def delete_old_entries(db, ledger_seq: int) -> None:
+        from ..tx import history as tx_history
+
+        LedgerHeaderFrame.delete_old_entries(db, ledger_seq)
+        tx_history.delete_old_entries(db, ledger_seq)

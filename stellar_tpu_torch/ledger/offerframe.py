@@ -1,0 +1,319 @@
+"""OfferFrame: offers table + order-book queries (reference: src/ledger/OfferFrame.*)."""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+from ..crypto import strkey
+from ..xdr.entries import (
+    Asset,
+    LedgerEntry,
+    LedgerEntryData,
+    LedgerEntryType,
+    OfferEntry,
+    OfferEntryFlags,
+    Price,
+    PublicKey,
+)
+from ..xdr.base import xdr_copy
+from ..xdr.ledger import LedgerKey, LedgerKeyOffer
+from .entryframe import EntryFrame, key_bytes
+from .storebuffer import active_buffer
+from .trustframe import asset_from_cols, asset_to_cols
+
+
+def _aid(pk: PublicKey) -> str:
+    return strkey.to_account_strkey(pk.value)
+
+
+def _from_aid(s: str) -> PublicKey:
+    return PublicKey.from_ed25519(strkey.from_account_strkey(s))
+
+
+class OfferFrame(EntryFrame):
+    entry_type = LedgerEntryType.OFFER
+
+    def __init__(self, entry: LedgerEntry):
+        self.offer: OfferEntry = entry.data.value
+        super().__init__(entry)
+
+    @classmethod
+    def from_manage_op(cls, seller: PublicKey, op) -> "OfferFrame":
+        """Build the offer entry a ManageOffer op would create
+        (OfferFrame::loadOffer-from-op pattern)."""
+        oe = OfferEntry(
+            sellerID=seller,
+            offerID=op.offerID,
+            selling=op.selling,
+            buying=op.buying,
+            amount=op.amount,
+            price=op.price,
+            flags=0,
+            ext=0,
+        )
+        return cls(LedgerEntry(0, LedgerEntryData(LedgerEntryType.OFFER, oe), 0))
+
+    def _compute_key(self) -> LedgerKey:
+        return LedgerKey(
+            LedgerEntryType.OFFER,
+            LedgerKeyOffer(self.offer.sellerID, self.offer.offerID),
+        )
+
+    def _rebind_entry(self) -> None:
+        self.offer = self.entry.data.value
+
+    def get_price(self) -> Price:
+        return self.offer.price
+
+    def get_amount(self) -> int:
+        return self.offer.amount
+
+    def get_seller_id(self) -> PublicKey:
+        return self.offer.sellerID
+
+    def get_offer_id(self) -> int:
+        return self.offer.offerID
+
+    # -- SQL ---------------------------------------------------------------
+    @staticmethod
+    def drop_all(db) -> None:
+        db.execute("DROP TABLE IF EXISTS offers")
+        db.execute(
+            """CREATE TABLE offers (
+                sellerid         VARCHAR(56) NOT NULL,
+                offerid          BIGINT NOT NULL CHECK (offerid >= 0),
+                sellingassettype INT NOT NULL,
+                sellingassetcode VARCHAR(12),
+                sellingissuer    VARCHAR(56),
+                buyingassettype  INT NOT NULL,
+                buyingassetcode  VARCHAR(12),
+                buyingissuer     VARCHAR(56),
+                amount           BIGINT NOT NULL CHECK (amount >= 0),
+                pricen           INT NOT NULL,
+                priced           INT NOT NULL,
+                price            DOUBLE PRECISION NOT NULL,
+                flags            INT NOT NULL,
+                lastmodified     INT NOT NULL,
+                PRIMARY KEY (offerid)
+            )"""
+        )
+        db.execute("CREATE INDEX sellingissuerindex ON offers (sellingissuer)")
+        db.execute("CREATE INDEX buyingissuerindex ON offers (buyingissuer)")
+        db.execute("CREATE INDEX priceindex ON offers (price)")
+
+    @classmethod
+    def _row_to_frame(cls, row) -> "OfferFrame":
+        (
+            sellerid,
+            offerid,
+            satype,
+            sacode,
+            saissuer,
+            batype,
+            bacode,
+            baissuer,
+            amount,
+            pricen,
+            priced,
+            _price,
+            flags,
+            lastmod,
+        ) = row
+        oe = OfferEntry(
+            sellerID=_from_aid(sellerid),
+            offerID=offerid,
+            selling=asset_from_cols(satype, saissuer, sacode),
+            buying=asset_from_cols(batype, baissuer, bacode),
+            amount=amount,
+            price=Price(pricen, priced),
+            flags=flags,
+            ext=0,
+        )
+        return cls(LedgerEntry(lastmod, LedgerEntryData(LedgerEntryType.OFFER, oe), 0))
+
+    _COLS = (
+        "sellerid, offerid, sellingassettype, sellingassetcode, sellingissuer,"
+        " buyingassettype, buyingassetcode, buyingissuer, amount, pricen,"
+        " priced, price, flags, lastmodified"
+    )
+
+    @classmethod
+    def load_offer(
+        cls, seller: PublicKey, offer_id: int, db
+    ) -> Optional["OfferFrame"]:
+        key = LedgerKey(LedgerEntryType.OFFER, LedgerKeyOffer(seller, offer_id))
+        hit, cached = cls.cache_of(db).get(key.to_xdr())
+        if hit:
+            return cls(cached) if cached else None
+        buf = active_buffer(db)
+        if buf is not None:
+            hit, pending = buf.get(key_bytes(key))
+            if hit:
+                return cls(xdr_copy(pending)) if pending is not None else None
+        with db.timed("select", "offer"):
+            row = db.query_one(
+                f"SELECT {cls._COLS} FROM offers WHERE sellerid=? AND offerid=?",
+                (_aid(seller), offer_id),
+            )
+        if row is None:
+            cls.store_in_cache(db, key, None)
+            return None
+        frame = cls._row_to_frame(row)
+        cls.store_in_cache(db, key, frame.entry)
+        return frame
+
+    @classmethod
+    def load_best_offers(
+        cls, num: int, offset: int, selling: Asset, buying: Asset, db
+    ) -> List["OfferFrame"]:
+        """Offers selling `selling` for `buying`, cheapest first
+        (OfferFrame::loadBestOffers; order by price then offerid for
+        determinism — consensus-critical!)."""
+        satype, saissuer, sacode = asset_to_cols(selling)
+        batype, baissuer, bacode = asset_to_cols(buying)
+        cond_s = (
+            "sellingassettype=?"
+            if selling.is_native()
+            else "sellingassettype=? AND sellingissuer=? AND sellingassetcode=?"
+        )
+        cond_b = (
+            "buyingassettype=?"
+            if buying.is_native()
+            else "buyingassettype=? AND buyingissuer=? AND buyingassetcode=?"
+        )
+        params: list = [satype] if selling.is_native() else [satype, saissuer, sacode]
+        params += [batype] if buying.is_native() else [batype, baissuer, bacode]
+
+        buf = active_buffer(db)
+        touched = None
+        if buf is not None:
+            pending_entries, touched = buf.pending_offers()
+        if not touched:
+            with db.timed("select", "offer"):
+                rows = db.query_all(
+                    f"SELECT {cls._COLS} FROM offers WHERE {cond_s} AND {cond_b} "
+                    "ORDER BY price, offerid LIMIT ? OFFSET ?",
+                    params + [num, offset],
+                )
+            return [cls._row_to_frame(r) for r in rows]
+
+        # overlay merge: the buffer is authoritative for every touched
+        # offerid, so drop those rows from the SQL scan and splice the
+        # pending upserts in.  Over-fetch by len(touched) so the merged
+        # window [offset, offset+num) is still fully covered after the
+        # exclusions (OfferExchange pages with a cursor offset that
+        # assumes crossed offers vanish — with buffered deletes they
+        # vanish from the merged view instead of the table).
+        with db.timed("select", "offer"):
+            rows = db.query_all(
+                f"SELECT {cls._COLS} FROM offers WHERE {cond_s} AND {cond_b} "
+                "ORDER BY price, offerid LIMIT ?",
+                params + [offset + num + len(touched)],
+            )
+        # the SQL sort key is (price DOUBLE, offerid) where price was
+        # computed as n/d in Python at write time (_sql_row) — recomputing
+        # it for pending entries gives the identical IEEE double, so the
+        # merged order matches what the write-through table scan would
+        # have returned (consensus-critical).  Sort raw and slice BEFORE
+        # decoding: only the <=num surviving rows pay _row_to_frame, not
+        # the whole offset+num+touched over-fetch on every cursor page.
+        merged = [((r[11], r[1]), r, None) for r in rows if r[1] not in touched]
+        for e in pending_entries:
+            o = e.data.value
+            if o.selling == selling and o.buying == buying:
+                merged.append(((o.price.n / o.price.d, o.offerID), None, e))
+        merged.sort(key=lambda t: t[0])
+        return [
+            cls._row_to_frame(r) if r is not None else cls(xdr_copy(e))
+            for _, r, e in merged[offset : offset + num]
+        ]
+
+    @classmethod
+    def exists(cls, db, key: LedgerKey) -> bool:
+        buf = active_buffer(db)
+        if buf is not None:
+            hit, pending = buf.get(key_bytes(key))
+            if hit:
+                return pending is not None
+        return (
+            db.query_one(
+                "SELECT 1 FROM offers WHERE sellerid=? AND offerid=?",
+                (_aid(key.value.sellerID), key.value.offerID),
+            )
+            is not None
+        )
+
+    @staticmethod
+    def _sql_row(o, lastmod: int):
+        """The one offers-row serialization, in _COLS order — shared by
+        _persist and the store-buffer's batched upsert so the two write
+        modes can never drift.  The `price` double (n/d in Python) is the
+        SQL ORDER BY key, so it must come from exactly one place."""
+        satype, saissuer, sacode = asset_to_cols(o.selling)
+        batype, baissuer, bacode = asset_to_cols(o.buying)
+        return (
+            _aid(o.sellerID), o.offerID, satype, sacode, saissuer,
+            batype, bacode, baissuer, o.amount, o.price.n, o.price.d,
+            o.price.n / o.price.d, o.flags, lastmod,
+        )
+
+    def _persist(self, db, insert: bool) -> None:
+        row = self._sql_row(self.offer, self.last_modified)
+        if insert:
+            with db.timed("insert", "offer"):
+                db.execute(
+                    f"""INSERT INTO offers ({self._COLS})
+                        VALUES (?,?,?,?,?,?,?,?,?,?,?,?,?,?)""",
+                    row,
+                )
+        else:
+            # every mutable column, assets included — ManageOffer update may
+            # swap selling/buying (OfferFrame.cpp:508-512 does the same)
+            with db.timed("update", "offer"):
+                db.execute(
+                    """UPDATE offers SET sellingassettype=?,
+                       sellingassetcode=?, sellingissuer=?, buyingassettype=?,
+                       buyingassetcode=?, buyingissuer=?, amount=?, pricen=?,
+                       priced=?, price=?, flags=?, lastmodified=?
+                       WHERE offerid=?""",
+                    row[2:] + (row[1],),
+                )
+
+    def store_delete(self, delta, db) -> None:
+        self._assert_mutable()
+        if not self._buffered_delete(db, self.get_key()):
+            with db.timed("delete", "offer"):
+                db.execute(
+                    "DELETE FROM offers WHERE offerid=?", (self.offer.offerID,)
+                )
+        delta.delete_entry_frame(self)
+        self.store_in_cache(db, self.get_key(), None)
+
+    @classmethod
+    def store_delete_by_key(cls, delta, db, key) -> None:
+        if not cls._buffered_delete(db, key):
+            db.execute("DELETE FROM offers WHERE offerid=?", (key.value.offerID,))
+        delta.delete_entry(key)
+        cls.store_in_cache(db, key, None)
+
+    # -- store-buffer flush (ledger/storebuffer.py) ------------------------
+    @classmethod
+    def upsert_batch(cls, db, entries) -> None:
+        rows = [
+            cls._sql_row(e.data.value, e.lastModifiedLedgerSeq)
+            for e in entries
+        ]
+        with db.timed("flush", "offer"):
+            db.executemany(
+                f"INSERT OR REPLACE INTO offers ({cls._COLS})"
+                " VALUES (?,?,?,?,?,?,?,?,?,?,?,?,?,?)",
+                rows,
+            )
+
+    @classmethod
+    def delete_batch(cls, db, keys) -> None:
+        with db.timed("flush", "offer"):
+            db.executemany(
+                "DELETE FROM offers WHERE offerid=?",
+                [(k.value.offerID,) for k in keys],
+            )

@@ -1,0 +1,302 @@
+"""TrustFrame: trustlines table (reference: src/ledger/TrustFrame.*)."""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+from ..crypto import strkey
+from ..xdr.entries import (
+    Asset,
+    AssetType,
+    LedgerEntry,
+    LedgerEntryData,
+    LedgerEntryType,
+    PublicKey,
+    TrustLineEntry,
+    TrustLineFlags,
+)
+from ..xdr.base import xdr_copy
+from ..xdr.ledger import LedgerKey, LedgerKeyTrustLine
+from .entryframe import EntryFrame, key_bytes
+from .storebuffer import active_buffer
+
+
+def _aid(pk: PublicKey) -> str:
+    return strkey.to_account_strkey(pk.value)
+
+
+def _from_aid(s: str) -> PublicKey:
+    return PublicKey.from_ed25519(strkey.from_account_strkey(s))
+
+
+def asset_to_cols(asset: Asset) -> Tuple[int, Optional[str], Optional[str]]:
+    """(assettype, issuer_strkey, code_text)."""
+    if asset.is_native():
+        return int(AssetType.ASSET_TYPE_NATIVE), None, None
+    code, issuer = asset.code_and_issuer()
+    return int(asset.type), _aid(issuer), code.rstrip(b"\x00").decode("ascii")
+
+
+def asset_from_cols(atype: int, issuer: Optional[str], code: Optional[str]) -> Asset:
+    t = AssetType(atype)
+    if t == AssetType.ASSET_TYPE_NATIVE:
+        return Asset.native()
+    issuer_pk = _from_aid(issuer)
+    raw = code.encode("ascii")
+    if t == AssetType.ASSET_TYPE_CREDIT_ALPHANUM4:
+        return Asset.alphanum4(raw, issuer_pk)
+    return Asset.alphanum12(raw, issuer_pk)
+
+
+from ..util.xmath import INT64_MAX
+
+
+class TrustFrame(EntryFrame):
+    entry_type = LedgerEntryType.TRUSTLINE
+
+    def __init__(self, entry: LedgerEntry, is_issuer: bool = False):
+        self.trust_line: TrustLineEntry = entry.data.value
+        self.is_issuer = is_issuer
+        super().__init__(entry)
+
+    @classmethod
+    def make(cls, account_id: PublicKey, asset: Asset) -> "TrustFrame":
+        tl = TrustLineEntry(
+            accountID=account_id, asset=asset, balance=0, limit=0, flags=0, ext=0
+        )
+        return cls(LedgerEntry(0, LedgerEntryData(LedgerEntryType.TRUSTLINE, tl), 0))
+
+    @classmethod
+    def make_issuer_frame(cls, asset: Asset) -> "TrustFrame":
+        """Synthetic authorized line for the asset's issuer: infinite balance
+        and limit, never persisted (TrustFrame::createIssuerFrame)."""
+        issuer = asset.code_and_issuer()[1]
+        tl = TrustLineEntry(
+            accountID=issuer,
+            asset=asset,
+            balance=INT64_MAX,
+            limit=INT64_MAX,
+            flags=int(TrustLineFlags.AUTHORIZED_FLAG),
+            ext=0,
+        )
+        return cls(
+            LedgerEntry(0, LedgerEntryData(LedgerEntryType.TRUSTLINE, tl), 0),
+            is_issuer=True,
+        )
+
+    def _compute_key(self) -> LedgerKey:
+        return LedgerKey(
+            LedgerEntryType.TRUSTLINE,
+            LedgerKeyTrustLine(self.trust_line.accountID, self.trust_line.asset),
+        )
+
+    def _rebind_entry(self) -> None:
+        self.trust_line = self.entry.data.value
+
+    # -- accessors ---------------------------------------------------------
+    def get_balance(self) -> int:
+        return self.trust_line.balance
+
+    def add_balance(self, delta: int) -> bool:
+        """TrustFrame::addBalance: issuer lines absorb anything; otherwise
+        requires authorization and respects [0, limit]."""
+        if self.is_issuer:
+            return True
+        if delta == 0:
+            return True
+        if not self.is_authorized():
+            return False
+        if self.trust_line.limit < delta + self.trust_line.balance:
+            return False
+        if self.trust_line.balance + delta < 0:
+            return False
+        self.mut().balance += delta
+        return True
+
+    def get_max_amount_receive(self) -> int:
+        if self.is_issuer:
+            return INT64_MAX
+        if self.is_authorized():
+            return self.trust_line.limit - self.trust_line.balance
+        return 0
+
+    def is_authorized(self) -> bool:
+        return bool(self.trust_line.flags & TrustLineFlags.AUTHORIZED_FLAG)
+
+    def set_authorized(self, authorized: bool) -> None:
+        if authorized:
+            self.mut().flags |= TrustLineFlags.AUTHORIZED_FLAG
+        else:
+            self.mut().flags &= ~TrustLineFlags.AUTHORIZED_FLAG
+
+    # -- SQL ---------------------------------------------------------------
+    @staticmethod
+    def drop_all(db) -> None:
+        db.execute("DROP TABLE IF EXISTS trustlines")
+        db.execute(
+            """CREATE TABLE trustlines (
+                accountid   VARCHAR(56) NOT NULL,
+                assettype   INT NOT NULL,
+                issuer      VARCHAR(56) NOT NULL,
+                assetcode   VARCHAR(12) NOT NULL,
+                tlimit      BIGINT NOT NULL CHECK (tlimit >= 0),
+                balance     BIGINT NOT NULL CHECK (balance >= 0),
+                flags       INT NOT NULL,
+                lastmodified INT NOT NULL,
+                PRIMARY KEY (accountid, issuer, assetcode)
+            )"""
+        )
+
+    @classmethod
+    def load_trust_line(
+        cls, account_id: PublicKey, asset: Asset, db
+    ) -> Optional["TrustFrame"]:
+        if asset.is_native():
+            raise ValueError("no trustlines for the native asset")
+        if account_id == asset.code_and_issuer()[1]:
+            return cls.make_issuer_frame(asset)
+        key = LedgerKey(
+            LedgerEntryType.TRUSTLINE, LedgerKeyTrustLine(account_id, asset)
+        )
+        hit, cached = cls.cache_of(db).get(key.to_xdr())
+        if hit:
+            return cls(cached) if cached else None
+        buf = active_buffer(db)
+        if buf is not None:
+            hit, pending = buf.get(key_bytes(key))
+            if hit:
+                return cls(xdr_copy(pending)) if pending is not None else None
+        _, issuer, code = asset_to_cols(asset)
+        with db.timed("select", "trust"):
+            row = db.query_one(
+                """SELECT tlimit, balance, flags, lastmodified FROM trustlines
+                   WHERE accountid=? AND issuer=? AND assetcode=?""",
+                (_aid(account_id), issuer, code),
+            )
+        if row is None:
+            cls.store_in_cache(db, key, None)
+            return None
+        tlimit, balance, flags, lastmod = row
+        tl = TrustLineEntry(account_id, asset, balance, tlimit, flags, 0)
+        entry = LedgerEntry(lastmod, LedgerEntryData(LedgerEntryType.TRUSTLINE, tl), 0)
+        cls.store_in_cache(db, key, entry)
+        return cls(entry)
+
+    @classmethod
+    def exists(cls, db, key: LedgerKey) -> bool:
+        buf = active_buffer(db)
+        if buf is not None:
+            hit, pending = buf.get(key_bytes(key))
+            if hit:
+                return pending is not None
+        _, issuer, code = asset_to_cols(key.value.asset)
+        return (
+            db.query_one(
+                "SELECT 1 FROM trustlines WHERE accountid=? AND issuer=? AND assetcode=?",
+                (_aid(key.value.accountID), issuer, code),
+            )
+            is not None
+        )
+
+    @staticmethod
+    def _sql_row(tl, lastmod: int):
+        """The one trustlines-row serialization, in INSERT column order —
+        shared by _persist and the store-buffer's batched upsert so the
+        two write modes can never drift."""
+        atype, issuer, code = asset_to_cols(tl.asset)
+        return (
+            _aid(tl.accountID), atype, issuer, code,
+            tl.limit, tl.balance, tl.flags, lastmod,
+        )
+
+    def _persist(self, db, insert: bool) -> None:
+        aid, atype, issuer, code, tlimit, balance, flags, lastmod = (
+            self._sql_row(self.trust_line, self.last_modified)
+        )
+        if insert:
+            with db.timed("insert", "trust"):
+                db.execute(
+                    """INSERT INTO trustlines (accountid, assettype, issuer,
+                       assetcode, tlimit, balance, flags, lastmodified)
+                       VALUES (?,?,?,?,?,?,?,?)""",
+                    (aid, atype, issuer, code, tlimit, balance, flags, lastmod),
+                )
+        else:
+            with db.timed("update", "trust"):
+                db.execute(
+                    """UPDATE trustlines SET assettype=?, tlimit=?, balance=?,
+                       flags=?, lastmodified=?
+                       WHERE accountid=? AND issuer=? AND assetcode=?""",
+                    (atype, tlimit, balance, flags, lastmod, aid, issuer, code),
+                )
+
+    @classmethod
+    def load_trust_line_issuer(cls, account_id: PublicKey, asset: Asset, db):
+        """(trustline, issuer_account) pair (TrustFrame::loadTrustLineIssuer)."""
+        from .accountframe import AccountFrame
+
+        line = cls.load_trust_line(account_id, asset, db)
+        issuer = AccountFrame.load_account(asset.code_and_issuer()[1], db)
+        return line, issuer
+
+    def store_add(self, delta, db) -> None:
+        assert not self.is_issuer, "issuer frames are never persisted"
+        super().store_add(delta, db)
+
+    def store_change(self, delta, db) -> None:
+        if self.is_issuer:
+            return  # synthetic line: nothing to persist
+        super().store_change(delta, db)
+
+    def store_delete(self, delta, db) -> None:
+        self._assert_mutable()
+        assert not self.is_issuer
+        if not self._buffered_delete(db, self.get_key()):
+            tl = self.trust_line
+            _, issuer, code = asset_to_cols(tl.asset)
+            with db.timed("delete", "trust"):
+                db.execute(
+                    "DELETE FROM trustlines WHERE accountid=? AND issuer=? AND assetcode=?",
+                    (_aid(tl.accountID), issuer, code),
+                )
+        delta.delete_entry_frame(self)
+        self.store_in_cache(db, self.get_key(), None)
+
+    @classmethod
+    def store_delete_by_key(cls, delta, db, key) -> None:
+        if not cls._buffered_delete(db, key):
+            _, issuer, code = asset_to_cols(key.value.asset)
+            db.execute(
+                "DELETE FROM trustlines WHERE accountid=? AND issuer=? AND assetcode=?",
+                (_aid(key.value.accountID), issuer, code),
+            )
+        delta.delete_entry(key)
+        cls.store_in_cache(db, key, None)
+
+    # -- store-buffer flush (ledger/storebuffer.py) ------------------------
+    @classmethod
+    def upsert_batch(cls, db, entries) -> None:
+        rows = [
+            cls._sql_row(e.data.value, e.lastModifiedLedgerSeq)
+            for e in entries
+        ]
+        with db.timed("flush", "trust"):
+            db.executemany(
+                "INSERT OR REPLACE INTO trustlines (accountid, assettype,"
+                " issuer, assetcode, tlimit, balance, flags, lastmodified)"
+                " VALUES (?,?,?,?,?,?,?,?)",
+                rows,
+            )
+
+    @classmethod
+    def delete_batch(cls, db, keys) -> None:
+        rows = []
+        for k in keys:
+            _, issuer, code = asset_to_cols(k.value.asset)
+            rows.append((_aid(k.value.accountID), issuer, code))
+        with db.timed("flush", "trust"):
+            db.executemany(
+                "DELETE FROM trustlines WHERE accountid=? AND issuer=?"
+                " AND assetcode=?",
+                rows,
+            )

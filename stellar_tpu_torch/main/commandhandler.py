@@ -1,0 +1,538 @@
+"""CommandHandler — HTTP admin interface
+(reference: src/main/CommandHandler.{h,cpp}, routes at CommandHandler.cpp:62-92).
+
+A minimal HTTP/1.0 GET server running on the node's VirtualClock selector
+(same single-reactor model as the overlay).  Routes mirror the reference:
+/info /metrics /peers /scp /tx /manualclose /connect /ll /catchup
+/maintenance /dropcursor /setcursor /checkdb /logrotate /generateload
+/checkpoint /testacc /testtx.
+Submit transactions with ``/tx?blob=<hex XDR TransactionEnvelope>``.
+"""
+
+from __future__ import annotations
+
+import json
+import selectors
+import socket
+from typing import Callable, Dict, Optional
+from urllib.parse import parse_qsl, urlparse
+
+from ..util import xlog
+from ..xdr.base import xdr_to_opaque
+from ..xdr.txs import TransactionEnvelope
+
+log = xlog.logger("Overlay")
+
+MAX_REQUEST = 1 << 20
+
+
+class CommandHandler:
+    def __init__(self, app):
+        self.app = app
+        self.sock: Optional[socket.socket] = None
+        self._clients: set = set()
+        self._profiling_dir: Optional[str] = None
+        self._profiler = None  # the running torch.profiler.profile
+        self.routes: Dict[str, Callable[[dict], object]] = {
+            "info": self.handle_info,
+            "metrics": self.handle_metrics,
+            "peers": self.handle_peers,
+            "scp": self.handle_scp,
+            "tx": self.handle_tx,
+            "manualclose": self.handle_manual_close,
+            "connect": self.handle_connect,
+            "ll": self.handle_ll,
+            "catchup": self.handle_catchup,
+            "maintenance": self.handle_maintenance,
+            "dropcursor": self.handle_dropcursor,
+            "setcursor": self.handle_setcursor,
+            "checkpoint": self.handle_checkpoint,
+            "checkdb": self.handle_checkdb,
+            "generateload": self.handle_generateload,
+            "testacc": self.handle_testacc,
+            "testtx": self.handle_testtx,
+            "logrotate": self.handle_logrotate,
+            "profiler": self.handle_profiler,
+            "trace": self.handle_trace,
+            "invariants": self.handle_invariants,
+            "selfcheck": self.handle_selfcheck,
+            "ingest": self.handle_ingest,
+        }
+
+    # -- server plumbing ----------------------------------------------------
+    def start(self) -> None:
+        cfg = self.app.config
+        if cfg.HTTP_PORT == 0:
+            return
+        s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        s.setblocking(False)
+        host = "0.0.0.0" if cfg.PUBLIC_HTTP_PORT else "127.0.0.1"
+        try:
+            s.bind((host, cfg.HTTP_PORT))
+            s.listen(16)
+        except OSError as e:
+            log.warning("admin http could not listen on %d: %s", cfg.HTTP_PORT, e)
+            s.close()
+            return
+        self.sock = s
+        self.app.clock.watch(s, selectors.EVENT_READ, self._on_accept)
+        log.info("admin http listening on %s:%d", host, cfg.HTTP_PORT)
+
+    def stop(self) -> None:
+        if self.sock is not None:
+            self.app.clock.unwatch(self.sock)
+            try:
+                self.sock.close()
+            except OSError:
+                pass
+            self.sock = None
+        for conn in list(self._clients):
+            self._close_client(conn)
+
+    def _close_client(self, conn) -> None:
+        self._clients.discard(conn)
+        self.app.clock.unwatch(conn)
+        try:
+            conn.close()
+        except OSError:
+            pass
+
+    def _on_accept(self, _events) -> None:
+        while True:
+            try:
+                conn, _ = self.sock.accept()
+            except (BlockingIOError, OSError):
+                return
+            conn.setblocking(False)
+            self._clients.add(conn)
+            buf = bytearray()
+            # slow-loris guard: drop request-less connections after 10s
+            from ..util import VirtualTimer
+
+            deadline = VirtualTimer(self.app.clock)
+            deadline.expires_from_now(10.0)
+            deadline.async_wait(lambda: self._close_client(conn))
+
+            def on_io(events, conn=conn, buf=buf):
+                try:
+                    chunk = conn.recv(65536)
+                except (BlockingIOError, InterruptedError):
+                    return
+                except OSError:
+                    deadline.cancel()
+                    self._close_client(conn)
+                    return
+                if chunk:
+                    buf += chunk
+                if (not chunk) or b"\r\n\r\n" in buf or len(buf) > MAX_REQUEST:
+                    deadline.cancel()
+                    self.app.clock.unwatch(conn)
+                    self._respond(conn, bytes(buf))
+
+            self.app.clock.watch(conn, selectors.EVENT_READ, on_io)
+
+    def _respond(self, conn: socket.socket, raw: bytes) -> None:
+        status, body = 200, b""
+        try:
+            line = raw.split(b"\r\n", 1)[0].decode("latin-1")
+            parts = line.split(" ")
+            target = parts[1] if len(parts) >= 2 else "/"
+            body_obj = self.execute(target)
+            body = (
+                body_obj
+                if isinstance(body_obj, bytes)
+                else json.dumps(body_obj, indent=1).encode()
+            )
+        except KeyError:
+            status, body = 404, b'{"error": "unknown command"}'
+        except Exception as e:
+            log.warning("admin command failed: %s", e)
+            status, body = 500, json.dumps({"error": str(e)}).encode()
+        reason = {200: "OK", 404: "Not Found", 500: "Error"}[status]
+        hdr = (
+            f"HTTP/1.0 {status} {reason}\r\n"
+            f"Content-Type: application/json\r\n"
+            f"Content-Length: {len(body)}\r\n\r\n"
+        ).encode()
+        # drain through the selector; never block the reactor thread.  A
+        # client that stops reading would otherwise pin the fd + buffer
+        # forever, so the write phase gets its own deadline.
+        out = memoryview(hdr + body)
+        from ..util import VirtualTimer
+
+        write_deadline = VirtualTimer(self.app.clock)
+
+        def on_writable(_events, conn=conn):
+            nonlocal out
+            try:
+                n = conn.send(out)
+            except (BlockingIOError, InterruptedError):
+                return
+            except OSError:
+                write_deadline.cancel()
+                self._close_client(conn)
+                return
+            out = out[n:]
+            if not len(out):
+                write_deadline.cancel()
+                self._close_client(conn)
+
+        try:
+            n = conn.send(out)
+            out = out[n:]
+        except (BlockingIOError, InterruptedError):
+            pass
+        except OSError:
+            self._close_client(conn)
+            return
+        if len(out):
+            write_deadline.expires_from_now(30.0)
+            write_deadline.async_wait(lambda: self._close_client(conn))
+            self.app.clock.watch(conn, selectors.EVENT_WRITE, on_writable)
+        else:
+            self._close_client(conn)
+
+    def execute(self, target: str):
+        """Dispatch a request path like '/info' or 'tx?blob=...'; also the
+        entry for config-file COMMANDS (Application::applyCfgCommands)."""
+        u = urlparse(target if target.startswith("/") else "/" + target)
+        cmd = u.path.strip("/")
+        params = dict(parse_qsl(u.query))
+        fn = self.routes[cmd]
+        return fn(params)
+
+    # -- routes -------------------------------------------------------------
+    def handle_info(self, q: dict) -> dict:
+        app = self.app
+        lm = app.ledger_manager
+        lcl = lm.last_closed
+        info = {
+            "state": app.get_state(),
+            "ledger": {
+                "num": lm.get_last_closed_ledger_num() if lcl else 0,
+                "hash": lcl.hash.hex() if lcl else None,
+                "closeTime": lcl.header.scpValue.closeTime if lcl else 0,
+            },
+            "numPeers": (
+                app.overlay_manager.get_authenticated_peer_count()
+                if app.overlay_manager
+                else 0
+            ),
+            "network": app.config.NETWORK_PASSPHRASE,
+            "build": app.config.VERSION_STR,
+        }
+        return {"info": info}
+
+    def handle_metrics(self, q: dict) -> dict:
+        return {"metrics": self.app.metrics.to_json()}
+
+    def handle_peers(self, q: dict) -> dict:
+        om = self.app.overlay_manager
+        if om is None:
+            return {"peers": []}
+        out = om.dump_info()
+        out["loads"] = om.load_manager.report_loads()
+        return out
+
+    def handle_scp(self, q: dict) -> dict:
+        h = self.app.herder
+        return h.dump_info() if h else {}
+
+    def handle_tx(self, q: dict) -> dict:
+        """Submit a hex-XDR TransactionEnvelope (CommandHandler.cpp:92 'tx').
+
+        A malformed blob answers ``{"exception": ...}`` as a NORMAL
+        response, like the reference's catch block
+        (CommandHandler.cpp:685-692) — submitters probing with garbage
+        must get a parseable error, not an HTTP 500."""
+        from ..tx.frame import TransactionFrame
+        from ..xdr.base import XdrError
+
+        blob = q.get("blob")
+        if not blob:
+            return {
+                "exception": "Must specify a tx blob: tx?blob=<tx in xdr format>"
+            }
+        try:
+            env = TransactionEnvelope.from_xdr(bytes.fromhex(blob))
+            tx = TransactionFrame.make_from_wire(self.app.network_id, env)
+        except (XdrError, ValueError) as e:
+            return {"exception": str(e)}
+        # admission front door (ingest/plane.py): the submission joins the
+        # current micro-batch (plus anything the overlay queued) in ONE
+        # batched signature dispatch, and may answer TRY_AGAIN_LATER from
+        # the rate-limit/surge gates without touching the herder
+        if self.app.ingest is not None:
+            status = self.app.ingest.submit_sync(tx)
+        else:
+            status = self.app.herder.recv_transaction(tx)
+        out = {"status": status}
+        if status == "PENDING" and self.app.overlay_manager is not None:
+            self.app.overlay_manager.broadcast_message(tx.to_stellar_message())
+        elif status == "ERROR":
+            out["error"] = xdr_to_opaque(tx.result).hex()
+        return out
+
+    def handle_manual_close(self, q: dict) -> dict:
+        if not self.app.config.MANUAL_CLOSE:
+            raise ValueError("MANUAL_CLOSE not set in config")
+        self.app.herder.trigger_next_ledger(
+            self.app.ledger_manager.get_ledger_num()
+        )
+        return {"status": "closing"}
+
+    def handle_connect(self, q: dict) -> dict:
+        from ..overlay.peerrecord import PeerRecord
+
+        peer, port = q.get("peer"), q.get("port")
+        if not peer or not port:
+            raise ValueError("must specify peer and port")
+        pr = PeerRecord(peer, int(port))
+        self.app.overlay_manager.connect_to(pr)
+        return {"status": "connecting"}
+
+    def handle_ll(self, q: dict) -> dict:
+        level = q.get("level")
+        partition = q.get("partition")
+        if level:
+            xlog.set_log_level(level, partition)
+        return {"status": "ok", "level": level, "partition": partition or "all"}
+
+    def handle_catchup(self, q: dict) -> dict:
+        from ..history.catchupsm import CATCHUP_COMPLETE, CATCHUP_MINIMAL
+
+        mode = q.get("mode")
+        if mode not in (None, CATCHUP_MINIMAL, CATCHUP_COMPLETE):
+            raise ValueError(f"unknown catchup mode {mode!r}")
+        self.app.ledger_manager.start_catchup(mode)
+        # report what is ACTUALLY running (an in-flight run is kept as-is)
+        fsm = self.app.history_manager.catchup
+        return {"status": "catching up", "mode": fsm.mode, "state": fsm.state}
+
+    def handle_maintenance(self, q: dict) -> dict:
+        from .externalqueue import ExternalQueue
+
+        if q.get("queue") == "true":
+            count = int(q.get("count", 50000))
+            cmin = ExternalQueue(self.app).process(count)
+            return {"status": "done", "trimmed_through": cmin}
+        return {"status": "No work performed"}
+
+    def handle_dropcursor(self, q: dict) -> dict:
+        from .externalqueue import ExternalQueue
+
+        ExternalQueue(self.app.database).delete_cursor(q.get("id", ""))
+        return {"status": "ok"}
+
+    def handle_setcursor(self, q: dict) -> dict:
+        from .externalqueue import ExternalQueue
+
+        ExternalQueue(self.app.database).set_cursor_for_resource(
+            q.get("id", ""), int(q.get("cursor", 0))
+        )
+        return {"status": "ok"}
+
+    def handle_checkdb(self, q: dict) -> dict:
+        """Kick (or poll) the cooperative bucket-vs-DB audit; the scan runs
+        one slice per crank so the reactor keeps serving consensus."""
+        bm = self.app.bucket_manager
+        out = bm.start_check_db_async()
+        if bm.last_checkdb is not None:
+            out["last"] = bm.last_checkdb
+        return out
+
+    def handle_checkpoint(self, q: dict) -> dict:
+        hm = self.app.history_manager
+        n = hm.publish_queued_history() if hasattr(hm, "publish_queued_history") else 0
+        return {"status": "ok", "publishing": n}
+
+    def _test_key(self, name: str):
+        """'root' or a named deterministic test account
+        (CommandHandler.cpp:131-137 getRoot/getAccount)."""
+        from ..tx import testutils as T
+
+        if name == "root":
+            return T.root_key_for(self.app)
+        return T.get_account(name)
+
+    def handle_testacc(self, q: dict) -> dict:
+        """Inspect a named test account (CommandHandler.cpp:117-150)."""
+        from ..crypto import PubKeyUtils
+        from ..ledger.accountframe import AccountFrame
+
+        name = q.get("name")
+        if not name:
+            return {
+                "status": "error",
+                "detail": "Bad HTTP GET: try something like: testacc?name=bob",
+            }
+        key = self._test_key(name)
+        acc = AccountFrame.load_account(key.get_public_key(), self.app.database)
+        out = {"name": name, "id": PubKeyUtils.to_strkey(key.get_public_key())}
+        if acc is not None:
+            out["balance"] = acc.get_balance()
+            out["seqnum"] = acc.get_seq_num()
+        return out
+
+    def handle_testtx(self, q: dict) -> dict:
+        """Submit a payment / create-account between named test accounts
+        (CommandHandler.cpp:152-231)."""
+        from ..crypto import PubKeyUtils
+        from ..ledger.accountframe import AccountFrame
+        from ..tx import testutils as T
+
+        to, frm, amount = q.get("to"), q.get("from"), q.get("amount")
+        if not (to and frm and amount):
+            return {
+                "status": "error",
+                "detail": "Bad HTTP GET: try something like: "
+                "testtx?from=root&to=bob&amount=100000000&create=true",
+            }
+        to_key = self._test_key(to)
+        from_key = self._test_key(frm)
+        amount = int(amount)
+        src = AccountFrame.load_account(
+            from_key.get_public_key(), self.app.database
+        )
+        # consider txs already pending in the herder, or a second testtx
+        # inside one ledger window would reuse the seq and get txBAD_SEQ
+        db_seq = src.get_seq_num() if src else 0
+        pending = self.app.herder.get_max_seq_in_pending_txs(
+            from_key.get_public_key()
+        )
+        from_seq = max(db_seq, pending) + 1
+        if q.get("create") == "true":
+            op = T.create_account_op(to_key, amount)
+        else:
+            op = T.payment_op(to_key, amount)
+        tx = T.tx_from_ops(self.app, from_key, from_seq, [op])
+        status = self.app.herder.recv_transaction(tx)
+        out = {
+            "from_name": frm,
+            "to_name": to,
+            "from_id": PubKeyUtils.to_strkey(from_key.get_public_key()),
+            "to_id": PubKeyUtils.to_strkey(to_key.get_public_key()),
+            "amount": amount,
+            "status": status,
+        }
+        if status == "ERROR":
+            out["detail"] = xdr_to_opaque(tx.result).hex()
+        return out
+
+    def handle_logrotate(self, q: dict) -> dict:
+        """Reopen the log file (reference handler is a stub; ours rotates
+        for real when LOG_FILE_PATH is configured)."""
+        rotated = xlog.rotate()
+        return {"status": "ok", "rotated": rotated}
+
+    def handle_profiler(self, q: dict) -> dict:
+        """/profiler?action=start[&dir=PATH] | action=stop — the PyTorch
+        profiler (host and, where CUDA runs, card activity) around the
+        verify plane (the reference's analogue is its medida timers,
+        which we also keep).  Stop writes ``trace.json`` (Chrome
+        trace_event format) into the directory."""
+        import os
+
+        import torch
+
+        action = q.get("action", "")
+        if action == "start":
+            if self._profiling_dir:
+                return {"error": "profiler already running"}
+            trace_dir = q.get("dir") or self.app.tmp_dirs.tmp_dir(
+                "torch-profile"
+            ).get_name()
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            try:
+                prof = torch.profiler.profile(activities=acts)
+                prof.start()
+            except Exception as e:
+                return {"error": f"profiler start failed: {e}"}
+            self._profiler = prof
+            self._profiling_dir = trace_dir
+            return {"status": "profiling", "dir": trace_dir}
+        if action == "stop":
+            if not self._profiling_dir:
+                return {"error": "profiler not running"}
+            trace_dir, self._profiling_dir = self._profiling_dir, None
+            prof, self._profiler = self._profiler, None
+            try:
+                prof.stop()
+                os.makedirs(trace_dir, exist_ok=True)
+                prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+            except Exception as e:
+                return {"error": f"profiler stop failed: {e}"}
+            return {"status": "stopped", "dir": trace_dir}
+        return {"error": "action must be start or stop"}
+
+    def handle_trace(self, q: dict) -> dict:
+        """Dump the span ring as Chrome trace_event JSON (stellar_tpu/trace/;
+        load in chrome://tracing or ui.perfetto.dev).  The per-name latency
+        aggregates ride along as top-level metadata both viewers ignore;
+        ``/trace?clear=1`` drops the ring after dumping (fresh window)."""
+        from ..trace import chrome_trace_json
+
+        tracer = self.app.tracer
+        spans, aggregates, dropped = tracer.snapshot(
+            clear=q.get("clear") == "1"
+        )
+        out = chrome_trace_json(spans)
+        out["aggregates"] = aggregates
+        out["enabled"] = tracer.enabled
+        out["dropped_spans"] = dropped
+        return out
+
+    def handle_invariants(self, q: dict) -> dict:
+        """Dump the ledger-invariant plane (stellar_tpu/invariant/): the
+        enabled set, fail policy, per-invariant run counts, last
+        violation, and p50/p95 cost — the operator's view of the close's
+        always-on safety checks."""
+        return self.app.invariants.dump_info()
+
+    def handle_selfcheck(self, q: dict) -> dict:
+        """The boot self-check & repair report (main/selfcheck.py):
+        what the crash-survival pass verified, quarantined, and repaired
+        before this node's ledger loaded.  ``?rerun=1`` runs a fresh
+        VERIFY-ONLY pass now — damage is reported in ``problems``, never
+        repaired live (boot-only repairs like bucket quarantine depend
+        on the boot-time re-download path)."""
+        if q.get("rerun"):
+            from .selfcheck import run_boot_selfcheck
+
+            return run_boot_selfcheck(self.app, repair=False)
+        return self.app.last_selfcheck or {
+            "status": "not-run",
+            "detail": "node booted with a fresh DB or SELFCHECK_ON_BOOT off",
+        }
+
+    def handle_ingest(self, q: dict) -> dict:
+        """The admission plane's counters (ingest/plane.py): batch-size /
+        occupancy histogram stats, per-reason shed counts (badsig /
+        ratelimit / surge), verify cache-hit split, rate-limiter
+        occupancy."""
+        ing = self.app.ingest
+        if ing is None:
+            return {"status": "not-built"}
+        return ing.stats()
+
+    def handle_generateload(self, q: dict) -> dict:
+        from ..simulation.loadgen import LoadGenerator
+
+        accounts = int(q.get("accounts", 1000))
+        txs = int(q.get("txs", 1000))
+        rate = int(q.get("txrate", 10))
+        if not hasattr(self.app, "load_generator") or self.app.load_generator is None:
+            self.app.load_generator = LoadGenerator()
+        mix = q.get("mix", "payments")
+        if mix not in ("payments", "full"):
+            return {"status": "error", "detail": f"unknown mix {mix!r}"}
+        self.app.load_generator.generate_load(
+            self.app, accounts, txs, rate, mix=mix
+        )
+        return {
+            "status": f"Generating load: {accounts} accounts, {txs} txs,"
+            f" {rate} tx/s ({mix} mix)"
+        }

@@ -1,0 +1,175 @@
+/* applycore: the parallel-apply host leg (ledger/applysched.py).
+ *
+ * One entry point:
+ *
+ *   encode_history_rows(items) -> list
+ *     items: sequence of (txid, body, result, meta) bytes 4-tuples
+ *     returns [(txid_hex, body_b64, result_b64, meta_b64) str 4-tuples]
+ *
+ * The per-tx history row encode (hex + 3x base64) is the dominant
+ * residual Python cost of the apply tail once the stores are buffered.
+ * This leg gathers all input pointers under the GIL, then releases it
+ * for the whole batch encode — worker shards in ledger/applysched.py
+ * overlap here even under CPython, which is what makes the thread-per-
+ * shard close actually scale on a multi-core host.
+ *
+ * Encoding contract matches tx/history.py exactly: lowercase hex for
+ * the txid, standard base64 alphabet WITH '=' padding for the blobs.
+ */
+
+#define PY_SSIZE_T_CLEAN
+#include <Python.h>
+
+#include <stdint.h>
+#include <stdlib.h>
+#include <string.h>
+
+static const char HEX[] = "0123456789abcdef";
+static const char B64[] =
+    "ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz0123456789+/";
+
+static size_t b64_len(size_t n) { return 4 * ((n + 2) / 3); }
+
+static void hex_encode(const uint8_t *src, size_t n, char *dst) {
+    for (size_t i = 0; i < n; i++) {
+        dst[2 * i] = HEX[src[i] >> 4];
+        dst[2 * i + 1] = HEX[src[i] & 0xf];
+    }
+}
+
+static void b64_encode(const uint8_t *src, size_t n, char *dst) {
+    size_t i = 0, o = 0;
+    while (i + 3 <= n) {
+        uint32_t v = ((uint32_t)src[i] << 16) | ((uint32_t)src[i + 1] << 8) |
+                     src[i + 2];
+        dst[o++] = B64[(v >> 18) & 63];
+        dst[o++] = B64[(v >> 12) & 63];
+        dst[o++] = B64[(v >> 6) & 63];
+        dst[o++] = B64[v & 63];
+        i += 3;
+    }
+    if (i + 1 == n) {
+        uint32_t v = (uint32_t)src[i] << 16;
+        dst[o++] = B64[(v >> 18) & 63];
+        dst[o++] = B64[(v >> 12) & 63];
+        dst[o++] = '=';
+        dst[o++] = '=';
+    } else if (i + 2 == n) {
+        uint32_t v = ((uint32_t)src[i] << 16) | ((uint32_t)src[i + 1] << 8);
+        dst[o++] = B64[(v >> 18) & 63];
+        dst[o++] = B64[(v >> 12) & 63];
+        dst[o++] = B64[(v >> 6) & 63];
+        dst[o++] = '=';
+    }
+}
+
+static PyObject *encode_history_rows(PyObject *self, PyObject *arg) {
+    (void)self;
+    PyObject *fast =
+        PySequence_Fast(arg, "encode_history_rows expects a sequence");
+    if (fast == NULL)
+        return NULL;
+    Py_ssize_t n = PySequence_Fast_GET_SIZE(fast);
+
+    /* gather pointers + lengths under the GIL (borrowed views into the
+     * bytes objects, kept alive by `fast` holding the tuples) */
+    const uint8_t **ptrs = NULL;
+    size_t *lens = NULL, *offs = NULL;
+    char *slab = NULL;
+    PyObject *out = NULL;
+    size_t nfields = (size_t)n * 4;
+
+    if (n > 0) {
+        ptrs = malloc(nfields * sizeof(*ptrs));
+        lens = malloc(nfields * sizeof(*lens));
+        offs = malloc((nfields + 1) * sizeof(*offs));
+        if (ptrs == NULL || lens == NULL || offs == NULL) {
+            PyErr_NoMemory();
+            goto done;
+        }
+    }
+    size_t total = 0;
+    for (Py_ssize_t i = 0; i < n; i++) {
+        PyObject *item = PySequence_Fast_GET_ITEM(fast, i);
+        if (!PyTuple_Check(item) || PyTuple_GET_SIZE(item) != 4) {
+            PyErr_SetString(PyExc_TypeError,
+                            "each item must be a (txid, body, result, meta) "
+                            "bytes 4-tuple");
+            goto done;
+        }
+        for (int f = 0; f < 4; f++) {
+            char *buf;
+            Py_ssize_t blen;
+            if (PyBytes_AsStringAndSize(PyTuple_GET_ITEM(item, f), &buf,
+                                        &blen) < 0)
+                goto done;
+            size_t slot = (size_t)i * 4 + (size_t)f;
+            ptrs[slot] = (const uint8_t *)buf;
+            lens[slot] = (size_t)blen;
+            offs[slot] = total;
+            total += (f == 0) ? 2 * (size_t)blen : b64_len((size_t)blen);
+        }
+    }
+    if (n > 0) {
+        offs[nfields] = total;
+        slab = malloc(total ? total : 1);
+        if (slab == NULL) {
+            PyErr_NoMemory();
+            goto done;
+        }
+        Py_BEGIN_ALLOW_THREADS
+        for (size_t slot = 0; slot < nfields; slot++) {
+            if (slot % 4 == 0)
+                hex_encode(ptrs[slot], lens[slot], slab + offs[slot]);
+            else
+                b64_encode(ptrs[slot], lens[slot], slab + offs[slot]);
+        }
+        Py_END_ALLOW_THREADS
+    }
+
+    out = PyList_New(n);
+    if (out == NULL)
+        goto done;
+    for (Py_ssize_t i = 0; i < n; i++) {
+        PyObject *row = PyTuple_New(4);
+        if (row == NULL) {
+            Py_CLEAR(out);
+            goto done;
+        }
+        for (int f = 0; f < 4; f++) {
+            size_t slot = (size_t)i * 4 + (size_t)f;
+            PyObject *s = PyUnicode_FromStringAndSize(
+                slab + offs[slot], (Py_ssize_t)(offs[slot + 1] - offs[slot]));
+            if (s == NULL) {
+                Py_DECREF(row);
+                Py_CLEAR(out);
+                goto done;
+            }
+            PyTuple_SET_ITEM(row, f, s);
+        }
+        PyList_SET_ITEM(out, i, row);
+    }
+
+done:
+    free(slab);
+    free(ptrs);
+    free(lens);
+    free(offs);
+    Py_DECREF(fast);
+    return out;
+}
+
+static PyMethodDef Methods[] = {
+    {"encode_history_rows", encode_history_rows, METH_O,
+     "Batch-encode (txid, body, result, meta) bytes rows to "
+     "(hex, b64, b64, b64) str rows, releasing the GIL."},
+    {NULL, NULL, 0, NULL},
+};
+
+static struct PyModuleDef moduledef = {
+    PyModuleDef_HEAD_INIT, "_applycore",
+    "Parallel-apply host leg: GIL-released history-row encoding.", -1,
+    Methods, NULL, NULL, NULL, NULL,
+};
+
+PyMODINIT_FUNC PyInit__applycore(void) { return PyModule_Create(&moduledef); }

@@ -1,0 +1,124 @@
+"""Floodgate — at-most-once flood dedup (reference: src/overlay/Floodgate.{h,cpp}).
+
+Keyed by message hash; each record remembers which peers already have the
+message so a broadcast only sends to the rest.  Records are GC'd as ledgers
+close (``clear_below`` keeps the last two ledgers, Floodgate.cpp:46-58).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Set
+
+from ..crypto import sha256
+from ..trace import tracer_of
+from ..util import xlog
+from ..xdr.base import pack_many, xdr_to_opaque
+from ..xdr.overlay import StellarMessage
+
+log = xlog.logger("Overlay")
+
+
+class FloodRecord:
+    __slots__ = ("ledger_seq", "message", "peers_told")
+
+    def __init__(self, ledger_seq: int, message: StellarMessage):
+        self.ledger_seq = ledger_seq
+        self.message = message
+        self.peers_told: Set[object] = set()
+
+
+class Floodgate:
+    def __init__(self, app):
+        self.app = app
+        self.flood_map: Dict[bytes, FloodRecord] = {}
+        self._shutting_down = False
+        self.m_added = app.metrics.new_counter(("overlay", "memory", "flood-known"))
+        # cumulative per-peer sends (flood fan-out) — the chaos plane's
+        # scoreboard reads this as "how much the network amplified"
+        self.n_sent = 0
+
+    @staticmethod
+    def message_key(msg: StellarMessage, body: bytes = None) -> bytes:
+        """Flood identity = hash of the packed message; ``body`` lets a
+        caller that already packed the message (broadcast's pack-once
+        fan-out) skip the re-serialization."""
+        return sha256(body if body is not None else msg.to_xdr())
+
+    def clear_below(self, current_ledger: int) -> None:
+        """Drop records older than the previous ledger (Floodgate.cpp:46)."""
+        keep = current_ledger - 1
+        for k in [k for k, r in self.flood_map.items() if r.ledger_seq < keep]:
+            del self.flood_map[k]
+        self.m_added.set_count(len(self.flood_map))
+
+    def forget_from(self, ledger_seq: int) -> None:
+        """Forget records stamped at or after ``ledger_seq`` — the
+        herder's stall probe: a node stalled while tracking
+        accumulated at-most-once records for exactly the slots it failed
+        to close, and the probe's SCP-state replay re-delivers those
+        same messages — without this the dedup swallows them before the
+        herder ever sees the retry.  Cost is bounded re-flood chatter
+        for the forgotten window (receivers still dedup), paid only at
+        the probe's own rate limit."""
+        for k in [
+            k for k, r in self.flood_map.items() if r.ledger_seq >= ledger_seq
+        ]:
+            del self.flood_map[k]
+        self.m_added.set_count(len(self.flood_map))
+
+    def add_record(self, msg: StellarMessage, from_peer) -> bool:
+        """Returns True if the message is NEW (should be processed/forwarded)."""
+        if self._shutting_down:
+            return False
+        key = self.message_key(msg)
+        rec = self.flood_map.get(key)
+        if rec is None:
+            lm = self.app.ledger_manager
+            seq = lm.get_ledger_num() if lm.last_closed is not None else 0
+            rec = FloodRecord(seq, msg)
+            self.flood_map[key] = rec
+            self.m_added.set_count(len(self.flood_map))
+            if from_peer is not None:
+                rec.peers_told.add(from_peer)
+            return True
+        if from_peer is not None:
+            rec.peers_told.add(from_peer)
+        return False
+
+    def broadcast(self, msg: StellarMessage, force: bool) -> None:
+        """Send to every authenticated peer not already told
+        (Floodgate.cpp:84-110).  The record is created when missing (locally
+        originated message); ``force`` resets it so our own SCP messages
+        re-flood each rebroadcast tick even to peers already told."""
+        if self._shutting_down:
+            return
+        tracer = tracer_of(self.app)
+        sp = tracer.begin("overlay.flood")
+        # pack-once fan-out: ONE serialization (the C pack_many path)
+        # serves the flood key and every peer's send queue — each queue
+        # entry holds a reference to this same immutable buffer, so a
+        # 100-peer flood never re-serializes and shedding is O(1)
+        body = pack_many([msg], StellarMessage)
+        key = self.message_key(msg, body)
+        rec = self.flood_map.get(key)
+        if rec is None or force:
+            lm = self.app.ledger_manager
+            seq = lm.get_ledger_num() if lm.last_closed is not None else 0
+            rec = FloodRecord(seq, msg)
+            self.flood_map[key] = rec
+            self.m_added.set_count(len(self.flood_map))
+        om = self.app.overlay_manager
+        sent = 0
+        for peer in list(om.authenticated_peers()):
+            if peer not in rec.peers_told:
+                rec.peers_told.add(peer)
+                peer.send_message(msg, body=body)
+                sent += 1
+        self.n_sent += sent
+        tracer.end(
+            sp, msg_type=getattr(msg.type, "name", str(msg.type)), sent=sent
+        )
+
+    def shutdown(self) -> None:
+        self._shutting_down = True
+        self.flood_map.clear()

@@ -1,0 +1,227 @@
+"""ItemFetcher — anycast fetch of txsets / quorum sets by hash
+(reference: src/overlay/ItemFetcher.{h,cpp}).
+
+One Tracker per outstanding hash: ask one peer (preferring whoever sent the
+envelope that needs the item), and on DONT_HAVE or timeout move to the next
+authenticated peer.  Retry hardening: the reference's fixed
+1.5 s retry became capped exponential backoff — the interval doubles per
+FULL no-progress round through the peer list (every peer asked, nobody
+answered), with seeded jitter from the tracker's item-hash RNG so replays
+stay deterministic — and a tracker that burns ``GIVE_UP_ROUNDS`` full
+rounds without progress surfaces a metered give-up
+(``overlay.fetch.give-up``) instead of spinning forever against a network
+that does not have the item.
+"""
+
+from __future__ import annotations
+
+import random
+from typing import Callable, Dict, List, Optional
+
+from ..trace import tracer_of
+from ..util import VirtualTimer, xlog
+from ..xdr.overlay import MessageType, StellarMessage
+from ..xdr.scp import SCPEnvelope
+
+log = xlog.logger("Overlay")
+
+MS_TO_WAIT_FOR_FETCH_REPLY = 1.5  # seconds (ItemFetcher.cpp:17 — 1500ms)
+# backoff doubles per full no-progress round, capped here (seconds)
+FETCH_BACKOFF_CAP = 24.0
+# full no-answer rounds through the whole peer list before the metered
+# give-up — with the capped backoff this is minutes of trying, far past
+# any fetch the consensus path still needs (slots GC via
+# stop_fetching_below long before)
+FETCH_GIVE_UP_ROUNDS = 12
+
+
+class Tracker:
+    def __init__(
+        self,
+        app,
+        item_hash: bytes,
+        ask_peer: Callable,
+        on_give_up: Optional[Callable] = None,
+    ):
+        self.app = app
+        self.item_hash = item_hash
+        self.ask_peer = ask_peer  # fn(peer, hash) -> sends the GET_* message
+        self.on_give_up = on_give_up  # fn() -> fetcher forgets this tracker
+        self.gave_up = False
+        self.last_asked_peer = None
+        self.peers_asked: List[object] = []
+        # peer pick order is load-balancing, not security: seed it from the
+        # item hash so a fetch sequence replays identically run-to-run
+        # (VirtualClock determinism discipline — analyzer rule
+        # `determinism`; the reference's gRandomEngine is likewise
+        # deterministically seeded under test)
+        self._rng = random.Random(int.from_bytes(item_hash[:8], "big"))
+        self.timer = VirtualTimer(app.clock)
+        self.envelopes: List[SCPEnvelope] = []
+        self.num_list_rebuild = 0
+        # consecutive retries with NO authenticated peers at all: these
+        # escalate the retry delay (mildly — see _retry_delay) but never
+        # count toward the give-up, and reset the moment peers return —
+        # a partitioned node must neither spin its timer at full rate
+        # nor abandon a fetch the heal will satisfy
+        self.num_empty_rounds = 0
+        # fetch latency span: opens with the tracker, ends at finish()
+        self._span = tracer_of(app).begin(
+            "overlay.fetch", item=item_hash.hex()[:8]
+        )
+
+    def finish(self, outcome: str) -> None:
+        """Close the fetch span (double-finish safe: end(None) is a no-op)."""
+        tracer_of(self.app).end(
+            self._span,
+            outcome=outcome,
+            asked=len(self.peers_asked),
+            rebuilds=self.num_list_rebuild,
+        )
+        self._span = None
+
+    def listen(self, envelope: SCPEnvelope) -> None:
+        self.envelopes.append(envelope)
+
+    def pop(self) -> Optional[SCPEnvelope]:
+        if self.envelopes:
+            return self.envelopes.pop(0)
+        return None
+
+    def cancel(self) -> None:
+        self.timer.cancel()
+        self.last_asked_peer = None
+
+    def _retry_delay(self) -> float:
+        """Capped exponential backoff keyed to FULL no-progress rounds
+        (num_list_rebuild), with seeded jitter from the item-hash RNG —
+        determinism-rule compliant, replays identically.  Peer-less
+        retries escalate too, but their exponent caps at 2 (≤6 s base):
+        once the partition heals, the next ask must land quickly enough
+        not to threaten the recovery floors."""
+        exponent = min(self.num_list_rebuild, 6) + min(self.num_empty_rounds, 2)
+        base = min(
+            MS_TO_WAIT_FOR_FETCH_REPLY * (2 ** exponent),
+            FETCH_BACKOFF_CAP,
+        )
+        if self.num_empty_rounds:
+            # peer-less retry: cap the TOTAL base at the ≤6 s promise
+            # regardless of how many no-progress rounds came before the
+            # partition — the first ask after a heal must land fast
+            base = min(base, MS_TO_WAIT_FOR_FETCH_REPLY * 4)
+        return base + self._rng.uniform(0.0, base * 0.25)
+
+    def _give_up(self) -> None:
+        """Every peer exhausted FETCH_GIVE_UP_ROUNDS full rounds with no
+        progress: stop asking, meter it, and let the fetcher forget the
+        tracker (the waiting envelopes stay parked in pendingenvelopes
+        until their slots GC — a fresh envelope re-opens the fetch)."""
+        self.gave_up = True
+        self.timer.cancel()
+        self.last_asked_peer = None
+        self.app.metrics.new_meter(("overlay", "fetch", "give-up"), "fetch").mark()
+        log.warning(
+            "giving up fetch of %s after %d full no-progress rounds",
+            self.item_hash.hex()[:8], self.num_list_rebuild,
+        )
+        self.finish("gave-up")
+        if self.on_give_up is not None:
+            self.on_give_up()
+
+    def try_next_peer(self) -> None:
+        """Ask the next candidate peer (ItemFetcher.cpp tryNextPeer): first
+        whoever sent an envelope needing this item, then random others."""
+        om = self.app.overlay_manager
+        if om is None or self.gave_up:
+            return
+        peers = [p for p in om.authenticated_peers()]
+        if not peers:
+            # retry once peers exist; the empty-round counter escalates
+            # the delay (capped low) so a partitioned node does not spin
+            # at full rate, without ever counting toward the give-up
+            self.num_empty_rounds += 1
+            self.timer.expires_from_now(self._retry_delay())
+            self.timer.async_wait(self.try_next_peer)
+            return
+        self.num_empty_rounds = 0
+        candidate = None
+        # prefer senders of waiting envelopes we haven't asked yet
+        sender_ids = {
+            e.statement.nodeID.value
+            for e in self.envelopes
+            if e.statement.nodeID is not None
+        }
+        fresh = [p for p in peers if p not in self.peers_asked]
+        for p in fresh:
+            if p.peer_id is not None and p.peer_id.value in sender_ids:
+                candidate = p
+                break
+        if candidate is None and fresh:
+            candidate = self._rng.choice(fresh)
+        if candidate is None:
+            # exhausted everyone: one full round without progress
+            if self.num_list_rebuild + 1 >= FETCH_GIVE_UP_ROUNDS:
+                self._give_up()
+                return
+            self.peers_asked.clear()
+            self.num_list_rebuild += 1
+            candidate = self._rng.choice(peers)
+        self.peers_asked.append(candidate)
+        self.last_asked_peer = candidate
+        self.ask_peer(candidate, self.item_hash)
+        self.timer.expires_from_now(self._retry_delay())
+        self.timer.async_wait(self.try_next_peer)
+
+    def doesnt_have(self, peer) -> None:
+        if self.last_asked_peer is peer:
+            self.try_next_peer()
+
+
+class ItemFetcher:
+    def __init__(self, app, ask_peer: Callable):
+        self.app = app
+        self.ask_peer = ask_peer
+        self.trackers: Dict[bytes, Tracker] = {}
+
+    def fetch(self, item_hash: bytes, envelope: SCPEnvelope) -> None:
+        tr = self.trackers.get(item_hash)
+        if tr is None:
+            tr = Tracker(
+                self.app,
+                item_hash,
+                self.ask_peer,
+                on_give_up=lambda: self.trackers.pop(item_hash, None),
+            )
+            self.trackers[item_hash] = tr
+            tr.listen(envelope)
+            tr.try_next_peer()
+        else:
+            tr.listen(envelope)
+
+    def recv(self, item_hash: bytes) -> None:
+        tr = self.trackers.pop(item_hash, None)
+        if tr is not None:
+            tr.cancel()
+            tr.finish("received")
+
+    def stop_fetch(self, item_hash: bytes) -> None:
+        self.recv(item_hash)
+
+    def stop_fetching_below(self, slot_index: int) -> None:
+        """Drop trackers only needed by slots below `slot_index`."""
+        for h, tr in list(self.trackers.items()):
+            tr.envelopes = [
+                e for e in tr.envelopes if e.statement.slotIndex >= slot_index
+            ]
+            if not tr.envelopes:
+                tr.cancel()
+                tr.finish("abandoned")
+                del self.trackers[h]
+
+    def doesnt_have(self, item_hash: bytes, peer) -> None:
+        tr = self.trackers.get(item_hash)
+        if tr is not None:
+            tr.doesnt_have(peer)
+
+    def __len__(self) -> int:
+        return len(self.trackers)

@@ -1,0 +1,279 @@
+"""OverlayManager — peer lifecycle + flood routing
+(reference: src/overlay/OverlayManagerImpl.{h,cpp}).
+
+Every 2 seconds ``tick`` tops the connection count up toward
+TARGET_PEER_CONNECTIONS: preferred peers first, then the SQL peer address
+book ordered by next-attempt backoff (OverlayManagerImpl.cpp:215-260).
+Flooded messages (transactions, SCP envelopes) pass through the Floodgate
+for at-most-once semantics; tx-set / quorum-set fetch rides the two
+ItemFetchers' anycast ask-one-peer loops.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+from ..util import VirtualTimer, xlog
+from ..xdr.overlay import MessageType, StellarMessage
+from .floodgate import Floodgate
+from .itemfetcher import ItemFetcher
+from .peer import Peer, PeerRole, PeerState
+from .peerauth import PeerAuth
+from .peerrecord import PeerRecord
+from .sendqueue import SendQueueStats
+
+log = xlog.logger("Overlay")
+
+TICK_SECONDS = 2.0
+
+
+class OverlayManager:
+    def __init__(self, app):
+        self.app = app
+        self.peer_auth = PeerAuth(app)
+        self.floodgate = Floodgate(app)
+        self.peers: List[Peer] = []  # pending + authenticated
+        self.door = None
+        self.tick_timer = VirtualTimer(app.clock)
+        self._shutting_down = False
+        self.tx_set_fetcher = ItemFetcher(app, lambda p, h: p.send_get_tx_set(h))
+        self.qset_fetcher = ItemFetcher(app, lambda p, h: p.send_get_quorum_set(h))
+        self.m_connections = app.metrics.new_counter(("overlay", "connection", "count"))
+        from .loadmanager import LoadManager
+
+        self.load_manager = LoadManager(app)
+        # node-level aggregate over every peer's SendQueue (peers die
+        # with their connections; the chaos scoreboard and /peers need
+        # the surviving view): per-class sheds, straggler disconnects,
+        # queue-byte high-water, max observed CRITICAL stall
+        self.sendq_stats = SendQueueStats()
+        # per-crank SCP envelope coalescing (enqueue_scp_envelope)
+        self._scp_batch: List = []
+        self._scp_flush_posted = False
+        self.m_scp_batch_flush = app.metrics.new_meter(
+            ("overlay", "scp-batch", "flush"), "batch"
+        )
+        self.m_scp_batch_size = app.metrics.new_counter(
+            ("overlay", "scp-batch", "envelopes")
+        )
+        # byzantine-flood fast rejects: envelopes the per-crank batch
+        # verify found invalid and dropped at this boundary (the herder
+        # never sees them; chaos-plane scoreboards read this)
+        self.m_scp_batch_rejected = app.metrics.new_counter(
+            ("overlay", "scp-batch", "rejected")
+        )
+
+    # -- lifecycle ----------------------------------------------------------
+    def start(self) -> None:
+        from .tcppeer import PeerDoor
+
+        self.store_config_peers()
+        if self.door is None:
+            self.door = PeerDoor(self.app)
+            try:
+                self.door.start()
+            except OSError as e:
+                log.warning("could not listen on peer port: %s", e)
+                self.door = None
+        self.tick()
+
+    def shutdown(self) -> None:
+        if self._shutting_down:
+            return
+        self._shutting_down = True
+        self.tick_timer.cancel()
+        if self.door is not None:
+            self.door.close()
+        self.floodgate.shutdown()
+        for p in list(self.peers):
+            p.drop()
+        self.peers.clear()
+
+    def is_shutting_down(self) -> bool:
+        return self._shutting_down
+
+    # -- connection management ----------------------------------------------
+    def store_config_peers(self) -> None:
+        """Seed the address book from config (OverlayManagerImpl::storeConfigPeers)."""
+        cfg = self.app.config
+        for s in cfg.PREFERRED_PEERS + cfg.KNOWN_PEERS:
+            try:
+                pr = PeerRecord.parse_ip_port(s, cfg.PEER_PORT)
+            except ValueError:
+                log.warning("bad peer address in config: %r", s)
+                continue
+            pr.store(self.app.database)
+
+    def tick(self) -> None:
+        """Top up outbound connections (OverlayManagerImpl.cpp:215)."""
+        if self._shutting_down:
+            return
+        cfg = self.app.config
+        need = cfg.TARGET_PEER_CONNECTIONS - len(self.peers)
+        if need > 0:
+            connected = {(p.ip(), p.remote_listening_port) for p in self.peers}
+            for pr in PeerRecord.load_peers(
+                self.app.database, need, self.app.clock.now()
+            ):
+                if (pr.ip, pr.port) in connected:
+                    continue
+                self.connect_to(pr)
+        self.load_manager.maybe_shed_excess_load()
+        self.tick_timer.expires_from_now(TICK_SECONDS)
+        self.tick_timer.async_wait(self.tick)
+
+    def connect_to(self, pr: PeerRecord) -> None:
+        from .tcppeer import TCPPeer
+
+        if len(self.peers) >= self.app.config.MAX_PEER_CONNECTIONS:
+            return
+        pr.back_off(self.app.database, self.app.clock.now())
+        peer = TCPPeer.initiate(self.app, pr.ip, pr.port)
+        if peer.state != PeerState.CLOSING:
+            self.peers.append(peer)
+            self.m_connections.set_count(len(self.peers))
+
+    def add_pending_peer(self, peer: Peer) -> None:
+        if self._shutting_down or len(self.peers) >= self.app.config.MAX_PEER_CONNECTIONS:
+            peer.drop()
+            return
+        self.peers.append(peer)
+        self.m_connections.set_count(len(self.peers))
+
+    def accept_authenticated_peer(self, peer: Peer) -> bool:
+        """Post-handshake admission (OverlayManagerImpl::isPeerAccepted):
+        room check + preferred-peers-only policy; successful auth resets the
+        address-book backoff."""
+        cfg = self.app.config
+        if cfg.PREFERRED_PEERS_ONLY and not self.is_preferred(peer):
+            return False
+        n_auth = len(self.authenticated_peers())
+        if n_auth > cfg.MAX_PEER_CONNECTIONS:
+            return self.is_preferred(peer)
+        if peer.remote_listening_port:
+            pr = PeerRecord(peer.ip(), peer.remote_listening_port)
+            pr.store(self.app.database)
+            pr.reset_back_off(self.app.database, self.app.clock.now())
+        return True
+
+    def is_preferred(self, peer: Peer) -> bool:
+        cfg = self.app.config
+        addr = f"{peer.ip()}:{peer.remote_listening_port}"
+        if addr in cfg.PREFERRED_PEERS:
+            return True
+        if peer.peer_id is not None:
+            from ..crypto.keys import PubKeyUtils
+
+            if PubKeyUtils.to_strkey(peer.peer_id) in cfg.PREFERRED_PEER_KEYS:
+                return True
+        return False
+
+    def drop_peer(self, peer: Peer) -> None:
+        if peer in self.peers:
+            self.peers.remove(peer)
+            self.m_connections.set_count(len(self.peers))
+
+    # -- views --------------------------------------------------------------
+    def get_peers(self) -> List[Peer]:
+        return list(self.peers)
+
+    def authenticated_peers(self) -> List[Peer]:
+        return [p for p in self.peers if p.is_authenticated()]
+
+    def get_authenticated_peer_count(self) -> int:
+        return len(self.authenticated_peers())
+
+    # -- flooding -----------------------------------------------------------
+    def enqueue_scp_envelope(self, envelope) -> None:
+        """Coalesce every SCP envelope received during the current crank
+        into ONE SigBackend batch, then hand them to the herder.
+
+        The reference verifies eagerly inside Herder::recvSCPEnvelope
+        (reference: src/herder/HerderImpl.cpp:347-364); on the TPU
+        backend an eager per-envelope check would be one device dispatch
+        per message.  Instead the flush — posted once per crank — verifies
+        all queued envelopes in a single batch, warming the shared verify
+        cache so the herder's eager checks are cache hits with identical
+        accept/reject results."""
+        self._scp_batch.append(envelope)
+        if not self._scp_flush_posted:
+            self._scp_flush_posted = True
+            self.app.clock.post(self._flush_scp_batch)
+
+    def pending_scp_triples(self) -> list:
+        """Verify triples for the envelopes queued for this crank's batch
+        flush — the close pipeline (ledger/closepipeline.py) dispatches
+        these asynchronously while a ledger applies, so the flush on the
+        next crank is all cache hits.  A stale prefetch is harmless: the
+        flush re-verifies anything the cache missed."""
+        herder = self.app.herder
+        if herder is None or not self._scp_batch:
+            return []
+        return [herder.envelope_verify_triple(env) for env in self._scp_batch]
+
+    def _flush_scp_batch(self) -> None:
+        batch, self._scp_batch = self._scp_batch, []
+        self._scp_flush_posted = False
+        if self._shutting_down or not batch:
+            return
+        herder = self.app.herder
+        triples = [herder.envelope_verify_triple(env) for env in batch]
+        # hand the batch SLOT-GROUPED to the node's SCP signature scheme
+        # (Config.SCP_SIG_SCHEME): the per-envelope scheme is exactly the
+        # old sig_backend.verify_batch(caller=CALLER_OVERLAY) call; the
+        # half-aggregation scheme buckets these triples per slot and
+        # verifies each bucket as one MSM check, with the same backend
+        # (same caller class, so the wedge latch stays per-plane) as the
+        # fallback for thin buckets and poisoned aggregates
+        slots = [env.statement.slotIndex for env in batch]
+        scheme = getattr(self.app, "scp_scheme", None)
+        if scheme is not None:
+            verdicts = scheme.verify_flush(triples, slots)
+        else:  # bare harness apps without an Application-built scheme
+            from ..crypto.sigbackend import CALLER_OVERLAY
+
+            verdicts = self.app.sig_backend.verify_batch(
+                triples, caller=CALLER_OVERLAY
+            )
+        self.m_scp_batch_flush.mark()
+        self.m_scp_batch_size.inc(len(batch))
+        # strict-gate fast-reject at the flood boundary: the batch verify
+        # just computed every verdict, so invalid-sig envelopes drop HERE
+        # — they never reach the herder's fetch plane, and (since the
+        # verify cache latches only valid verdicts) they cannot park a
+        # verdict in the shared cache either.  Valid envelopes flow on;
+        # the herder's eager re-check is a warm-cache hit.
+        for env, ok in zip(batch, verdicts):
+            if ok:
+                herder.recv_scp_envelope(env)
+            else:
+                self.m_scp_batch_rejected.inc()
+                herder.note_envelope_rejected(env)
+
+    def recv_flooded_msg(self, msg: StellarMessage, peer: Peer) -> bool:
+        """Record a flooded message arrival; False if already seen."""
+        return self.floodgate.add_record(msg, peer)
+
+    def broadcast_message(self, msg: StellarMessage, force: bool = False) -> None:
+        self.floodgate.broadcast(msg, force)
+
+    def ledger_closed(self, ledger_seq: int) -> None:
+        self.floodgate.clear_below(ledger_seq)
+        self.tx_set_fetcher.stop_fetching_below(ledger_seq + 1)
+        self.qset_fetcher.stop_fetching_below(ledger_seq + 1)
+
+    def dump_info(self) -> dict:
+        return {
+            "peers": [
+                {
+                    "ip": p.ip(),
+                    "port": p.remote_listening_port,
+                    "ver": p.remote_version,
+                    "auth": p.is_authenticated(),
+                    "id": None if p.peer_id is None else p.peer_id.value.hex()[:8],
+                }
+                for p in self.peers
+            ],
+            "authenticated_count": self.get_authenticated_peer_count(),
+            "sendq": self.sendq_stats.to_dict(),
+        }

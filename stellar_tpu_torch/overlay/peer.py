@@ -1,0 +1,550 @@
+"""Peer — the per-connection protocol state machine
+(reference: src/overlay/Peer.{h,cpp}).
+
+Handshake (HELLO2 path, Peer.cpp:949-1005): initiator sends HELLO2 with its
+auth cert + nonce; acceptor verifies the cert, derives per-direction
+HMAC-SHA256 keys from ECDH(cert ephemerals) + both nonces, replies HELLO2;
+initiator does the same and sends AUTH; acceptor replies AUTH.  Every frame
+after HELLO2 carries a strictly-increasing sequence number and an HMAC over
+``xdr(seq ‖ msg)`` (Peer.cpp:461-464, verified at :524-543); any mismatch
+drops the connection — transport-level tamper evidence on top of the
+per-message ed25519 signatures.
+
+TPU note: inbound SCP envelopes are pre-warmed through the app's SigBackend
+(one batched verify populating the shared cache) before being handed to the
+Herder, so the Herder's eager per-envelope check is a cache hit.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+from ..crypto import sha256
+from ..crypto.sha import hmac_sha256_verify
+from ..crypto.sodium import randombytes
+from ..util import xlog
+from ..util.clock import VirtualTimer
+from ..xdr.base import uint64, xdr_to_opaque
+from .sendqueue import SendQueue
+from ..xdr.overlay import (
+    Auth,
+    AuthCert,
+    AuthenticatedMessage,
+    DontHave,
+    Error,
+    ErrorCode,
+    Hello2,
+    MessageType,
+    PeerAddress,
+    PeerAddressIp,
+    IPAddrType,
+    StellarMessage,
+)
+from ..xdr.scp import SCPEnvelope
+from ..xdr.xtypes import HmacSha256Mac, PublicKey
+
+log = xlog.logger("Overlay")
+
+
+class PeerRole:
+    WE_CALLED_REMOTE = "WE_CALLED_REMOTE"
+    REMOTE_CALLED_US = "REMOTE_CALLED_US"
+
+
+class PeerState:
+    CONNECTING = 0
+    CONNECTED = 1
+    GOT_HELLO = 2
+    GOT_AUTH = 3
+    CLOSING = 4
+
+
+# hot-path dispatch table (resolved per-instance via getattr)
+_DISPATCH = {
+    MessageType.ERROR_MSG: "recv_error",
+    MessageType.HELLO2: "recv_hello2",
+    MessageType.AUTH: "recv_auth",
+    MessageType.DONT_HAVE: "recv_dont_have",
+    MessageType.GET_PEERS: "recv_get_peers",
+    MessageType.PEERS: "recv_peers",
+    MessageType.GET_TX_SET: "recv_get_tx_set",
+    MessageType.TX_SET: "recv_tx_set",
+    MessageType.TRANSACTION: "recv_transaction",
+    MessageType.GET_SCP_QUORUMSET: "recv_get_scp_quorum_set",
+    MessageType.SCP_QUORUMSET: "recv_scp_quorum_set",
+    MessageType.SCP_MESSAGE: "recv_scp_message",
+    MessageType.GET_SCP_STATE: "recv_get_scp_state",
+}
+
+
+class Peer:
+    # wire bytes the transport adds around each frame (TCP: 4-byte
+    # length header) — the send queue charges them against its in-flight
+    # window so queue credits balance against raw socket byte counts
+    FRAME_WIRE_OVERHEAD = 0
+
+    def __init__(self, app, role: str):
+        self.app = app
+        self.role = role
+        self.state = (
+            PeerState.CONNECTING
+            if role == PeerRole.WE_CALLED_REMOTE
+            else PeerState.CONNECTED
+        )
+        self.peer_id: Optional[PublicKey] = None
+        self.remote_version = ""
+        self.remote_overlay_version = 0
+        self.remote_listening_port = 0
+        self.send_nonce = randombytes(32)
+        self.recv_nonce = b""
+        self.send_mac_key = b""
+        self.recv_mac_key = b""
+        self.send_mac_seq = 0
+        self.recv_mac_seq = 0
+        self._m_drop = app.metrics.new_meter(("overlay", "drop", "count"), "drop")
+        self._m_recv = app.metrics.new_meter(("overlay", "message", "read"), "message")
+        self._m_sent = app.metrics.new_meter(("overlay", "message", "write"), "message")
+        self._m_timeout_idle = app.metrics.new_meter(
+            ("overlay", "timeout", "idle"), "timeout"
+        )
+        # idle-drop timer (Peer::startIdleTimer, Peer.cpp:231-264): a peer
+        # silent in both directions for io_timeout_seconds is dropped —
+        # 5s during handshake, 30s once authenticated.  The transports
+        # stamp last_read/last_write at the BYTE level (received_bytes/
+        # wrote_bytes), so a slow large frame counts as activity and a
+        # dead connection with queued-but-unsent output does not.
+        self.last_read = app.clock.now()
+        self.last_write = app.clock.now()
+        self._idle_timer = VirtualTimer(app.clock)
+        # the overlay survival plane: bounded priority-classed outbound
+        # queue (overlay/sendqueue.py) — send_message enqueues, the queue
+        # drains into the transport in class order, OVERLAY_SENDQ_BYTES=0
+        # degenerates to the reference's immediate unbounded sends
+        self.send_queue = SendQueue(self)
+        # one-way fault seam (chaos plane): True silently drops
+        # every outbound message at the send choke point, BEFORE it enters
+        # the queue or consumes a MAC sequence number — the half-open-
+        # connection model.  The reverse direction keeps delivering with
+        # valid MACs, and clearing the flag resumes THIS direction on the
+        # same connection with the sequence intact (no flap): dropping any
+        # later (post-queue or post-sequencing) would open a MAC-sequence
+        # gap and cost the connection on heal.
+        self.outbound_blackhole = False
+        self._start_idle_timer()
+
+    def io_timeout_seconds(self) -> int:
+        return 30 if self.is_authenticated() else 5
+
+    def received_bytes(self) -> None:
+        """Transport hook: any inbound bytes count as read activity
+        (Peer::receivedBytes — per byte, not per decoded frame)."""
+        self.last_read = self.app.clock.now()
+
+    def wrote_bytes(self, n: int = 0) -> None:
+        """Transport hook: bytes actually flushed to the wire count as
+        write activity (queued-but-unsent output does not) AND credit the
+        send queue's in-flight window so it can release more frames."""
+        self.last_write = self.app.clock.now()
+        if n:
+            self.send_queue.credit(n)
+
+    def _start_idle_timer(self) -> None:
+        if self.should_abort():
+            return
+        self._idle_timer.expires_from_now(self.io_timeout_seconds())
+        self._idle_timer.async_wait(self._idle_timer_expired)
+
+    def _idle_timer_expired(self) -> None:
+        now = self.app.clock.now()
+        timeout = self.io_timeout_seconds()
+        if now - self.last_read >= timeout and now - self.last_write >= timeout:
+            log.warning("idle timeout on %r", self)
+            self._m_timeout_idle.mark()
+            self.drop()
+        else:
+            self._start_idle_timer()
+
+    # -- abstract transport -------------------------------------------------
+    def send_frame(self, data: bytes) -> None:
+        raise NotImplementedError
+
+    def close_transport(self) -> None:
+        raise NotImplementedError
+
+    def ip(self) -> str:
+        return ""
+
+    # -- identity -----------------------------------------------------------
+    def is_connected(self) -> bool:
+        return self.state not in (PeerState.CONNECTING, PeerState.CLOSING)
+
+    def is_authenticated(self) -> bool:
+        return self.state == PeerState.GOT_AUTH
+
+    def should_abort(self) -> bool:
+        om = self.app.overlay_manager
+        return self.state == PeerState.CLOSING or (
+            om is not None and om.is_shutting_down()
+        )
+
+    def __repr__(self):
+        pid = "?" if self.peer_id is None else self.peer_id.value[:4].hex()
+        return f"<Peer {self.role[:2]} {pid} s={self.state}>"
+
+    # -- outbound -----------------------------------------------------------
+    def connect_handler(self) -> None:
+        """Transport established (TCPPeer::connectHandler): say hello."""
+        self.state = PeerState.CONNECTED
+        self.send_hello2()
+
+    def send_hello2(self) -> None:
+        cfg = self.app.config
+        om = self.app.overlay_manager
+        msg = StellarMessage(
+            MessageType.HELLO2,
+            Hello2(
+                ledgerVersion=cfg.LEDGER_PROTOCOL_VERSION,
+                overlayVersion=cfg.OVERLAY_PROTOCOL_VERSION,
+                overlayMinVersion=cfg.OVERLAY_PROTOCOL_MIN_VERSION,
+                networkID=self.app.network_id,
+                versionStr=cfg.VERSION_STR,
+                listeningPort=cfg.PEER_PORT,
+                peerID=cfg.NODE_SEED.get_public_key(),
+                cert=om.peer_auth.get_auth_cert(),
+                nonce=self.send_nonce,
+            ),
+        )
+        self.send_message(msg)
+
+    def send_auth(self) -> None:
+        self.send_message(StellarMessage(MessageType.AUTH, Auth(0)))
+
+    def send_error(self, code: ErrorCode, text: str) -> None:
+        self.send_message(StellarMessage(MessageType.ERROR_MSG, Error(code, text)))
+
+    def send_dont_have(self, msg_type: MessageType, item_hash: bytes) -> None:
+        self.send_message(
+            StellarMessage(MessageType.DONT_HAVE, DontHave(msg_type, item_hash))
+        )
+
+    def send_get_tx_set(self, h: bytes) -> None:
+        self.send_message(StellarMessage(MessageType.GET_TX_SET, h))
+
+    def send_get_quorum_set(self, h: bytes) -> None:
+        self.send_message(StellarMessage(MessageType.GET_SCP_QUORUMSET, h))
+
+    def send_get_peers(self) -> None:
+        self.send_message(StellarMessage(MessageType.GET_PEERS, None))
+
+    def send_peers(self) -> None:
+        from .peerrecord import PeerRecord
+
+        addrs: List[PeerAddress] = []
+        for pr in PeerRecord.load_peers(self.app.database, 50, self.app.clock.now() + 3600):
+            if pr.is_private_address():
+                continue  # never advertise RFC1918 space (Peer.cpp:392)
+            try:
+                parts = bytes(int(x) for x in pr.ip.split("."))
+            except ValueError:
+                continue
+            if len(parts) != 4:
+                continue
+            addrs.append(
+                PeerAddress(
+                    PeerAddressIp(IPAddrType.IPv4, parts), pr.port, pr.num_failures
+                )
+            )
+        self.send_message(StellarMessage(MessageType.PEERS, addrs))
+
+    def send_message(self, msg: StellarMessage, body: bytes = None) -> None:
+        """THE outbound choke point (Peer::sendMessage, Peer.cpp:457-467):
+        classify + enqueue on the survival-plane send queue, which wraps
+        the body in an AuthenticatedMessage (MAC + seq assigned at DRAIN
+        time, unless handshake/error) as it releases frames into the
+        transport.  ``body`` is the pre-packed StellarMessage XDR — the
+        flood fan-out passes ONE shared buffer to every peer."""
+        if self.should_abort() and msg.type != MessageType.ERROR_MSG:
+            return
+        if self.outbound_blackhole:
+            return  # one-way fault: the frame vanishes pre-queue, pre-seq
+        # the sent-message meter and bytes_send both mark at the queue's
+        # DRAIN (sendqueue._emit) — a shed frame never counted as sent
+        self.send_queue.enqueue(msg, body)
+
+    def note_straggler_backoff(self) -> None:
+        """A straggler disconnect (ERR_LOAD) lands the peer's address in
+        peerrecord backoff, so the next overlay tick does not instantly
+        redial a connection we just shed for being underwater."""
+        from .peerrecord import PeerRecord
+
+        ip = self.ip()
+        port = self.remote_listening_port
+        if not ip or not port:
+            return
+        try:
+            pr = PeerRecord.load(self.app.database, ip, port) or PeerRecord(
+                ip, port
+            )
+            pr.back_off(self.app.database, self.app.clock.now())
+        except Exception as e:  # DB closing mid-teardown must not mask the drop
+            log.warning("could not back off straggler %s:%d: %s", ip, port, e)
+
+    # -- inbound ------------------------------------------------------------
+    def recv_frame(self, data: bytes) -> None:
+        self.received_bytes()
+        try:
+            amsg = AuthenticatedMessage.from_xdr(data)
+        except Exception as e:
+            log.warning("bad frame from %r: %s", self, e)
+            self.drop()
+            return
+        # attribute processing cost + bytes to this peer (LoadManager)
+        lm = getattr(self.app.overlay_manager, "load_manager", None)
+        node = bytes(self.peer_id.value) if self.peer_id is not None else None
+        if lm is None:
+            self.recv_authenticated_message(amsg)
+            return
+        with lm.peer_context(node):
+            if node is not None:
+                lm.get_peer_costs(node).bytes_recv += len(data)
+            self.recv_authenticated_message(amsg)
+
+    def recv_authenticated_message(self, amsg: AuthenticatedMessage) -> None:
+        """Sequence + MAC check once keys exist (Peer.cpp:522-543)."""
+        v0 = amsg.value
+        msg = v0.message
+        if self.state >= PeerState.GOT_HELLO and msg.type != MessageType.ERROR_MSG:
+            if v0.sequence != self.recv_mac_seq:
+                log.warning("unexpected auth sequence from %r", self)
+                self.drop(ErrorCode.ERR_AUTH, "unexpected auth sequence")
+                return
+            if not hmac_sha256_verify(
+                v0.mac.mac, self.recv_mac_key, xdr_to_opaque((uint64, v0.sequence), msg)
+            ):
+                log.warning("MAC failed on recv from %r", self)
+                self.drop(ErrorCode.ERR_AUTH, "unexpected MAC")
+                return
+            self.recv_mac_seq += 1
+        self.recv_message(msg)
+
+    def recv_message(self, msg: StellarMessage) -> None:
+        if self.should_abort():
+            return
+        self._m_recv.mark()
+        t = msg.type
+        if not self.is_authenticated() and t not in (
+            MessageType.HELLO2,
+            MessageType.AUTH,
+            MessageType.ERROR_MSG,
+        ):
+            log.warning("recv %s before handshake from %r", t.name, self)
+            self.drop()
+            return
+        name = _DISPATCH.get(t)
+        if name is None:
+            log.warning("unhandled message type %s from %r", t, self)
+            return
+        getattr(self, name)(msg)
+
+    # -- handshake handlers -------------------------------------------------
+    def recv_hello2(self, msg: StellarMessage) -> None:
+        elo: Hello2 = msg.value
+        om = self.app.overlay_manager
+        if self.state >= PeerState.GOT_HELLO:
+            log.warning("unexpected HELLO2 from %r", self)
+            self.drop()
+            return
+        if not om.peer_auth.verify_remote_auth_cert(elo.peerID, elo.cert):
+            log.warning("bad auth cert from %r", self)
+            self.drop()
+            return
+        if elo.peerID == self.app.config.NODE_SEED.get_public_key():
+            self.drop(ErrorCode.ERR_CONF, "connecting to self")
+            return
+        if elo.networkID != self.app.network_id:
+            self.drop(ErrorCode.ERR_CONF, "wrong network passphrase")
+            return
+        if not (0 < elo.listeningPort <= 65535):
+            self.drop(ErrorCode.ERR_CONF, "bad port number")
+            return
+        for p in om.get_peers():
+            if p is not self and p.peer_id == elo.peerID:
+                self.drop(ErrorCode.ERR_CONF, "already connected")
+                return
+        if (
+            elo.overlayMinVersion > self.app.config.OVERLAY_PROTOCOL_VERSION
+            or elo.overlayVersion < self.app.config.OVERLAY_PROTOCOL_MIN_VERSION
+        ):
+            self.drop(ErrorCode.ERR_CONF, "wrong protocol version")
+            return
+        self.peer_id = elo.peerID
+        self.remote_version = elo.versionStr
+        self.remote_overlay_version = elo.overlayVersion
+        self.remote_listening_port = elo.listeningPort
+        self.recv_nonce = elo.nonce
+        we_called = self.role == PeerRole.WE_CALLED_REMOTE
+        self.send_mac_seq = 0
+        self.recv_mac_seq = 0
+        self.send_mac_key = om.peer_auth.get_sending_mac_key(
+            self.send_nonce, self.recv_nonce, elo.cert.pubkey.key, we_called
+        )
+        self.recv_mac_key = om.peer_auth.get_receiving_mac_key(
+            self.send_nonce, self.recv_nonce, elo.cert.pubkey.key, we_called
+        )
+        self.state = PeerState.GOT_HELLO
+        if we_called:
+            self.send_auth()
+        else:
+            self.send_hello2()
+
+    def recv_auth(self, msg: StellarMessage) -> None:
+        if self.state != PeerState.GOT_HELLO:
+            self.drop(ErrorCode.ERR_MISC, "out-of-order AUTH")
+            return
+        self.state = PeerState.GOT_AUTH
+        if self.role == PeerRole.REMOTE_CALLED_US:
+            self.send_auth()
+        om = self.app.overlay_manager
+        if not om.accept_authenticated_peer(self):
+            self.drop(ErrorCode.ERR_LOAD, "peer rejected")
+            return
+        # learn more of the network, and push our recent SCP state so a
+        # late joiner can follow consensus (Peer.cpp:1095: seq 0 = recent)
+        self.send_get_peers()
+        if self.app.herder is not None:
+            self.app.herder.send_scp_state_to_peer(0, self)
+
+    def recv_error(self, msg: StellarMessage) -> None:
+        err: Error = msg.value
+        log.warning("peer %r sent error %s: %s", self, err.code, err.msg)
+        self.drop()
+
+    # -- item handlers ------------------------------------------------------
+    def recv_dont_have(self, msg: StellarMessage) -> None:
+        dh: DontHave = msg.value
+        self.app.herder.peer_doesnt_have(dh.type, dh.reqHash, self)
+
+    def recv_get_peers(self, msg: StellarMessage) -> None:
+        self.send_peers()
+
+    def recv_peers(self, msg: StellarMessage) -> None:
+        import random
+
+        from .peerrecord import SECONDS_PER_BACKOFF, PeerRecord
+
+        cfg = self.app.config
+        for addr in msg.value:
+            if addr.ip.type != IPAddrType.IPv4:
+                continue
+            if not (0 < addr.port <= 65535):
+                continue  # remote-supplied; don't let bad data near the DB
+            ip = ".".join(str(b) for b in addr.ip.value)
+            try:
+                # numFailures deliberately NOT copied from the remote — we
+                # may have better luck, and remote data must not poison
+                # our backoff (Peer.cpp:1128-1151); the first attempt is
+                # randomized over the new-peer window instead of now() so a
+                # PEERS burst doesn't stampede the next tick into dialing
+                # every learned address at once
+                pr = PeerRecord(
+                    ip,
+                    addr.port,
+                    self.app.clock.now()
+                    # analysis: off determinism -- anti-stampede jitter over LEARNED peer addresses: spreading dials across the backoff window is the point, and the jitter never feeds consensus
+                    + random.uniform(0.0, SECONDS_PER_BACKOFF),
+                    0,
+                )
+                if pr.is_private_address():
+                    log.warning("ignoring received private address %s", pr.to_string())
+                    continue
+                if pr.is_self_address_and_port(self.ip(), cfg.PEER_PORT):
+                    log.debug("ignoring received self-address %s", pr.to_string())
+                    continue
+                if pr.is_localhost() and not cfg.ALLOW_LOCALHOST_FOR_TESTING:
+                    log.warning("ignoring received localhost %s", pr.to_string())
+                    continue
+                pr.insert_if_new(self.app.database)
+            except Exception as e:
+                log.warning("could not store peer %s:%d: %s", ip, addr.port, e)
+
+    def recv_get_tx_set(self, msg: StellarMessage) -> None:
+        ts = self.app.herder.get_tx_set(msg.value)
+        if ts is not None:
+            self.send_message(StellarMessage(MessageType.TX_SET, ts.to_xdr()))
+        else:
+            self.send_dont_have(MessageType.TX_SET, msg.value)
+
+    def recv_tx_set(self, msg: StellarMessage) -> None:
+        from ..herder.txset import TxSetFrame
+
+        frame = TxSetFrame.from_xdr_set(self.app.network_id, msg.value)
+        self.app.herder.recv_tx_set(frame.get_contents_hash(), frame)
+
+    def recv_transaction(self, msg: StellarMessage) -> None:
+        from ..tx.frame import TransactionFrame
+        from ..herder.herder import TX_STATUS_PENDING
+
+        om = self.app.overlay_manager
+        if not om.recv_flooded_msg(msg, self):
+            return  # duplicate
+        tx = TransactionFrame.make_from_wire(self.app.network_id, msg.value)
+        ingest = getattr(self.app, "ingest", None)
+        if ingest is not None:
+            # admission front door: the tx joins the current micro-batch
+            # and floods onward ONLY once the batch verdict admits it —
+            # an invalid-sig flood dies here without fan-out
+            def _flood_on_accept(status, _msg=msg, _om=om):
+                if status == TX_STATUS_PENDING:
+                    _om.broadcast_message(_msg)
+
+            ingest.submit(tx, on_status=_flood_on_accept)
+        elif self.app.herder.recv_transaction(tx) == TX_STATUS_PENDING:
+            om.broadcast_message(msg)
+
+    def recv_get_scp_quorum_set(self, msg: StellarMessage) -> None:
+        qset = self.app.herder.get_qset(msg.value)
+        if qset is not None:
+            self.send_message(StellarMessage(MessageType.SCP_QUORUMSET, qset))
+        else:
+            self.send_dont_have(MessageType.SCP_QUORUMSET, msg.value)
+
+    def recv_scp_quorum_set(self, msg: StellarMessage) -> None:
+        from ..scp.quorum import qset_hash
+
+        self.app.herder.recv_scp_quorum_set(qset_hash(msg.value), msg.value)
+
+    def recv_scp_message(self, msg: StellarMessage) -> None:
+        om = self.app.overlay_manager
+        if not om.recv_flooded_msg(msg, self):
+            return  # already seen
+        envelope: SCPEnvelope = msg.value
+        # all envelopes that arrive this crank verify as ONE SigBackend
+        # batch before reaching the herder (OverlayManager flush)
+        om.enqueue_scp_envelope(envelope)
+
+    def recv_get_scp_state(self, msg: StellarMessage) -> None:
+        self.app.herder.send_scp_state_to_peer(msg.value, self)
+
+    # -- teardown -----------------------------------------------------------
+    def drop(self, code: Optional[ErrorCode] = None, text: str = "") -> None:
+        if self.state == PeerState.CLOSING:
+            return
+        if code is not None:
+            try:
+                # the goodbye frame must not queue behind the congestion
+                # that may have caused this drop — emit it straight into
+                # the transport like the reference's direct write (the
+                # straggler path already runs in bypass by the time it
+                # gets here)
+                self.send_queue.bypass()
+                self.send_error(code, text)
+            except Exception:
+                pass
+        self.state = PeerState.CLOSING
+        self._m_drop.mark()
+        self._idle_timer.cancel()
+        self.send_queue.close()
+        om = self.app.overlay_manager
+        if om is not None:
+            om.drop_peer(self)
+        self.close_transport()

@@ -1,0 +1,492 @@
+"""SendQueue — the overlay survival plane: one bounded, priority-classed
+outbound queue per Peer (ROADMAP #6(b); reference gap: the reference sheds
+on RECEIVE cost only — src/overlay/LoadManager.cpp, ported as
+``loadmanager.py`` — and its write buffers grow without bound, so one
+slow, crashed-but-connected, or hostile peer absorbs memory forever and a
+saturating tx flood queues consensus-critical SCP traffic behind gossip).
+
+Four classes, drained strictly in priority order:
+
+- ``CRITICAL`` — SCP envelopes, handshake (HELLO/HELLO2/AUTH), errors.
+  NEVER shed: consensus-message delivery latency is what breaks liveness
+  under load (arXiv:2302.00418), so these jump every queue.
+- ``FETCH``    — tx-set / quorum-set replies and the GET_* requests +
+  DONT_HAVE.  Never shed either (they answer explicit asks), but they
+  count against the byte budget.
+- ``FLOOD``    — transaction broadcast.  Shed oldest-within-class.
+- ``GOSSIP``   — peer-address exchange.  Shed oldest-within-class, and
+  first when an unsheddable push needs room.
+
+The queue is the single choke point: ``Peer.send_message`` classifies and
+enqueues the packed ``StellarMessage`` BODY; MAC sequence numbers are
+assigned at DRAIN time (``_emit``), so priority reordering and shedding
+never open a gap in the receiver's MAC sequence.  That also makes
+flooding pack-once/fan-out: ``Floodgate.broadcast`` packs the message
+once and every peer's queue holds a reference to the same immutable
+buffer — shedding is an O(1) deque pop, and a 100-peer flood serializes
+the message exactly once.
+
+Bounding (all knobs validated at boot, ``Config``):
+
+- ``OVERLAY_SENDQ_BYTES``  — total queued bytes per peer.  0 disables the
+  plane entirely: enqueue degenerates to the immediate assemble-and-send
+  the reference performs, bit-exactly (pinned by tests/test_sendqueue.py).
+- ``OVERLAY_SENDQ_FLOOD_MSGS`` — per-class message cap for FLOOD/GOSSIP.
+- ``STRAGGLER_STALL_MS`` — a peer whose CRITICAL head-of-line age exceeds
+  this budget (VirtualTimer-polled, so the disconnect lands INSIDE the
+  budget deterministically), or whose unsheddable backlog would exceed
+  the byte budget, is dropped with ``ERR_LOAD`` and its address backs off
+  in the peerrecord book.
+
+Transports are drains: the queue releases frames into the transport only
+while the transport's in-flight window (``_inflight``) has room, and
+``Peer.wrote_bytes(n)`` credits bytes the wire actually accepted back to
+the queue.  Sheds are metered per class on the metrics fast lane
+(``overlay.sendq.shed-<class>``); straggler disconnects emit an
+``overlay.sendq.stall`` trace span.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from typing import Deque, List, Optional, Tuple
+
+from ..crypto.sha import hmac_sha256
+from ..trace import tracer_of
+from ..util import VirtualTimer, xlog
+from ..xdr.base import uint64
+from ..xdr.overlay import ErrorCode, MessageType
+
+log = xlog.logger("Overlay")
+
+# priority classes, drained low index first
+CLASS_CRITICAL = 0
+CLASS_FETCH = 1
+CLASS_FLOOD = 2
+CLASS_GOSSIP = 3
+N_CLASSES = 4
+CLASS_NAMES = ("critical", "fetch", "flood", "gossip")
+SHEDDABLE = (CLASS_FLOOD, CLASS_GOSSIP)
+
+_CLASS_OF = {
+    MessageType.ERROR_MSG: CLASS_CRITICAL,
+    MessageType.HELLO: CLASS_CRITICAL,
+    MessageType.HELLO2: CLASS_CRITICAL,
+    MessageType.AUTH: CLASS_CRITICAL,
+    MessageType.SCP_MESSAGE: CLASS_CRITICAL,
+    MessageType.DONT_HAVE: CLASS_FETCH,
+    MessageType.GET_TX_SET: CLASS_FETCH,
+    MessageType.TX_SET: CLASS_FETCH,
+    MessageType.GET_SCP_QUORUMSET: CLASS_FETCH,
+    MessageType.SCP_QUORUMSET: CLASS_FETCH,
+    MessageType.GET_SCP_STATE: CLASS_FETCH,
+    MessageType.TRANSACTION: CLASS_FLOOD,
+    MessageType.GET_PEERS: CLASS_GOSSIP,
+    MessageType.PEERS: CLASS_GOSSIP,
+}
+
+# message types sent before MAC keys exist (handshake/error) — seq 0,
+# zero MAC, exactly the reference's unauthenticated envelope
+UNMACED = (MessageType.HELLO2, MessageType.ERROR_MSG)
+
+# AuthenticatedMessage wire layout: union disc uint32(0) + V0{sequence
+# uint64, message, mac opaque[32]} — the frame is spliced from these
+# parts around the shared message body (bit-exact vs
+# AuthenticatedMessage.v0_of(...).to_xdr(); pinned in test_sendqueue.py)
+_AM_DISC = b"\x00\x00\x00\x00"
+_ZERO_MAC = b"\x00" * 32
+# fixed per-frame envelope bytes around the body (disc + seq + mac)
+FRAME_ENVELOPE_BYTES = 4 + 8 + 32
+
+# transport in-flight window: how many wire bytes may sit in the
+# transport's own buffer (TCP _wbuf / loopback out_queue) before the
+# queue holds frames back — the "kernel socket buffer" model.  Bounded
+# by the byte cap so tiny test caps stay observable.
+INFLIGHT_HIGH_WATER = 64 * 1024
+
+
+def classify(msg_type) -> int:
+    """Priority class for a StellarMessage type; unknown (future) types
+    ride FETCH — bounded-but-never-shed, the conservative middle."""
+    return _CLASS_OF.get(msg_type, CLASS_FETCH)
+
+
+class SendQueueStats:
+    """Per-OverlayManager aggregate across all peers (peers die with
+    their connections; the chaos scoreboard needs the node-level view)."""
+
+    __slots__ = (
+        "shed_msgs",
+        "shed_bytes",
+        "straggler_disconnects",
+        "bytes_high_water",
+        "max_stall_ms",
+        "emitted_frames",
+        "oversized_admits",
+    )
+
+    def __init__(self):
+        self.shed_msgs = [0] * N_CLASSES
+        self.shed_bytes = [0] * N_CLASSES
+        self.straggler_disconnects = 0
+        self.bytes_high_water = 0
+        self.max_stall_ms = 0.0
+        self.emitted_frames = 0
+        # while an admitted oversized frame is queued the high-water may
+        # exceed the cap by that frame (the documented relaxed bound)
+        self.oversized_admits = 0
+
+    def to_dict(self) -> dict:
+        return {
+            "shed": dict(zip(CLASS_NAMES, self.shed_msgs)),
+            "shed_bytes": dict(zip(CLASS_NAMES, self.shed_bytes)),
+            "straggler_disconnects": self.straggler_disconnects,
+            "bytes_high_water": self.bytes_high_water,
+            "max_stall_ms": round(self.max_stall_ms, 1),
+            "emitted_frames": self.emitted_frames,
+            "oversized_admits": self.oversized_admits,
+        }
+
+
+def _emit(peer, msg_type, body: bytes) -> int:
+    """Assemble the AuthenticatedMessage frame around ``body`` and hand
+    it to the transport.  THE only legal ``send_frame`` call site
+    (analysis rule ``send-path``): MAC sequence numbers are assigned
+    here, at drain time, so the wire order IS the MAC order no matter
+    how the queue reordered or shed."""
+    if msg_type in UNMACED:
+        seq_bytes = b"\x00" * 8
+        mac = _ZERO_MAC
+    else:
+        # ONE encoding serves both the MAC input and the wire splice —
+        # the MAC-input/wire-bytes equivalence is structural, not a
+        # coincidence of two encoders agreeing
+        seq_bytes = uint64.pack(peer.send_mac_seq)
+        mac = hmac_sha256(peer.send_mac_key, seq_bytes + body)
+        peer.send_mac_seq += 1
+    frame = _AM_DISC + seq_bytes + body + mac
+    # per-peer send accounting happens HERE, not at enqueue: shed frames
+    # never hit the wire and must not count as sent messages/bytes
+    peer._m_sent.mark()
+    lm = getattr(peer.app.overlay_manager, "load_manager", None)
+    if lm is not None and peer.peer_id is not None:
+        lm.get_peer_costs(bytes(peer.peer_id.value)).bytes_send += len(frame)
+    peer.send_frame(frame)
+    return len(frame)
+
+
+class SendQueue:
+    """One per Peer; owns the four class deques, the byte/message caps,
+    the transport in-flight window, and the straggler stall timer."""
+
+    def __init__(self, peer):
+        cfg = peer.app.config
+        self.peer = peer
+        self.max_bytes = int(getattr(cfg, "OVERLAY_SENDQ_BYTES", 0) or 0)
+        self.active = self.max_bytes > 0
+        self.max_class_msgs = int(getattr(cfg, "OVERLAY_SENDQ_FLOOD_MSGS", 1024))
+        self.stall_budget = (
+            float(getattr(cfg, "STRAGGLER_STALL_MS", 5000)) / 1000.0
+        )
+        # (body, msg_type, enqueued_at, wire_bytes) per entry; bodies are
+        # shared immutable buffers (pack-once fan-out), so an entry is a
+        # few pointers and shedding is an O(1) pop
+        self._q: List[Deque[Tuple[bytes, object, float, int]]] = [
+            deque() for _ in range(N_CLASSES)
+        ]
+        self.queued_bytes = 0
+        # per-class queued bytes: the shed-feasibility pre-check needs
+        # "how much room could evicting this order actually open"
+        self.class_bytes = [0] * N_CLASSES
+        self.bytes_high_water = 0
+        self._inflight = 0
+        self._inflight_limit = (
+            min(self.max_bytes, INFLIGHT_HIGH_WATER) if self.active else 0
+        )
+        self.shed_msgs = [0] * N_CLASSES
+        self.shed_bytes = [0] * N_CLASSES
+        self.n_enqueued = 0
+        self.n_emitted = 0
+        # unsheddable frames bigger than the whole cap admitted alone on
+        # an empty queue: while one is queued, bytes_high_water may
+        # legitimately exceed max_bytes (bound = max(cap, that frame))
+        self.n_oversized_admits = 0
+        self.stalled_out = False  # set once on the straggler disconnect
+        self.closed = False
+        self._pass_through = not self.active
+        self._draining = False
+        self._stall_timer: Optional[VirtualTimer] = None
+        self._stall_armed = False
+        om = getattr(peer.app, "overlay_manager", None)
+        self._stats: Optional[SendQueueStats] = (
+            getattr(om, "sendq_stats", None) if om is not None else None
+        )
+        if self.active:
+            m = peer.app.metrics
+            self._m_shed = [
+                m.new_meter(("overlay", "sendq", "shed-" + n), "message")
+                for n in CLASS_NAMES
+            ]
+            self._m_straggler = m.new_meter(
+                ("overlay", "sendq", "straggler"), "drop"
+            )
+
+    def bypass(self) -> None:
+        """Teardown mode: further enqueues emit straight into the
+        transport, skipping every cap — the goodbye ERROR frame of a
+        disconnect must not queue behind the congestion that caused it
+        (the transport is being torn down; delivery is best-effort,
+        exactly the reference's direct write)."""
+        self._pass_through = True
+
+    # -- enqueue -------------------------------------------------------------
+    def enqueue(self, msg, body: Optional[bytes] = None) -> bool:
+        """Classify + queue one message; returns False when the message
+        itself was shed.  ``body`` is the pre-packed StellarMessage XDR
+        (the flood fan-out shares ONE buffer across every peer's queue);
+        when absent the message packs here, once."""
+        peer = self.peer
+        if body is None:
+            body = msg.to_xdr()
+        if self._pass_through:
+            # knob off (or the goodbye frame of a disconnect): the
+            # reference's immediate assemble-and-send, bit-exact
+            _emit(peer, msg.type, body)
+            return True
+        if self.closed:
+            return False  # post-drop stragglers: the transport is gone
+        cls = classify(msg.type)
+        nbytes = FRAME_ENVELOPE_BYTES + len(body) + peer.FRAME_WIRE_OVERHEAD
+        if cls in SHEDDABLE:
+            if not self._fits_even_after_evicting(nbytes, cls):
+                # the frame can NEVER fit — bigger than the whole cap,
+                # or the unsheddable backlog leaves no room any shed
+                # could open: the incoming frame itself is the only
+                # shed.  Checked FIRST, before the count-cap loop or any
+                # eviction, so an unfittable frame cannot cost the live
+                # queued backlog a single frame chasing room that
+                # arithmetically cannot exist.
+                self._note_shed(cls, nbytes)
+                return False
+            q = self._q[cls]
+            while len(q) >= self.max_class_msgs:
+                self._shed_oldest(cls)
+            self._make_room(nbytes, for_class=cls)
+        else:
+            if not self._make_room(nbytes, for_class=cls):
+                if nbytes > self.max_bytes and self.queued_bytes == 0:
+                    # an unsheddable frame larger than the WHOLE cap (a
+                    # near-capacity TX_SET reply under a small cap) with
+                    # NOTHING else queued: admit it alone rather than
+                    # disconnecting a healthy, responsive peer — the
+                    # memory bound becomes max(cap, one frame).  The
+                    # same frame behind ANY unsheddable backlog takes
+                    # the straggler branch below: a peer that cannot
+                    # clear small frames will not clear a giant one,
+                    # and admitting would stack oversized frames
+                    self.n_oversized_admits += 1
+                    if self._stats is not None:
+                        self._stats.oversized_admits += 1
+                else:
+                    # the peer's unsheddable BACKLOG exceeds the budget
+                    # even with every FLOOD/GOSSIP frame shed — it is a
+                    # straggler, not a queue.  Deliberately instant (a hard
+                    # memory bound), not stall-clocked: on
+                    # TCP every emit attempts a synchronous kernel write
+                    # first, so a backlog this deep means the socket
+                    # already refused ~cap bytes — genuine backpressure,
+                    # not a same-crank burst racing the event loop
+                    self._disconnect_straggler(
+                        "queued bytes over budget", stall_ms=None
+                    )
+                    return False
+        now = peer.app.clock.now()
+        self._q[cls].append((body, msg.type, now, nbytes))
+        self.queued_bytes += nbytes
+        self.class_bytes[cls] += nbytes
+        self.n_enqueued += 1
+        self._drain()
+        if cls == CLASS_CRITICAL:
+            # only a CRITICAL frame the drain could NOT release starts
+            # the stall clock (the arm no-ops on an empty class queue),
+            # so the uncongested fast path never touches the timer
+            self._arm_stall_timer()
+        # high-water is the POST-drain backlog: an uncongested queue that
+        # passes frames straight through holds nothing
+        if self.queued_bytes > self.bytes_high_water:
+            self.bytes_high_water = self.queued_bytes
+            if (
+                self._stats is not None
+                and self.queued_bytes > self._stats.bytes_high_water
+            ):
+                self._stats.bytes_high_water = self.queued_bytes
+        return True
+
+    @staticmethod
+    def _evict_order(for_class: int) -> Tuple[int, ...]:
+        """Classes an incoming push may evict, in eviction order: its own
+        class first for sheddable pushes (keep the freshest of each
+        stream), so a GOSSIP frame can never displace queued FLOOD
+        traffic that drains ahead of it; an unsheddable push sheds
+        GOSSIP before FLOOD (peer addresses are the cheapest loss)."""
+        if for_class == CLASS_FLOOD:
+            return (CLASS_FLOOD, CLASS_GOSSIP)
+        if for_class == CLASS_GOSSIP:
+            return (CLASS_GOSSIP,)
+        return (CLASS_GOSSIP, CLASS_FLOOD)
+
+    def _fits_even_after_evicting(self, nbytes: int, for_class: int) -> bool:
+        """Could ``nbytes`` fit under the cap if every frame in the
+        push's eviction order were shed?  (The backlog that survives is
+        the unevictable remainder.)"""
+        evictable = sum(
+            self.class_bytes[c] for c in self._evict_order(for_class)
+        )
+        return self.queued_bytes - evictable + nbytes <= self.max_bytes
+
+    def _make_room(self, nbytes: int, for_class: int) -> bool:
+        """Shed the push's eviction order oldest-first until ``nbytes``
+        fits under the byte cap (see ``_evict_order``)."""
+        order = self._evict_order(for_class)
+        while self.queued_bytes + nbytes > self.max_bytes:
+            for cls in order:
+                if self._q[cls]:
+                    self._shed_oldest(cls)
+                    break
+            else:
+                return False
+        return True
+
+    def _shed_oldest(self, cls: int) -> None:
+        _body, _mt, _at, nbytes = self._q[cls].popleft()
+        self.queued_bytes -= nbytes
+        self.class_bytes[cls] -= nbytes
+        self._note_shed(cls, nbytes)
+
+    def _note_shed(self, cls: int, nbytes: int) -> None:
+        self.shed_msgs[cls] += 1
+        self.shed_bytes[cls] += nbytes
+        self._m_shed[cls].mark()
+        if self._stats is not None:
+            self._stats.shed_msgs[cls] += 1
+            self._stats.shed_bytes[cls] += nbytes
+
+    # -- drain ---------------------------------------------------------------
+    def credit(self, n: int) -> None:
+        """Transport hook: ``n`` wire bytes left the building (kernel
+        accepted them / the loopback delivered a frame) — open the
+        in-flight window and keep draining."""
+        if not self.active or self.closed:
+            return
+        self._inflight = max(0, self._inflight - n)
+        self._drain()
+
+    def _drain(self) -> None:
+        if self.closed or self._draining:
+            return
+        self._draining = True
+        try:
+            while self._inflight < self._inflight_limit:
+                entry = None
+                for cls in range(N_CLASSES):
+                    if self._q[cls]:
+                        entry = self._q[cls].popleft()
+                        break
+                if entry is None:
+                    break
+                body, msg_type, _at, nbytes = entry
+                self.queued_bytes -= nbytes
+                self.class_bytes[cls] -= nbytes
+                self._inflight += nbytes
+                self.n_emitted += 1
+                if self._stats is not None:
+                    self._stats.emitted_frames += 1
+                _emit(self.peer, msg_type, body)
+        finally:
+            self._draining = False
+
+    # -- straggler detection -------------------------------------------------
+    def _arm_stall_timer(self) -> None:
+        if self._stall_armed or self.closed:
+            return
+        q = self._q[CLASS_CRITICAL]
+        if not q:
+            return
+        if self._stall_timer is None:
+            self._stall_timer = VirtualTimer(self.peer.app.clock)
+        self._stall_armed = True
+        head_at = q[0][2]
+        self._stall_timer.expires_at(head_at + self.stall_budget)
+        self._stall_timer.async_wait(self._stall_check)
+
+    def _stall_check(self) -> None:
+        self._stall_armed = False
+        if self.closed:
+            return
+        q = self._q[CLASS_CRITICAL]
+        if not q:
+            return  # drained since arming; re-armed on the next enqueue
+        age = self.peer.app.clock.now() - q[0][2]
+        if age + 1e-9 >= self.stall_budget:
+            self._disconnect_straggler(
+                "CRITICAL head-of-line stall", stall_ms=age * 1000.0
+            )
+        else:
+            self._arm_stall_timer()  # a fresher head took over
+
+    def _disconnect_straggler(self, reason: str, stall_ms) -> None:
+        if self.closed or self.stalled_out:
+            return
+        peer = self.peer
+        self.stalled_out = True
+        self._m_straggler.mark()
+        if self._stats is not None:
+            self._stats.straggler_disconnects += 1
+            if stall_ms is not None and stall_ms > self._stats.max_stall_ms:
+                self._stats.max_stall_ms = stall_ms
+        tracer = tracer_of(peer.app)
+        sp = tracer.begin("overlay.sendq.stall")
+        log.warning(
+            "straggler disconnect %r: %s (queued=%dB inflight=%dB)",
+            peer, reason, self.queued_bytes, self._inflight,
+        )
+        # the goodbye ERROR frame must not re-enter the caps it just
+        # tripped; everything after this is best-effort into a transport
+        # that is being torn down anyway
+        self.bypass()
+        peer.note_straggler_backoff()
+        peer.drop(ErrorCode.ERR_LOAD, "send queue " + reason)
+        tracer.end(
+            sp,
+            reason=reason,
+            stall_ms=round(stall_ms, 1) if stall_ms is not None else -1,
+        )
+
+    # -- teardown / views ----------------------------------------------------
+    def close(self) -> None:
+        if self.closed:
+            return
+        self.closed = True
+        if self._stall_timer is not None:
+            self._stall_timer.cancel()
+        for q in self._q:
+            q.clear()
+        self.queued_bytes = 0
+        self.class_bytes = [0] * N_CLASSES
+
+    def stats(self) -> dict:
+        return {
+            "active": self.active,
+            "queued_bytes": self.queued_bytes,
+            "bytes_high_water": self.bytes_high_water,
+            "inflight": self._inflight,
+            "queued_msgs": {
+                CLASS_NAMES[i]: len(self._q[i]) for i in range(N_CLASSES)
+            },
+            "shed": dict(zip(CLASS_NAMES, self.shed_msgs)),
+            "shed_bytes": dict(zip(CLASS_NAMES, self.shed_bytes)),
+            "enqueued": self.n_enqueued,
+            "emitted": self.n_emitted,
+            "oversized_admits": self.n_oversized_admits,
+            "stalled_out": self.stalled_out,
+        }

@@ -1,0 +1,150 @@
+"""Federated-agreement quorum-set math (reference: src/scp/LocalNode.{h,cpp}).
+
+Pure functions over ``SCPQuorumSet`` — nested threshold structures
+(src/xdr/Stellar-SCP.x:81).  A *slice* satisfies one node's trust
+requirements; a *quorum* is a set of nodes containing a slice for each of
+its members; a *v-blocking* set intersects every slice of a node.
+
+Node sets are plain Python ``set``s of ``NodeID`` (hashable PublicKey).
+Weights are fixed-point in [0, 2^64-1] like the reference
+(LocalNode.cpp:140-167), with Python big ints replacing ``bigDivide``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Iterable, Optional, Set
+
+from ..crypto import sha256
+from ..xdr.base import xdr_to_opaque
+from ..xdr.scp import SCPEnvelope, SCPQuorumSet, SCPStatement
+from ..xdr.xtypes import NodeID
+
+UINT64_MAX = 0xFFFFFFFFFFFFFFFF
+
+
+def qset_hash(qset: SCPQuorumSet) -> bytes:
+    return sha256(xdr_to_opaque(qset))
+
+
+def singleton_qset(node_id: NodeID) -> SCPQuorumSet:
+    """{threshold 1, [node]} — stands in for an EXTERNALIZE node's last qset
+    (Slot.cpp getQuorumSetFromStatement): a node that externalized only
+    needs itself to justify the commit."""
+    return SCPQuorumSet(threshold=1, validators=[node_id], innerSets=[])
+
+
+def iter_all_nodes(qset: SCPQuorumSet) -> Iterable[NodeID]:
+    """Every node mentioned anywhere in the (nested) qset, deduplicated."""
+    seen: Set[NodeID] = set()
+
+    def walk(q: SCPQuorumSet):
+        for v in q.validators:
+            if v not in seen:
+                seen.add(v)
+                yield v
+        for inner in q.innerSets:
+            yield from walk(inner)
+
+    yield from walk(qset)
+
+
+def _sanity(node_id: NodeID, qset: SCPQuorumSet):
+    """(found, well_formed): node appears somewhere; every threshold is in
+    [1, #entries] (LocalNode.cpp:45-67)."""
+    total = len(qset.validators) + len(qset.innerSets)
+    well_formed = 1 <= qset.threshold <= total
+    found = node_id in qset.validators
+    for inner in qset.innerSets:
+        f, w = _sanity(node_id, inner)
+        found = found or f
+        well_formed = well_formed and w
+    return found, well_formed
+
+
+def is_qset_sane(node_id: NodeID, qset: SCPQuorumSet, allow_self_absent: bool = False) -> bool:
+    """A statement's companion qset must be well-formed and (for validators)
+    include its author (LocalNode.cpp:69-76)."""
+    found, well_formed = _sanity(node_id, qset)
+    return (found or allow_self_absent) and well_formed
+
+
+def node_weight(node_id: NodeID, qset: SCPQuorumSet) -> int:
+    """Probability (as a /2^64 fixed-point) that the node appears in a
+    randomly sampled slice; product of threshold/size down the first branch
+    containing it."""
+    n, d = qset.threshold, len(qset.innerSets) + len(qset.validators)
+    if node_id in qset.validators:
+        return UINT64_MAX * n // d
+    for inner in qset.innerSets:
+        leaf = node_weight(node_id, inner)
+        if leaf:
+            return leaf * n // d
+    return 0
+
+
+def is_quorum_slice(qset: SCPQuorumSet, nodes: Set[NodeID]) -> bool:
+    """nodes contains at least `threshold` satisfied entries of qset."""
+    need = qset.threshold
+    for v in qset.validators:
+        if v in nodes:
+            need -= 1
+            if need <= 0:
+                return True
+    for inner in qset.innerSets:
+        if is_quorum_slice(inner, nodes):
+            need -= 1
+            if need <= 0:
+                return True
+    return False
+
+
+def is_v_blocking(qset: SCPQuorumSet, nodes: Set[NodeID]) -> bool:
+    """nodes intersects every slice of qset: more entries hit than the qset
+    can afford to lose (entries - threshold)."""
+    if qset.threshold == 0:
+        return False  # no v-blocking set for the empty requirement
+    can_lose = 1 + len(qset.validators) + len(qset.innerSets) - qset.threshold
+    for v in qset.validators:
+        if v in nodes:
+            can_lose -= 1
+            if can_lose <= 0:
+                return True
+    for inner in qset.innerSets:
+        if is_v_blocking(inner, nodes):
+            can_lose -= 1
+            if can_lose <= 0:
+                return True
+    return False
+
+
+def is_v_blocking_with(
+    qset: SCPQuorumSet,
+    envs: Dict[NodeID, SCPEnvelope],
+    predicate: Callable[[SCPStatement], bool],
+) -> bool:
+    nodes = {n for n, e in envs.items() if predicate(e.statement)}
+    return is_v_blocking(qset, nodes)
+
+
+def is_quorum_with(
+    local_qset: SCPQuorumSet,
+    envs: Dict[NodeID, SCPEnvelope],
+    qset_of: Callable[[SCPStatement], Optional[SCPQuorumSet]],
+    predicate: Callable[[SCPStatement], bool],
+) -> bool:
+    """Transitive-quorum check (LocalNode.cpp:280-312): start from the nodes
+    whose statement passes `predicate`, iteratively drop any node whose own
+    qset has no slice inside the surviving set, and test whether the fixpoint
+    still contains a slice of the local qset."""
+    nodes = {n for n, e in envs.items() if predicate(e.statement)}
+    while True:
+        before = len(nodes)
+
+        def keeps(n: NodeID) -> bool:
+            q = qset_of(envs[n].statement)
+            return q is not None and is_quorum_slice(q, nodes)
+
+        nodes = {n for n in nodes if keeps(n)}
+        if len(nodes) == before:
+            break
+    return is_quorum_slice(local_qset, nodes)

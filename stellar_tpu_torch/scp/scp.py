@@ -1,0 +1,92 @@
+"""SCP — library entry point (reference: src/scp/SCP.{h,cpp}).
+
+Owns the per-slot state map and the local node's identity/quorum set; fully
+abstracted from the host through SCPDriver (scp/readme.md).  Every inbound
+envelope is signature-checked by the driver before any protocol processing.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+from ..xdr.scp import SCPEnvelope, SCPQuorumSet
+from ..xdr.xtypes import NodeID
+from . import quorum
+from .driver import EnvelopeState, SCPDriver
+from .slot import Slot
+
+
+class SCP:
+    def __init__(
+        self,
+        driver: SCPDriver,
+        node_id: NodeID,
+        is_validator: bool,
+        qset_local: SCPQuorumSet,
+    ):
+        self.driver = driver
+        self.node_id = node_id
+        self.is_validator = is_validator
+        self.local_qset = qset_local
+        self.local_qset_hash = quorum.qset_hash(qset_local)
+        self.known_slots: Dict[int, Slot] = {}
+
+    def get_slot(self, slot_index: int, create: bool = True) -> Optional[Slot]:
+        slot = self.known_slots.get(slot_index)
+        if slot is None and create:
+            slot = Slot(slot_index, self)
+            self.known_slots[slot_index] = slot
+        return slot
+
+    # -- inbound ----------------------------------------------------------------
+    def receive_envelope(self, envelope: SCPEnvelope) -> EnvelopeState:
+        if not self.driver.verify_envelope(envelope):
+            return EnvelopeState.INVALID
+        return self.get_slot(envelope.statement.slotIndex).process_envelope(envelope)
+
+    # -- local actions -------------------------------------------------------------
+    def nominate(self, slot_index: int, value: bytes, previous_value: bytes) -> bool:
+        assert self.is_validator
+        return self.get_slot(slot_index).nominate(value, previous_value)
+
+    def abandon_ballot(self, slot_index: int) -> bool:
+        assert self.is_validator
+        return self.get_slot(slot_index).abandon_ballot()
+
+    def update_local_quorum_set(self, qset: SCPQuorumSet) -> None:
+        self.local_qset = qset
+        self.local_qset_hash = quorum.qset_hash(qset)
+
+    def is_qset_sane_for(self, node_id: NodeID, qset: SCPQuorumSet) -> bool:
+        """Statement-level qset sanity.  The one exception to 'a node must
+        be a member of its own quorum set' is the local, NON-validating
+        node (reference: LocalNode::isQuorumSetSane, LocalNode.cpp:69-76);
+        all sanity checks route through here so the rule lives in one
+        place."""
+        self_absent_ok = node_id == self.node_id and not self.is_validator
+        return quorum.is_qset_sane(
+            node_id, qset, allow_self_absent=self_absent_ok
+        )
+
+    # -- state management -------------------------------------------------------------
+    def purge_slots(self, max_slot_index: int) -> None:
+        for idx in [i for i in self.known_slots if i < max_slot_index]:
+            del self.known_slots[idx]
+
+    def set_state_from_envelope(self, slot_index: int, e: SCPEnvelope) -> None:
+        if self.driver.verify_envelope(e):
+            self.get_slot(slot_index).set_state_from_envelope(e)
+
+    def get_current_state(self, slot_index: int) -> List[SCPEnvelope]:
+        slot = self.get_slot(slot_index, create=False)
+        return slot.get_current_state() if slot else []
+
+    def get_latest_messages_send(self, slot_index: int) -> List[SCPEnvelope]:
+        slot = self.get_slot(slot_index, create=False)
+        return slot.get_latest_messages_send() if slot else []
+
+    def get_cumulative_statement_count(self) -> int:
+        return sum(s.statement_count() for s in self.known_slots.values())
+
+    def dump_info(self) -> list:
+        return [self.known_slots[i].dump_info() for i in sorted(self.known_slots)]

@@ -1,0 +1,7 @@
+"""Structured span tracing & phase profiling (no reference counterpart —
+the reference leans on inline libmedida timers; this subsystem adds
+where-did-the-time-go attribution across ledger close, signature flushes,
+SCP rounds, and overlay fetches).  See tracer.py for the design notes."""
+
+from .chrome import chrome_trace_json  # noqa: F401
+from .tracer import NULL_TRACER, Span, Tracer, tracer_of  # noqa: F401

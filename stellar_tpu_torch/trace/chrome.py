@@ -1,0 +1,41 @@
+"""Chrome ``trace_event`` export (the ``/trace`` admin endpoint's payload).
+
+Format reference: the Trace Event Format doc (catapult); each completed span
+becomes one complete-duration event (``"ph": "X"``) with microsecond
+timestamps.  Loadable in chrome://tracing and https://ui.perfetto.dev; extra
+top-level keys (``aggregates``) are legal metadata both viewers ignore.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, List
+
+PID = 1  # one node process per trace; simulation apps share a ring per-app
+
+
+def _json_safe(v):
+    if isinstance(v, (bool, int, float, str)) or v is None:
+        return v
+    if isinstance(v, (bytes, bytearray)):
+        return v.hex()
+    return str(v)
+
+
+def chrome_trace_json(spans: Iterable) -> dict:
+    events: List[dict] = []
+    for s in spans:
+        if s.end is None:
+            continue
+        ev = {
+            "name": s.name,
+            "cat": s.name.split(".", 1)[0],
+            "ph": "X",
+            "ts": round(s.start * 1e6, 3),
+            "dur": round((s.end - s.start) * 1e6, 3),
+            "pid": PID,
+            "tid": s.tid,
+        }
+        if s.attrs:
+            ev["args"] = {k: _json_safe(v) for k, v in s.attrs.items()}
+        events.append(ev)
+    return {"traceEvents": events, "displayTimeUnit": "ms"}

@@ -1,0 +1,497 @@
+"""TransactionFrame (reference: src/transactions/TransactionFrame.{h,cpp}).
+
+Envelope wrapper: hashing, signature checking with signer weights/thresholds
+and used-signature tracking, validity (commonValid/checkValid), fee+seqnum
+processing, and apply with per-tx SQL savepoint + nested LedgerDelta.
+
+Hash preimages (consensus-critical):
+- contents hash = SHA256(xdr(networkID) ‖ xdr(ENVELOPE_TYPE_TX) ‖ xdr(tx))
+  (TransactionFrame.cpp:55-61); signatures sign this 32-byte hash.
+- full hash = SHA256(xdr(envelope)) (TransactionFrame.cpp:45-52).
+
+Batched-verify integration: signature checks call PubKeyUtils.verify_sig,
+which hits the global verify cache.  The TxSet layer *pre-warms* that cache
+through the SigBackend batch path (cpu or tpu) before running this eager
+algorithm — results are bit-identical to the reference's inline verify, the
+batch is just a prefetch (SURVEY.md §7 design note on batched-verify
+semantics).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+from ..crypto import PubKeyUtils, sha256
+from ..crypto.keys import SecretKey
+from ..ledger.accountframe import _ACCT_KEY_PREFIX, AccountFrame
+from ..ledger.delta import LedgerDelta
+from .opframe import OperationFrame
+from ..util.xmath import INT64_MAX
+from ..xdr.base import xdr_to_opaque
+from ..xdr.entries import EnvelopeType, PublicKey, Signer
+from ..xdr.ledger import OperationMeta, TransactionResultPair, TransactionMeta
+from ..xdr.overlay import MessageType, StellarMessage
+from ..xdr.txs import (
+    DecoratedSignature,
+    OperationResult,
+    TransactionEnvelope,
+    TransactionResult,
+    TransactionResultCode,
+    TransactionResultResult,
+)
+from . import history as tx_history
+
+
+def _acct_kb(pk: PublicKey) -> bytes:
+    """ACCOUNT cache key (prefix + raw pubkey) — the footprint pre-pass
+    builds thousands of these, so skip the LedgerKey/XDR round-trip the
+    same way AccountFrame.load_account does."""
+    return _ACCT_KEY_PREFIX + pk.value
+
+
+class TransactionFrame:
+    def __init__(self, network_id: bytes, envelope: TransactionEnvelope):
+        self.network_id = network_id
+        self.envelope = envelope
+        self._src_bytes: Optional[bytes] = None
+        self._contents_hash: Optional[bytes] = None
+        self._full_hash: Optional[bytes] = None
+        self._env_xdr: Optional[bytes] = None
+        self.result: TransactionResult = TransactionResult()
+        self.operations: List = []
+        self.signing_account: Optional[AccountFrame] = None
+        self.used_signatures: List[bool] = []
+        self.reset_results()
+
+    # -- construction ------------------------------------------------------
+    @classmethod
+    def make_from_wire(cls, network_id: bytes, envelope: TransactionEnvelope):
+        return cls(network_id, envelope)
+
+    # -- hashing -----------------------------------------------------------
+    def clear_cached(self):
+        self._contents_hash = None
+        self._full_hash = None
+        self._env_xdr = None
+
+    def env_xdr(self) -> bytes:
+        """Memoized envelope encoding — the envelope is packed for the full
+        hash, the txset contents hash, and the txhistory row; it only
+        changes when a signature is added (clear_cached)."""
+        if self._env_xdr is None:
+            self._env_xdr = self.envelope.to_xdr()
+        return self._env_xdr
+
+    def get_contents_hash(self) -> bytes:
+        if self._contents_hash is None:
+            self._contents_hash = sha256(
+                xdr_to_opaque(
+                    self.network_id, EnvelopeType.ENVELOPE_TYPE_TX, self.envelope.tx
+                )
+            )
+        return self._contents_hash
+
+    def get_full_hash(self) -> bytes:
+        if self._full_hash is None:
+            self._full_hash = sha256(self.env_xdr())
+        return self._full_hash
+
+    # -- basic accessors ---------------------------------------------------
+    @property
+    def tx(self):
+        return self.envelope.tx
+
+    def get_source_id(self) -> PublicKey:
+        return self.envelope.tx.sourceAccount
+
+    def source_bytes(self) -> bytes:
+        """Memoized raw source-account key — the per-account grouping maps
+        (txset chain check, apply-order batches, surge pricing) key on it
+        once per tx instead of chasing the attribute chain per lookup."""
+        sb = self._src_bytes
+        if sb is None:
+            sb = self._src_bytes = self.envelope.tx.sourceAccount.value
+        return sb
+
+    def get_seq_num(self) -> int:
+        return self.envelope.tx.seqNum
+
+    def get_fee(self) -> int:
+        return self.envelope.tx.fee
+
+    def get_min_fee(self, lm) -> int:
+        count = len(self.envelope.tx.operations) or 1
+        return lm.get_tx_fee() * count
+
+    def add_signature(self, secret_key: SecretKey) -> None:
+        self.clear_cached()
+        self.envelope.signatures.append(
+            DecoratedSignature(
+                PubKeyUtils.get_hint(secret_key.get_public_key()),
+                secret_key.sign(self.get_contents_hash()),
+            )
+        )
+
+    # -- results -----------------------------------------------------------
+    def reset_results(self):
+        op_results = []
+        for op in self.envelope.tx.operations:
+            op_results.append(OperationResult(None, None))  # filled by op frames
+        self.result = TransactionResult(
+            feeCharged=self.get_fee(),
+            result=TransactionResultResult(
+                TransactionResultCode.txSUCCESS, op_results
+            ),
+            ext=0,
+        )
+        self.operations = [
+            OperationFrame.make_helper(op, res, self)
+            for op, res in zip(self.envelope.tx.operations, op_results)
+        ]
+
+    def set_result_code(self, code: TransactionResultCode):
+        self.result.result = TransactionResultResult(code, None)
+
+    def mark_result_failed(self):
+        """txSUCCESS -> txFAILED keeping op results (markResultFailed)."""
+        results = self.result.result.value
+        self.result.result = TransactionResultResult(
+            TransactionResultCode.txFAILED, results
+        )
+
+    def get_result_code(self) -> TransactionResultCode:
+        return self.result.result.type
+
+    def get_result_pair(self) -> TransactionResultPair:
+        return TransactionResultPair(self.get_contents_hash(), self.result)
+
+    # -- signature checking (TransactionFrame.cpp:129-167) -----------------
+    def reset_signature_tracker(self):
+        self.signing_account = None
+        self.used_signatures = [False] * len(self.envelope.signatures)
+
+    def check_signature(self, account: AccountFrame, needed_weight: int) -> bool:
+        # Fast path for the dominant shape — one signature, master key
+        # only, master weight sufficient: same decision and same
+        # used-signature marking as the general loop below, without
+        # building the Signer list (~4 calls/tx on the close path)
+        acc = account.account
+        if (
+            len(self.envelope.signatures) == 1
+            and not acc.signers
+            and acc.thresholds[0] >= needed_weight
+            and acc.thresholds[0] > 0
+        ):
+            sig = self.envelope.signatures[0]
+            master = account.get_id()
+            if PubKeyUtils.has_hint(master, sig.hint) and PubKeyUtils.verify_sig(
+                master, sig.signature, self.get_contents_hash()
+            ):
+                self.used_signatures[0] = True
+                return True
+            return False
+        key_weights: List[Signer] = []
+        if account.account.thresholds[0]:
+            key_weights.append(Signer(account.get_id(), account.account.thresholds[0]))
+        key_weights.extend(account.account.signers)
+
+        contents_hash = self.get_contents_hash()
+        total_weight = 0
+        for i, sig in enumerate(self.envelope.signatures):
+            for j, kw in enumerate(key_weights):
+                if PubKeyUtils.has_hint(kw.pubKey, sig.hint) and PubKeyUtils.verify_sig(
+                    kw.pubKey, sig.signature, contents_hash
+                ):
+                    self.used_signatures[i] = True
+                    total_weight += kw.weight
+                    if total_weight >= needed_weight:
+                        return True
+                    del key_weights[j]  # can't sign twice
+                    break
+        return False
+
+    def check_all_signatures_used(self) -> bool:
+        for used in self.used_signatures:
+            if not used:
+                self.set_result_code(TransactionResultCode.txBAD_AUTH_EXTRA)
+                return False
+        return True
+
+    def candidate_signature_pairs(self, db):
+        """All hint-matched (pubkey, contents_hash, sig) triples this tx could
+        verify — the batch-prefetch set for the SigBackend (covers the tx
+        source and every op source account's signers)."""
+        triples = []
+        seen_accounts = set()
+        accounts = [self.get_source_id()]
+        for op in self.envelope.tx.operations:
+            if op.sourceAccount is not None:
+                accounts.append(op.sourceAccount)
+        contents_hash = self.get_contents_hash()
+        for aid in accounts:
+            if aid.value in seen_accounts:
+                continue
+            seen_accounts.add(aid.value)
+            af = AccountFrame.load_account(aid, db, readonly=True)
+            if af is None:
+                continue
+            keys = []
+            if af.account.thresholds[0]:
+                keys.append(af.get_id())
+            keys.extend(s.pubKey for s in af.account.signers)
+            for sig in self.envelope.signatures:
+                for pk in keys:
+                    if PubKeyUtils.has_hint(pk, sig.hint):
+                        triples.append((pk.value, contents_hash, sig.signature))
+        return triples
+
+    # -- static footprint (ledger/applysched.py pre-pass) ------------------
+    def static_footprint(self):
+        """The set of ACCOUNT cache keys (prefix+pubkey bytes, the same
+        shape ``AccountFrame.load_account`` keys on) this tx can touch
+        during apply, or None when the footprint cannot be statically
+        bounded.
+
+        Bounded ops declare exactly the accounts their apply path loads:
+        native-asset payments (source + destination, no order-book walk),
+        create-account, account-merge, and set-options without an
+        inflation destination (the dest branch loads a THIRD account the
+        bulk warm never sees).  Everything that walks the order book
+        (offers, path payments, non-native payments) or aggregates over
+        the whole ledger (inflation) is unbounded — the scheduler
+        classifies those CONFLICTING and the whole set applies serially.
+        Signer keys are auth-only (verify-cache lookups, no entry loads),
+        so they do not widen the footprint."""
+        from ..xdr.entries import AssetType
+        from ..xdr.txs import OperationType as OT
+
+        keys = {_acct_kb(self.get_source_id())}
+        for op in self.envelope.tx.operations:
+            if op.sourceAccount is not None:
+                keys.add(_acct_kb(op.sourceAccount))
+            t = op.body.type
+            v = op.body.value
+            if t == OT.PAYMENT:
+                if v.asset.type != AssetType.ASSET_TYPE_NATIVE:
+                    return None  # trustlines + possible issuer loads
+                keys.add(_acct_kb(v.destination))
+            elif t == OT.CREATE_ACCOUNT:
+                keys.add(_acct_kb(v.destination))
+            elif t == OT.ACCOUNT_MERGE:
+                keys.add(_acct_kb(v))  # merge body is the destination
+            elif t == OT.SET_OPTIONS:
+                if v.inflationDest is not None:
+                    return None  # loads the dest account (cold cache)
+            else:
+                # PATH_PAYMENT / MANAGE_OFFER / CREATE_PASSIVE_OFFER /
+                # CHANGE_TRUST / ALLOW_TRUST / INFLATION: order-book or
+                # trustline or whole-ledger state — not boundable here
+                return None
+        return keys
+
+    # -- account loading ---------------------------------------------------
+    def load_account(self, db, readonly: bool = False):
+        """(Re)load the tx source into signing_account.  readonly skips
+        the defensive cache copy — validation-path loads (check_valid /
+        txset chain checks) only read; the apply path reloads mutable via
+        common_valid(applying=True) and process_fee_seq_num.
+
+        signing=True routes through the close's FrameContext identity map
+        (ledger/framecontext.py): fee charging and validity-at-apply get
+        the SAME frame instead of a copy per load — the one aliasing the
+        reference itself has (mSigningAccount)."""
+        self.signing_account = AccountFrame.load_account(
+            self.get_source_id(), db, readonly=readonly, signing=True
+        )
+        return self.signing_account
+
+    def load_account_shared(self, db, account_id: PublicKey):
+        """Reuse the already-loaded signing account when an op's source is
+        the tx source — the reference shares mSigningAccount the same way
+        (TransactionFrame::loadAccount, src/transactions/TransactionFrame.cpp),
+        so op mutations are visible through the tx frame and vice versa."""
+        sa = self.signing_account
+        if sa is not None and sa.account.accountID == account_id:
+            if sa._sealed:
+                # an earlier op (or fee charging) stored — and thereby
+                # sealed — the shared signing frame; this op may mutate it
+                # through raw entry fields, so CoW-unseal on hand-out
+                # exactly like FrameContext.lend does (the recorded
+                # snapshots in the delta/cache/buffer stay immutable)
+                sa.touch()
+            return sa
+        return AccountFrame.load_account(account_id, db)
+
+    # -- validity (TransactionFrame.cpp:215-312) ---------------------------
+    def common_valid(self, app, applying: bool, current: int) -> bool:
+        metrics = app.metrics
+        lm = app.ledger_manager
+        tx = self.envelope.tx
+
+        def invalid(tag, code):
+            metrics.new_meter(("transaction", "invalid", tag), "transaction").mark()
+            self.set_result_code(code)
+            return False
+
+        if len(tx.operations) == 0:
+            return invalid("missing-operation", TransactionResultCode.txMISSING_OPERATION)
+
+        if tx.timeBounds is not None:
+            close_time = lm.get_current_ledger_header().scpValue.closeTime
+            if tx.timeBounds.minTime > close_time:
+                return invalid("too-early", TransactionResultCode.txTOO_EARLY)
+            if tx.timeBounds.maxTime and tx.timeBounds.maxTime < close_time:
+                return invalid("too-late", TransactionResultCode.txTOO_LATE)
+
+        if tx.fee < self.get_min_fee(lm):
+            return invalid("insufficient-fee", TransactionResultCode.txINSUFFICIENT_FEE)
+
+        if not self.load_account(app.database, readonly=not applying):
+            return invalid("no-account", TransactionResultCode.txNO_ACCOUNT)
+
+        # when applying, the seq num was already bumped by processFeeSeqNum
+        if not applying:
+            if current == 0:
+                current = self.signing_account.get_seq_num()
+            if current + 1 != tx.seqNum:
+                return invalid("bad-seq", TransactionResultCode.txBAD_SEQ)
+
+        if not self.check_signature(
+            self.signing_account, self.signing_account.get_low_threshold()
+        ):
+            return invalid("bad-auth", TransactionResultCode.txBAD_AUTH)
+
+        if (
+            self.signing_account.get_balance() - tx.fee
+            < self.signing_account.get_minimum_balance(lm)
+        ):
+            return invalid(
+                "insufficient-balance", TransactionResultCode.txINSUFFICIENT_BALANCE
+            )
+
+        return True
+
+    def check_valid(self, app, current: int = 0) -> bool:
+        """Full validity: commonValid + per-op checkValid + no stray sigs
+        (TransactionFrame.cpp:384-417)."""
+        self.reset_signature_tracker()
+        self.reset_results()
+        res = self.common_valid(app, False, current)
+        if res:
+            for op in self.operations:
+                if not op.check_valid(app, for_apply=False):
+                    app.metrics.new_meter(
+                        ("transaction", "invalid", "invalid-op"), "transaction"
+                    ).mark()
+                    self.mark_result_failed()
+                    return False
+            res = self.check_all_signatures_used()
+            if not res:
+                app.metrics.new_meter(
+                    ("transaction", "invalid", "bad-auth-extra"), "transaction"
+                ).mark()
+        return res
+
+    # -- fee + sequence (TransactionFrame.cpp:314-348) ---------------------
+    def process_fee_seq_num(self, delta: LedgerDelta, lm) -> None:
+        self.reset_signature_tracker()
+        self.reset_results()
+        if not self.load_account(lm.database):
+            raise RuntimeError("Unexpected database state: missing source account")
+        fee = self.result.feeCharged
+        if fee > 0:
+            avail = self.signing_account.get_balance()
+            if avail < fee:
+                fee = avail  # take all they have
+                self.result.feeCharged = fee
+            self.signing_account.mut().balance -= fee
+            delta.get_header().feePool += fee
+        if self.signing_account.get_seq_num() + 1 != self.envelope.tx.seqNum:
+            raise RuntimeError("Unexpected account state: bad sequence")
+        self.signing_account.set_seq_num(self.envelope.tx.seqNum)
+        self.signing_account.store_change(delta, lm.database)
+
+    # -- apply (TransactionFrame.cpp:439-495) ------------------------------
+    def apply(self, delta: LedgerDelta, app, meta: Optional[TransactionMeta] = None) -> bool:
+        if meta is None:
+            meta = TransactionMeta(0, [])
+        self.reset_signature_tracker()
+        if not self.common_valid(app, True, 0):
+            return False
+
+        error_encountered = False
+        stray_signatures = False
+        db = app.database
+        op_timer = app.metrics.new_timer(("transaction", "op", "apply"))
+        this_tx_delta = LedgerDelta(outer=delta)
+        try:
+            with db.transaction():
+                for op in self.operations:
+                    with op_timer.time_scope():
+                        op_delta = LedgerDelta(outer=this_tx_delta)
+                        try:
+                            ok = op.apply(op_delta, app)
+                        except BaseException:
+                            # EntryFrame stores hit the shared decoded-entry
+                            # cache immediately, before op_delta.commit()
+                            # lifts the keys into this_tx_delta — if apply
+                            # dies mid-op only op_delta knows those keys, so
+                            # its rollback must flush them or the caller's
+                            # txINTERNAL_ERROR path leaves stale cache lines
+                            op_delta.rollback()
+                            raise
+                    if not ok:
+                        error_encountered = True
+                    meta.value.append(OperationMeta(op_delta.get_changes()))
+                    op_delta.commit()
+                if not error_encountered:
+                    if not self.check_all_signatures_used():
+                        # malformed tx slipped through validation: roll back
+                        # all effects and fail with txBAD_AUTH_EXTRA (set by
+                        # check_all_signatures_used), matching
+                        # TransactionFrame.cpp:474-480
+                        stray_signatures = True
+                        raise _TxRollback()
+                    this_tx_delta.commit()
+                else:
+                    raise _TxRollback()
+        except _TxRollback:
+            pass
+        finally:
+            # The SQL savepoint rollback above undoes the rows, but entry
+            # writes also populated the shared decoded-entry cache — flush
+            # every touched key or later loads read rolled-back state (the
+            # reference gets this from ~LedgerDelta calling rollback(),
+            # LedgerDelta.cpp:39-44,204-220).  No-op when committed.
+            this_tx_delta.rollback()
+
+        if stray_signatures:
+            return False
+        if error_encountered:
+            meta.value.clear()
+            self.mark_result_failed()
+        return not error_encountered
+
+    # -- persistence (txhistory / txfeehistory) ----------------------------
+    def history_row(self, ledger_seq: int, tx_index: int, meta):
+        """Row tuple for the bulk txhistory insert at ledger close."""
+        return tx_history.transaction_row(
+            self.get_contents_hash(),
+            ledger_seq,
+            tx_index,
+            self.env_xdr(),
+            self.get_result_pair(),
+            meta,
+        )
+
+    def fee_history_row(self, ledger_seq: int, tx_index: int, changes):
+        return tx_history.fee_row(
+            self.get_contents_hash(), ledger_seq, tx_index, changes
+        )
+
+    def to_stellar_message(self) -> StellarMessage:
+        return StellarMessage(MessageType.TRANSACTION, self.envelope)
+
+
+class _TxRollback(Exception):
+    """Internal: unwind the SQL savepoint for a failed tx apply."""

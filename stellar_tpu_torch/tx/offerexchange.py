@@ -1,0 +1,224 @@
+"""Order-book crossing engine (reference: src/transactions/OfferExchange.cpp).
+
+Terminology follows the reference: the taker sends "sheep" to receive
+"wheat" from resting offers that sell wheat for sheep.  All division is
+floor((a*b)/c) on 128-bit-wide intermediates (util/xmath.big_divide) — the
+rounding direction is consensus-critical ("bias towards seller").
+"""
+
+from __future__ import annotations
+
+import enum
+from typing import Callable, List, Optional
+
+from ..ledger.accountframe import AccountFrame
+from ..ledger.offerframe import OfferFrame
+from ..ledger.trustframe import TrustFrame
+from ..util.xmath import INT64_MAX, big_divide_checked
+from ..xdr.txs import ClaimOfferAtom
+
+
+class CrossOfferResult(enum.Enum):
+    TAKEN = 0
+    PARTIAL = 1
+    CANT_CONVERT = 2
+
+
+class ConvertResult(enum.Enum):
+    OK = 0
+    PARTIAL = 1  # not enough offers to convert everything
+    FILTER_STOP = 2
+
+
+class OfferFilterResult(enum.Enum):
+    KEEP = 0
+    STOP = 1
+    SKIP = 2
+
+
+class OfferExchange:
+    def __init__(self, delta, lm):
+        self.delta = delta
+        self.lm = lm
+        self.offer_trail: List[ClaimOfferAtom] = []
+
+    def cross_offer(
+        self,
+        selling_wheat_offer: OfferFrame,
+        max_wheat_received: int,
+        max_sheep_send: int,
+    ):
+        """-> (CrossOfferResult, num_wheat_received, num_sheep_send)."""
+        # mut(), not the read alias: this binding is mutated in place
+        # (amount shrink below) until the store seals it — mut() keeps
+        # that legal even if a future path hands us a sealed frame
+        # (load_best_offers frames are freshly decoded today)
+        offer = selling_wheat_offer.mut()
+        sheep = offer.buying
+        wheat = offer.selling
+        account_b_id = offer.sellerID
+        db = self.lm.database
+
+        account_b = AccountFrame.load_account(account_b_id, db)
+        if account_b is None:
+            raise RuntimeError("invalid database state: offer without account")
+
+        wheat_line_b: Optional[TrustFrame] = None
+        if not wheat.is_native():
+            wheat_line_b = TrustFrame.load_trust_line(account_b_id, wheat, db)
+
+        sheep_line_b: Optional[TrustFrame] = None
+        if sheep.is_native():
+            num_wheat_received = INT64_MAX
+        else:
+            sheep_line_b = TrustFrame.load_trust_line(account_b_id, sheep, db)
+            seller_max_sheep = (
+                sheep_line_b.get_max_amount_receive() if sheep_line_b else 0
+            )
+            ok, num_wheat_received = big_divide_checked(
+                seller_max_sheep, offer.price.d, offer.price.n
+            )
+            if not ok:
+                num_wheat_received = INT64_MAX
+
+        # clamp by what the seller can actually sell
+        if wheat.is_native():
+            wheat_can_sell = account_b.get_balance_above_reserve(self.lm)
+        else:
+            if wheat_line_b is not None and wheat_line_b.is_authorized():
+                wheat_can_sell = wheat_line_b.get_balance()
+            else:
+                wheat_can_sell = 0
+        num_wheat_received = min(num_wheat_received, wheat_can_sell)
+
+        if num_wheat_received >= offer.amount:
+            num_wheat_received = offer.amount
+        else:
+            # shrink the offer to the seller's real capacity (written below)
+            offer.amount = num_wheat_received
+
+        reduced_offer = False
+        if num_wheat_received > max_wheat_received:
+            num_wheat_received = max_wheat_received
+            reduced_offer = True
+
+        ok, num_sheep_send = big_divide_checked(
+            num_wheat_received, offer.price.n, offer.price.d
+        )
+        if not ok:
+            num_sheep_send = INT64_MAX
+
+        if num_sheep_send > max_sheep_send:
+            num_sheep_send = max_sheep_send
+            reduced_offer = True
+
+        # bias towards seller (recompute wheat from the sheep actually sent)
+        _, num_wheat_received = big_divide_checked(
+            num_sheep_send, offer.price.d, offer.price.n
+        )
+
+        offer_taken = False
+        if num_wheat_received == 0 or num_sheep_send == 0:
+            if reduced_offer:
+                return CrossOfferResult.CANT_CONVERT, 0, 0
+            # bogus offer: force delete
+            num_wheat_received = 0
+            num_sheep_send = 0
+            offer_taken = True
+
+        offer_taken = offer_taken or offer.amount <= num_wheat_received
+        if offer_taken:
+            selling_wheat_offer.store_delete(self.delta, db)
+            account_b.add_num_entries(-1, self.lm)
+            account_b.store_change(self.delta, db)
+        else:
+            offer.amount -= num_wheat_received
+            selling_wheat_offer.store_change(self.delta, db)
+
+        if num_sheep_send != 0:
+            if sheep.is_native():
+                # mut(): the offer-taken branch above may already have
+                # stored (and thereby sealed) account_b — the credit must
+                # CoW, not reach the recorded numSubEntries snapshot
+                account_b.mut().balance += num_sheep_send
+                account_b.store_change(self.delta, db)
+            else:
+                if not sheep_line_b.add_balance(num_sheep_send):
+                    return CrossOfferResult.CANT_CONVERT, 0, 0
+                sheep_line_b.store_change(self.delta, db)
+
+        if num_wheat_received != 0:
+            if wheat.is_native():
+                account_b.mut().balance -= num_wheat_received
+                account_b.store_change(self.delta, db)
+            else:
+                if not wheat_line_b.add_balance(-num_wheat_received):
+                    return CrossOfferResult.CANT_CONVERT, 0, 0
+                wheat_line_b.store_change(self.delta, db)
+
+        self.offer_trail.append(
+            ClaimOfferAtom(
+                account_b.get_id(),
+                offer.offerID,
+                wheat,
+                num_wheat_received,
+                sheep,
+                num_sheep_send,
+            )
+        )
+        return (
+            CrossOfferResult.TAKEN if offer_taken else CrossOfferResult.PARTIAL,
+            num_wheat_received,
+            num_sheep_send,
+        )
+
+    def convert_with_offers(
+        self,
+        sheep,
+        max_sheep_send: int,
+        wheat,
+        max_wheat_receive: int,
+        offer_filter: Optional[Callable[[OfferFrame], OfferFilterResult]] = None,
+    ):
+        """-> (ConvertResult, sheep_sent, wheat_received); walks the book
+        cheapest-first in pages of 5 (convertWithOffers)."""
+        sheep_sent = 0
+        wheat_received = 0
+        db = self.lm.database
+        offer_offset = 0
+        need_more = max_wheat_receive > 0 and max_sheep_send > 0
+
+        while need_more:
+            batch = OfferFrame.load_best_offers(5, offer_offset, wheat, sheep, db)
+            offer_offset += len(batch)
+            for wheat_offer in batch:
+                if offer_filter is not None:
+                    fr = offer_filter(wheat_offer)
+                    if fr == OfferFilterResult.STOP:
+                        return ConvertResult.FILTER_STOP, sheep_sent, wheat_received
+                    if fr == OfferFilterResult.SKIP:
+                        continue
+
+                cor, num_wheat, num_sheep = self.cross_offer(
+                    wheat_offer, max_wheat_receive, max_sheep_send
+                )
+                if cor == CrossOfferResult.TAKEN:
+                    assert offer_offset > 0
+                    offer_offset -= 1  # a row disappeared under the cursor
+                elif cor == CrossOfferResult.CANT_CONVERT:
+                    return ConvertResult.PARTIAL, sheep_sent, wheat_received
+
+                sheep_sent += num_sheep
+                max_sheep_send -= num_sheep
+                wheat_received += num_wheat
+                max_wheat_receive -= num_wheat
+
+                need_more = max_wheat_receive > 0 and max_sheep_send > 0
+                if not need_more:
+                    return ConvertResult.OK, sheep_sent, wheat_received
+                if cor == CrossOfferResult.PARTIAL:
+                    return ConvertResult.PARTIAL, sheep_sent, wheat_received
+
+            if need_more and len(batch) < 5:
+                return ConvertResult.OK, sheep_sent, wheat_received
+        return ConvertResult.OK, sheep_sent, wheat_received

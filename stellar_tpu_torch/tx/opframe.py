@@ -1,0 +1,178 @@
+"""OperationFrame base + factory (reference: src/transactions/OperationFrame.cpp).
+
+Threshold categories (transactions/readme.md "Thresholds"):
+- low: AllowTrust, Inflation
+- medium: everything else (default)
+- high: AccountMerge; SetOptions when touching thresholds/signers
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from ..ledger.accountframe import AccountFrame
+from ..xdr.entries import AssetType, PublicKey
+from ..xdr.txs import (
+    Operation,
+    OperationResult,
+    OperationResultCode,
+    OperationResultTr,
+    OperationType,
+)
+
+# locale-independent alphanumeric check (the reference pins the C locale)
+_ALNUM = set(
+    b"0123456789ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz"
+)
+
+
+def is_asset_valid(asset) -> bool:
+    """util/types.cpp isAssetValid: [a-zA-Z0-9]+ then zero padding only."""
+    if asset.type == AssetType.ASSET_TYPE_NATIVE:
+        return True
+    code = asset.value.assetCode
+    zeros = False
+    onechar = False
+    for b in code:
+        if b == 0:
+            zeros = True
+        elif zeros:
+            return False  # zeros must be trailing
+        elif b not in _ALNUM:
+            return False
+        else:
+            onechar = True
+    return onechar
+
+
+def is_string32_valid(s: str) -> bool:
+    """util/types.cpp:60-71 isString32Valid: every byte must be ASCII and
+    not a control character (rejects NUL, \\r, DEL, and anything >= 0x80 —
+    the reference's `c < 0` on signed char).  Length is the XDR codec's
+    job, but check it here too for defense in depth."""
+    b = s.encode("utf-8")
+    return len(b) <= 32 and all(0x20 <= c < 0x7F for c in b)
+
+
+class OperationFrame:
+    def __init__(self, op: Operation, result: OperationResult, parent_tx):
+        self.operation = op
+        self.result = result
+        self.parent_tx = parent_tx
+        self.source_account: Optional[AccountFrame] = None
+
+    # -- factory (OperationFrame::makeHelper) ------------------------------
+    # built lazily ONCE: the op modules import this one, so the mapping
+    # can't exist at module load — but rebuilding it (and re-executing ten
+    # imports) per op was measurable at 5000-tx closes
+    _HELPER_MAP = None
+
+    @staticmethod
+    def make_helper(op: Operation, result: OperationResult, parent_tx):
+        mapping = OperationFrame._HELPER_MAP
+        if mapping is None:
+            from .ops_account import (
+                AllowTrustOpFrame,
+                ChangeTrustOpFrame,
+                CreateAccountOpFrame,
+                InflationOpFrame,
+                MergeOpFrame,
+                SetOptionsOpFrame,
+            )
+            from .ops_offers import CreatePassiveOfferOpFrame, ManageOfferOpFrame
+            from .ops_payment import PathPaymentOpFrame, PaymentOpFrame
+
+            mapping = OperationFrame._HELPER_MAP = {
+                OperationType.CREATE_ACCOUNT: CreateAccountOpFrame,
+                OperationType.PAYMENT: PaymentOpFrame,
+                OperationType.PATH_PAYMENT: PathPaymentOpFrame,
+                OperationType.MANAGE_OFFER: ManageOfferOpFrame,
+                OperationType.CREATE_PASSIVE_OFFER: CreatePassiveOfferOpFrame,
+                OperationType.SET_OPTIONS: SetOptionsOpFrame,
+                OperationType.CHANGE_TRUST: ChangeTrustOpFrame,
+                OperationType.ALLOW_TRUST: AllowTrustOpFrame,
+                OperationType.ACCOUNT_MERGE: MergeOpFrame,
+                OperationType.INFLATION: InflationOpFrame,
+            }
+        cls = mapping.get(op.body.type)
+        if cls is None:
+            raise ValueError(f"Unknown op type {op.body.type!r}")
+        return cls(op, result, parent_tx)
+
+    # -- result plumbing ---------------------------------------------------
+    def set_inner_result(self, inner) -> None:
+        self.result.type = OperationResultCode.opINNER
+        self.result.value = OperationResultTr(self.operation.body.type, inner)
+
+    def set_result_code(self, code: OperationResultCode) -> None:
+        self.result.type = code
+        self.result.value = None
+
+    def get_result_code(self) -> OperationResultCode:
+        return self.result.type
+
+    def inner_result(self):
+        return self.result.value.value
+
+    # -- identity ----------------------------------------------------------
+    def get_source_id(self) -> PublicKey:
+        if self.operation.sourceAccount is not None:
+            return self.operation.sourceAccount
+        return self.parent_tx.envelope.tx.sourceAccount
+
+    def load_account(self, db) -> bool:
+        self.source_account = self.parent_tx.load_account_shared(
+            db, self.get_source_id()
+        )
+        return self.source_account is not None
+
+    # -- auth --------------------------------------------------------------
+    def get_needed_threshold(self) -> int:
+        return self.source_account.get_medium_threshold()
+
+    def check_signature(self) -> bool:
+        return self.parent_tx.check_signature(
+            self.source_account, self.get_needed_threshold()
+        )
+
+    # -- validity / apply (OperationFrame.cpp:95-160) ----------------------
+    def check_valid(self, app, for_apply: bool) -> bool:
+        metrics = app.metrics
+        if not self.load_account(app.database):
+            if for_apply or self.operation.sourceAccount is None:
+                metrics.new_meter(
+                    ("operation", "invalid", "no-account"), "operation"
+                ).mark()
+                self.set_result_code(OperationResultCode.opNO_ACCOUNT)
+                return False
+            # validation of an op whose (explicit) source doesn't exist yet:
+            # check sigs against a synthetic auth-only shell
+            self.source_account = AccountFrame.make_auth_only(
+                self.operation.sourceAccount
+            )
+
+        if not self.check_signature():
+            metrics.new_meter(("operation", "invalid", "bad-auth"), "operation").mark()
+            self.set_result_code(OperationResultCode.opBAD_AUTH)
+            return False
+
+        if not for_apply:
+            # ops must not rely on ledger state during validation: earlier ops
+            # in the tx may change it
+            self.source_account = None
+
+        self.result.type = OperationResultCode.opINNER
+        self.result.value = OperationResultTr(self.operation.body.type, None)
+        return self.do_check_valid(app.metrics)
+
+    def apply(self, delta, app) -> bool:
+        if not self.check_valid(app, for_apply=True):
+            return False
+        return self.do_apply(app.metrics, delta, app.ledger_manager)
+
+    # -- abstract ----------------------------------------------------------
+    def do_check_valid(self, metrics) -> bool:
+        raise NotImplementedError
+
+    def do_apply(self, metrics, delta, lm) -> bool:
+        raise NotImplementedError

@@ -1,0 +1,314 @@
+"""ManageOffer / CreatePassiveOffer (reference:
+src/transactions/ManageOfferOpFrame.cpp, CreatePassiveOfferOpFrame.cpp)."""
+
+from __future__ import annotations
+
+from ..ledger.offerframe import OfferFrame
+from ..ledger.trustframe import TrustFrame
+from ..util.xmath import INT64_MAX, big_divide_checked
+from ..xdr.entries import LedgerEntry, LedgerEntryData, LedgerEntryType, OfferEntry, OfferEntryFlags
+from ..xdr.txs import (
+    ManageOfferEffect,
+    ManageOfferOp,
+    ManageOfferResult,
+    ManageOfferResultCode,
+    ManageOfferSuccessResult,
+    ManageOfferSuccessResultOffer,
+)
+from .offerexchange import ConvertResult, OfferExchange, OfferFilterResult
+from .opframe import OperationFrame, is_asset_valid
+
+
+def _price_cmp(a, b):
+    """compare fractions a.n/a.d vs b.n/b.d exactly."""
+    lhs = a.n * b.d
+    rhs = b.n * a.d
+    return (lhs > rhs) - (lhs < rhs)
+
+
+class ManageOfferOpFrame(OperationFrame):
+    passive = False
+
+    @property
+    def mo(self) -> ManageOfferOp:
+        return self.operation.body.value
+
+    def _fail(self, metrics, tag, code):
+        metrics.new_meter(("op-manage-offer", "invalid", tag), "operation").mark()
+        self.set_inner_result(ManageOfferResult(code))
+        return False
+
+    def do_check_valid(self, metrics) -> bool:
+        mo = self.mo
+        if not is_asset_valid(mo.selling) or not is_asset_valid(mo.buying):
+            return self._fail(
+                metrics, "invalid-asset", ManageOfferResultCode.MANAGE_OFFER_MALFORMED
+            )
+        if mo.selling == mo.buying:
+            return self._fail(
+                metrics, "equal-currencies", ManageOfferResultCode.MANAGE_OFFER_MALFORMED
+            )
+        if mo.amount < 0 or mo.price.d <= 0 or mo.price.n <= 0:
+            return self._fail(
+                metrics,
+                "negative-or-zero-values",
+                ManageOfferResultCode.MANAGE_OFFER_MALFORMED,
+            )
+        return True
+
+    def _check_offer_valid(self, metrics, db) -> bool:
+        """Issuers exist + lines exist/authorized (checkOfferValid)."""
+        mo = self.mo
+        sheep, wheat = mo.selling, mo.buying
+        self.sheep_line = None
+        self.wheat_line = None
+        if mo.amount == 0:
+            return True  # deleting: no line checks
+
+        if not sheep.is_native():
+            line, issuer = TrustFrame.load_trust_line_issuer(
+                self.get_source_id(), sheep, db
+            )
+            self.sheep_line = line
+            if issuer is None:
+                return self._fail(
+                    metrics, "sell-no-issuer",
+                    ManageOfferResultCode.MANAGE_OFFER_SELL_NO_ISSUER,
+                )
+            if line is None:
+                return self._fail(
+                    metrics, "sell-no-trust",
+                    ManageOfferResultCode.MANAGE_OFFER_SELL_NO_TRUST,
+                )
+            if line.get_balance() == 0:
+                return self._fail(
+                    metrics, "underfunded",
+                    ManageOfferResultCode.MANAGE_OFFER_UNDERFUNDED,
+                )
+            if not line.is_authorized():
+                return self._fail(
+                    metrics, "sell-not-authorized",
+                    ManageOfferResultCode.MANAGE_OFFER_SELL_NOT_AUTHORIZED,
+                )
+
+        if not wheat.is_native():
+            line, issuer = TrustFrame.load_trust_line_issuer(
+                self.get_source_id(), wheat, db
+            )
+            self.wheat_line = line
+            if issuer is None:
+                return self._fail(
+                    metrics, "buy-no-issuer",
+                    ManageOfferResultCode.MANAGE_OFFER_BUY_NO_ISSUER,
+                )
+            if line is None:
+                return self._fail(
+                    metrics, "buy-no-trust",
+                    ManageOfferResultCode.MANAGE_OFFER_BUY_NO_TRUST,
+                )
+            if not line.is_authorized():
+                return self._fail(
+                    metrics, "buy-not-authorized",
+                    ManageOfferResultCode.MANAGE_OFFER_BUY_NOT_AUTHORIZED,
+                )
+        return True
+
+    @staticmethod
+    def _build_offer(account, mo: ManageOfferOp, flags: int) -> OfferEntry:
+        return OfferEntry(
+            sellerID=account,
+            offerID=mo.offerID,
+            selling=mo.selling,
+            buying=mo.buying,
+            amount=mo.amount,
+            price=mo.price,
+            flags=flags,
+            ext=0,
+        )
+
+    def do_apply(self, metrics, delta, lm) -> bool:
+        from ..ledger.delta import LedgerDelta
+
+        db = lm.database
+        if not self._check_offer_valid(metrics, db):
+            return False
+
+        mo = self.mo
+        sheep, wheat = mo.selling, mo.buying
+        creating_new = mo.offerID == 0
+
+        if not creating_new:
+            sell_offer = OfferFrame.load_offer(self.get_source_id(), mo.offerID, db)
+            if sell_offer is None:
+                return self._fail(
+                    metrics, "not-found", ManageOfferResultCode.MANAGE_OFFER_NOT_FOUND
+                )
+            old_flags = sell_offer.offer.flags
+            sell_offer.replace_body(
+                self._build_offer(self.get_source_id(), mo, old_flags)
+            )
+            self.passive = bool(old_flags & OfferEntryFlags.PASSIVE_FLAG)
+        else:
+            flags = int(OfferEntryFlags.PASSIVE_FLAG) if self.passive else 0
+            le = LedgerEntry(
+                0,
+                LedgerEntryData(
+                    LedgerEntryType.OFFER,
+                    self._build_offer(self.get_source_id(), mo, flags),
+                ),
+                0,
+            )
+            sell_offer = OfferFrame(le)
+
+        max_sheep_send = sell_offer.offer.amount
+        success = ManageOfferSuccessResult(
+            [], ManageOfferSuccessResultOffer(ManageOfferEffect.MANAGE_OFFER_DELETED)
+        )
+        self.set_inner_result(
+            ManageOfferResult(ManageOfferResultCode.MANAGE_OFFER_SUCCESS, success)
+        )
+
+        stop_code = []
+        try:
+            with db.transaction():
+                temp_delta = LedgerDelta(outer=delta)
+                if mo.amount == 0:
+                    sell_offer.mut().amount = 0
+                else:
+                    if sheep.is_native():
+                        max_sheep_can_sell = (
+                            self.source_account.get_balance_above_reserve(lm)
+                        )
+                    else:
+                        max_sheep_can_sell = self.sheep_line.get_balance()
+                    if wheat.is_native():
+                        max_wheat_can_sell = INT64_MAX
+                    else:
+                        max_wheat_can_sell = self.wheat_line.get_max_amount_receive()
+                        if max_wheat_can_sell == 0:
+                            self._fail(
+                                metrics, "line-full",
+                                ManageOfferResultCode.MANAGE_OFFER_LINE_FULL,
+                            )
+                            raise _OfferAbort()
+
+                    price = sell_offer.offer.price
+                    ok, max_sheep_by_wheat = big_divide_checked(
+                        max_wheat_can_sell, price.d, price.n
+                    )
+                    if not ok:
+                        max_sheep_by_wheat = INT64_MAX
+                    max_sheep_can_sell = min(max_sheep_can_sell, max_sheep_by_wheat)
+                    max_sheep_send = min(max_sheep_can_sell, max_sheep_send)
+
+                    oe = OfferExchange(temp_delta, lm)
+                    from ..xdr.entries import Price
+
+                    max_wheat_price = Price(price.d, price.n)
+
+                    def offer_filter(o):
+                        if o.get_offer_id() == sell_offer.offer.offerID:
+                            return OfferFilterResult.SKIP  # never cross self-update
+                        c = _price_cmp(o.get_price(), max_wheat_price)
+                        if (self.passive and c >= 0) or c > 0:
+                            return OfferFilterResult.STOP
+                        if o.get_seller_id() == self.get_source_id():
+                            stop_code.append(
+                                ManageOfferResultCode.MANAGE_OFFER_CROSS_SELF
+                            )
+                            return OfferFilterResult.STOP
+                        return OfferFilterResult.KEEP
+
+                    r, sheep_sent, wheat_received = oe.convert_with_offers(
+                        sheep, max_sheep_send, wheat, max_wheat_can_sell, offer_filter
+                    )
+                    if r == ConvertResult.FILTER_STOP and stop_code:
+                        self.set_inner_result(ManageOfferResult(stop_code[0]))
+                        raise _OfferAbort()
+
+                    success.offersClaimed = list(oe.offer_trail)
+
+                    if wheat_received > 0:
+                        if wheat.is_native():
+                            self.source_account.mut().balance += wheat_received
+                            self.source_account.store_change(delta, db)
+                        else:
+                            if not self.wheat_line.add_balance(wheat_received):
+                                raise RuntimeError("offer claimed over limit")
+                            self.wheat_line.store_change(delta, db)
+                        if sheep.is_native():
+                            # the store above SEALED the frame: mut() pays
+                            # the CoW copy so the debit cannot reach the
+                            # wheat-credit snapshot already recorded
+                            self.source_account.mut().balance -= sheep_sent
+                            self.source_account.store_change(delta, db)
+                        else:
+                            if not self.sheep_line.add_balance(-sheep_sent):
+                                raise RuntimeError("offer sold more than balance")
+                            self.sheep_line.store_change(delta, db)
+
+                    sell_offer.mut().amount = max_sheep_send - sheep_sent
+
+                if sell_offer.offer.amount > 0:
+                    if creating_new:
+                        if not self.source_account.add_num_entries(1, lm):
+                            self._fail(
+                                metrics, "low reserve",
+                                ManageOfferResultCode.MANAGE_OFFER_LOW_RESERVE,
+                            )
+                            raise _OfferAbort()
+                        sell_offer.mut().offerID = temp_delta.generate_id()
+                        success.offer = ManageOfferSuccessResultOffer(
+                            ManageOfferEffect.MANAGE_OFFER_CREATED, None
+                        )
+                        sell_offer.store_add(temp_delta, db)
+                        self.source_account.store_change(temp_delta, db)
+                    else:
+                        success.offer = ManageOfferSuccessResultOffer(
+                            ManageOfferEffect.MANAGE_OFFER_UPDATED, None
+                        )
+                        sell_offer.store_change(temp_delta, db)
+                    # analysis: off cow-mutation -- `success` is the ManageOfferSuccessResult XDR union (a tx result, not an EntryFrame); `.offer` here is its effect arm, not an entry alias
+                    success.offer.value = sell_offer.offer
+                else:
+                    success.offer = ManageOfferSuccessResultOffer(
+                        ManageOfferEffect.MANAGE_OFFER_DELETED, None
+                    )
+                    if not creating_new:
+                        sell_offer.store_delete(temp_delta, db)
+                        self.source_account.add_num_entries(-1, lm)
+                        self.source_account.store_change(temp_delta, db)
+                temp_delta.commit()
+        except _OfferAbort:
+            return False
+
+        metrics.new_meter(("op-create-offer", "success", "apply"), "operation").mark()
+        return True
+
+
+class _OfferAbort(Exception):
+    """Unwind the offer-op SQL savepoint after a failure result is set."""
+
+
+class CreatePassiveOfferOpFrame(ManageOfferOpFrame):
+    """Same machinery with mPassive=true and offerID=0.  The original op is
+    kept as self.operation (so the result union's discriminant stays
+    CREATE_PASSIVE_OFFER); only the ManageOfferOp view is synthetic."""
+
+    passive = True
+
+    def __init__(self, op, result, parent_tx):
+        OperationFrame.__init__(self, op, result, parent_tx)
+        cp = op.body.value
+        self._synth = ManageOfferOp(
+            selling=cp.selling,
+            buying=cp.buying,
+            amount=cp.amount,
+            price=cp.price,
+            offerID=0,
+        )
+        self.passive = True
+
+    @property
+    def mo(self) -> ManageOfferOp:
+        return self._synth

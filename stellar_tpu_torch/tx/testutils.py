@@ -1,0 +1,270 @@
+"""Transaction-test DSL (reference: src/transactions/TxTests.{h,cpp}).
+
+Builders for envelopes of every op type + direct-apply helpers, used by the
+tx suite, herder tests, simulation and the load generator — same role the
+reference's TxTests helpers play across its suites.
+"""
+
+from __future__ import annotations
+
+import os
+import tempfile
+from typing import List, Optional
+
+from .. import xdr as X
+from ..crypto.keys import SecretKey
+from ..ledger.delta import LedgerDelta
+from ..main.config import Config
+from .frame import TransactionFrame
+
+TEST_PASSPHRASE = "(V) (;,,;) (V) test network"
+
+
+def get_test_config(instance: int = 0, backend: str = "gpu") -> Config:
+    """Per-instance test config (reference: main/test.cpp:36 getTestConfig):
+    in-memory sqlite, standalone, manual close, deterministic node seed,
+    self-quorum, FORCE_SCP.  The gpu backend on the card by default (set
+    ``SIG_DEVICE = "cpu"`` for the kernels' plain versions, or
+    ``backend="cpu"`` for libsodium); bucket and tmp directories under the
+    temp dir, named by process and instance."""
+    from ..xdr.scp import SCPQuorumSet
+
+    cfg = Config()
+    cfg.NETWORK_PASSPHRASE = TEST_PASSPHRASE
+    cfg.DATABASE = "sqlite3://:memory:"
+    cfg.RUN_STANDALONE = True
+    cfg.MANUAL_CLOSE = True
+    cfg.HTTP_PORT = 39100 + instance * 2
+    cfg.PEER_PORT = 39200 + instance * 2
+    root = os.path.join(tempfile.gettempdir(), f"stellar-tpu-torch-test-{os.getpid()}")
+    cfg.TMP_DIR_PATH = os.path.join(root, f"tmp-{instance}")
+    cfg.BUCKET_DIR_PATH = os.path.join(root, f"buckets-{instance}")
+    cfg.SIGNATURE_BACKEND = backend
+    cfg.NODE_SEED = SecretKey.from_seed(
+        bytes([instance % 256]) + b"test-node-seed".ljust(31, b"\x00")
+    )
+    cfg.NODE_IS_VALIDATOR = True
+    cfg.FORCE_SCP = True
+    cfg.QUORUM_SET = SCPQuorumSet(1, [cfg.NODE_SEED.get_public_key()], [])
+    # tests run the invariant plane ALL-ON (production default is
+    # sampled): every test close pays the full conservation sums and
+    # per-entry re-reads, so an aliasing/copy-elision regression fails
+    # loudly here first (ROADMAP "Correctness" policy).  Perf harnesses
+    # that need round-comparable p50s re-pin sampled themselves
+    # (bench.py, profile_close.py).
+    cfg.INVARIANT_SAMPLED = False
+    return cfg
+
+
+def root_key_for(app) -> SecretKey:
+    return SecretKey.from_seed(app.network_id)
+
+
+def get_account(n) -> SecretKey:
+    if isinstance(n, str):
+        # reference TxTests::getAccount (TxTests.cpp:200-208): the name
+        # itself, stretched to 32 bytes with '.', IS the seed — same
+        # account IDs as stellar-core's testacc/testtx for the same name
+        seed = n.encode()
+        seed = (seed + b"." * 32)[:32]
+        return SecretKey.from_seed(seed)
+    return SecretKey.pseudo_random_for_testing(n)
+
+
+# -- envelope builders ------------------------------------------------------
+
+
+def tx_from_ops(
+    app, source: SecretKey, seq: int, ops: List[X.Operation], fee: Optional[int] = None
+) -> TransactionFrame:
+    if fee is None:
+        fee = app.ledger_manager.get_tx_fee() * max(1, len(ops))
+    tx = X.Transaction(
+        sourceAccount=source.get_public_key(),
+        fee=fee,
+        seqNum=seq,
+        timeBounds=None,
+        memo=X.Memo.none(),
+        operations=ops,
+        ext=0,
+    )
+    frame = TransactionFrame(app.network_id, X.TransactionEnvelope(tx, []))
+    frame.add_signature(source)
+    return frame
+
+
+def op(body_type: X.OperationType, value, source: Optional[SecretKey] = None) -> X.Operation:
+    return X.Operation(
+        source.get_public_key() if source else None,
+        X.OperationBody(body_type, value),
+    )
+
+
+def create_account_op(dest: SecretKey, balance: int, source=None) -> X.Operation:
+    return op(
+        X.OperationType.CREATE_ACCOUNT,
+        X.CreateAccountOp(dest.get_public_key(), balance),
+        source,
+    )
+
+
+def payment_op(dest: SecretKey, amount: int, asset=None, source=None) -> X.Operation:
+    return op(
+        X.OperationType.PAYMENT,
+        X.PaymentOp(dest.get_public_key(), asset or X.Asset.native(), amount),
+        source,
+    )
+
+
+def path_payment_op(
+    dest: SecretKey, send_asset, send_max, dest_asset, dest_amount, path=(), source=None
+) -> X.Operation:
+    return op(
+        X.OperationType.PATH_PAYMENT,
+        X.PathPaymentOp(
+            send_asset, send_max, dest.get_public_key(), dest_asset, dest_amount,
+            list(path),
+        ),
+        source,
+    )
+
+
+def change_trust_op(asset, limit: int, source=None) -> X.Operation:
+    return op(X.OperationType.CHANGE_TRUST, X.ChangeTrustOp(asset, limit), source)
+
+
+def allow_trust_op(trustor: SecretKey, code: bytes, authorize: bool, source=None) -> X.Operation:
+    at_asset = X.AllowTrustAsset(
+        X.AssetType.ASSET_TYPE_CREDIT_ALPHANUM4
+        if len(code) <= 4
+        else X.AssetType.ASSET_TYPE_CREDIT_ALPHANUM12,
+        code.ljust(4 if len(code) <= 4 else 12, b"\x00"),
+    )
+    return op(
+        X.OperationType.ALLOW_TRUST,
+        X.AllowTrustOp(trustor.get_public_key(), at_asset, authorize),
+        source,
+    )
+
+
+def manage_offer_op(selling, buying, amount: int, price: X.Price, offer_id=0, source=None):
+    return op(
+        X.OperationType.MANAGE_OFFER,
+        X.ManageOfferOp(selling, buying, amount, price, offer_id),
+        source,
+    )
+
+
+def create_passive_offer_op(selling, buying, amount: int, price: X.Price, source=None):
+    return op(
+        X.OperationType.CREATE_PASSIVE_OFFER,
+        X.CreatePassiveOfferOp(selling, buying, amount, price),
+        source,
+    )
+
+
+def set_options_op(
+    inflation_dest=None,
+    clear_flags=None,
+    set_flags=None,
+    master_weight=None,
+    low=None,
+    med=None,
+    high=None,
+    home_domain=None,
+    signer=None,
+    source=None,
+):
+    return op(
+        X.OperationType.SET_OPTIONS,
+        X.SetOptionsOp(
+            inflation_dest, clear_flags, set_flags, master_weight, low, med, high,
+            home_domain, signer,
+        ),
+        source,
+    )
+
+
+def merge_op(dest: SecretKey, source=None) -> X.Operation:
+    return op(X.OperationType.ACCOUNT_MERGE, dest.get_public_key(), source)
+
+
+def inflation_op(source=None) -> X.Operation:
+    return op(X.OperationType.INFLATION, None, source)
+
+
+# -- apply helpers (TxTests applyCheck pattern) -----------------------------
+
+
+def close_ledger_on(app, close_time: int, txs=(), externalize: bool = False) -> None:
+    """The reference's closeLedgerOn (TxTests.cpp): close one real ledger
+    at a chosen closeTime, optionally carrying transactions.
+
+    ``externalize=True`` drives ``LedgerManager.externalize_value`` instead
+    of closing inline — the path consensus takes, which routes through the
+    close-pipeline scheduler's enqueue/drain/join machinery when
+    ``Config.CLOSE_PIPELINE`` is on (ledger/closepipeline.py)."""
+    from ..herder.ledgerclose import LedgerCloseData
+    from ..herder.txset import TxSetFrame
+    from ..xdr.ledger import StellarValue
+
+    lm = app.ledger_manager
+    txset = TxSetFrame(lm.last_closed.hash, list(txs))
+    txset.sort_for_hash()
+    sv = StellarValue(txset.get_contents_hash(), close_time, [], 0)
+    ld = LedgerCloseData(lm.current.header.ledgerSeq, txset, sv)
+    if externalize:
+        lm.externalize_value(ld)
+    else:
+        lm.close_ledger(ld)
+
+
+def dump_state(db) -> dict:
+    """Entry tables + the history planes (txmeta/txchanges columns carry
+    the XDR'd LedgerEntryChanges) — THE bit-exactness oracle shared by
+    every differential suite and A/B harness (frame-context / CoW /
+    close-pipeline).  Add new state tables HERE so every differential
+    keeps covering them."""
+    out = {}
+    for table, order in (
+        ("accounts", "accountid"),
+        ("signers", "accountid, publickey"),
+        ("trustlines", "accountid, issuer, assetcode"),
+        ("offers", "offerid"),
+        ("txhistory", "ledgerseq, txindex"),
+        ("txfeehistory", "ledgerseq, txindex"),
+    ):
+        out[table] = db.query_all(f"SELECT * FROM {table} ORDER BY {order}")
+    return out
+
+
+def test_date(day: int, month: int, year: int) -> int:
+    """UTC epoch seconds (the reference's getTestDate)."""
+    import calendar
+
+    return calendar.timegm((year, month, day, 0, 0, 0))
+
+
+def apply_tx(app, tx: TransactionFrame, expect_code=None) -> TransactionFrame:
+    """Charge fee+seq then apply against the current ledger delta, like one
+    iteration of closeLedger's hot loop; commits to the DB."""
+    lm = app.ledger_manager
+    with app.database.transaction():
+        delta = LedgerDelta(lm.current.header, app.database)
+        tx.process_fee_seq_num(delta, lm)
+        tx.apply(delta, app)
+        delta.commit()
+    if expect_code is not None:
+        assert tx.get_result_code() == expect_code, (
+            f"expected {expect_code!r}, got {tx.get_result_code()!r} "
+            f"(ops: {[getattr(o.result, 'type', None) for o in tx.operations]})"
+        )
+    return tx
+
+
+def op_result_of(tx: TransactionFrame, i: int = 0):
+    return tx.result.result.value[i]
+
+
+def inner_op_code(tx: TransactionFrame, i: int = 0):
+    return op_result_of(tx, i).value.value.type

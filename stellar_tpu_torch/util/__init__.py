@@ -1,0 +1,8 @@
+"""Util runtime (reference: src/util/, SURVEY.md §2.12)."""
+
+from .clock import REAL_TIME, VIRTUAL_TIME, VirtualClock, VirtualTimer  # noqa: F401
+from .metrics import MetricsRegistry  # noqa: F401
+from .tmpdir import TmpDir, TmpDirManager  # noqa: F401
+from .xdrstream import XDRInputFileStream, XDROutputFileStream  # noqa: F401
+from . import fs  # noqa: F401
+from . import xlog  # noqa: F401

@@ -1,0 +1,1252 @@
+"""Declarative XDR (RFC 4506) runtime.
+
+This is the TPU-native framework's replacement for the reference's xdrpp +
+``xdrc`` code generator (reference: lib/xdrpp, src/Makefile.am:15-19): instead
+of generating C++ from ``.x`` files, protocol types are declared once in Python
+(see siblings ``xtypes.py``, ``scp.py``, ``entries.py``, ``txs.py``,
+``ledger.py``, ``overlay.py``) and this module derives byte-exact
+pack/unpack — ``xdr_to_opaque`` here must produce the identical octet stream
+xdrpp's ``xdr_to_opaque`` produces, because every hash in the system
+(tx contents hash, txset hash, bucket hashes, ledger header hash) is a SHA-256
+over these bytes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import struct
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Set, Tuple
+
+__all__ = [
+    "XdrError",
+    "XdrCodec",
+    "uint32",
+    "int32",
+    "uint64",
+    "int64",
+    "xbool",
+    "opaque",
+    "var_opaque",
+    "string",
+    "array",
+    "var_array",
+    "option",
+    "xenum",
+    "xstruct",
+    "xunion",
+    "xf",
+    "codec_of",
+    "pack",
+    "pack_many",
+    "unpack",
+    "xdr_copy",
+    "xdr_copy_calls",
+    "xdr_to_opaque",
+    "xdr_getfield",
+    "xdr_setfield",
+]
+
+
+class XdrError(Exception):
+    """Malformed or out-of-bounds XDR data."""
+
+
+_U32 = struct.Struct(">I")
+_I32 = struct.Struct(">i")
+_U64 = struct.Struct(">Q")
+_I64 = struct.Struct(">q")
+
+
+class XdrCodec:
+    """Base codec: packs values into a bytearray, unpacks from a buffer."""
+
+    # True when this codec's Python values are immutable (or declared
+    # value-semantics), so xdr_copy may share them instead of rebuilding.
+    immutable = False
+
+    # C fast path: None = not compiled yet, False = unsupported/unavailable,
+    # else a cxdrpack program capsule (see _compile_cprog)
+    _cprog = None
+
+    def pack_into(self, val: Any, out: bytearray) -> None:
+        raise NotImplementedError
+
+    def unpack_from(self, buf: bytes, off: int) -> Tuple[Any, int]:
+        raise NotImplementedError
+
+    def copy(self, val: Any) -> Any:
+        """Structural deep copy without serializing.  Scalar/bytes codecs
+        return the (immutable) value; containers rebuild.  The ledger
+        apply path copies entries/headers per nested delta — an XDR
+        round-trip per copy was ~25% of ledger-close time."""
+        return val  # immutable leaf by default
+
+    def _compile_cprog(self):
+        mod = _cxdr()
+        if mod is None:
+            self._cprog = False
+            return False
+        try:
+            defs: List[Any] = []
+            root = _cspec_of(self, defs, {})
+            prog = mod.compile(defs, root, XdrError)
+        except _CUnsupported:
+            prog = False
+        except ValueError as e:
+            # mod.compile's own limits (e.g. >MAX_DEPTH_SLOTS depth guards)
+            # — degrade to the Python path and latch _cprog=False so we
+            # don't re-raise on every call.  ValueError also covers
+            # malformed specs (a _cspec_of bug), so the fallback must be
+            # loud: the C fast path silently turning off would surface
+            # only as an unexplained perf regression.
+            import logging
+
+            logging.getLogger("stellar_tpu.xdr").warning(
+                "C codec compile failed for %s (%s); using Python path",
+                type(self).__name__, e,
+            )
+            prog = False
+        self._cprog = prog
+        return prog
+
+    def pack(self, val: Any) -> bytes:
+        prog = self._cprog
+        if prog is None:
+            prog = self._compile_cprog()
+        if prog is not False:
+            return _cxdr().pack(prog, val)
+        out = bytearray()
+        self.pack_into(val, out)
+        return bytes(out)
+
+    def unpack(self, data: bytes) -> Any:
+        prog = self._cprog
+        if prog is None:
+            prog = self._compile_cprog()
+        if prog is not False:
+            return _cxdr().unpack(prog, data)
+        val, off = self.unpack_from(data, 0)
+        if off != len(data):
+            raise XdrError(f"trailing bytes: consumed {off} of {len(data)}")
+        return val
+
+
+class _UInt32(XdrCodec):
+    immutable = True
+    def pack_into(self, val, out):
+        if not 0 <= val <= 0xFFFFFFFF:
+            raise XdrError(f"uint32 out of range: {val}")
+        out += _U32.pack(val)
+
+    def unpack_from(self, buf, off):
+        if off + 4 > len(buf):
+            raise XdrError("short buffer for uint32")
+        return _U32.unpack_from(buf, off)[0], off + 4
+
+
+class _Int32(XdrCodec):
+    immutable = True
+    def pack_into(self, val, out):
+        if not -0x80000000 <= val <= 0x7FFFFFFF:
+            raise XdrError(f"int32 out of range: {val}")
+        out += _I32.pack(val)
+
+    def unpack_from(self, buf, off):
+        if off + 4 > len(buf):
+            raise XdrError("short buffer for int32")
+        return _I32.unpack_from(buf, off)[0], off + 4
+
+
+class _UInt64(XdrCodec):
+    immutable = True
+    def pack_into(self, val, out):
+        if not 0 <= val <= 0xFFFFFFFFFFFFFFFF:
+            raise XdrError(f"uint64 out of range: {val}")
+        out += _U64.pack(val)
+
+    def unpack_from(self, buf, off):
+        if off + 8 > len(buf):
+            raise XdrError("short buffer for uint64")
+        return _U64.unpack_from(buf, off)[0], off + 8
+
+
+class _Int64(XdrCodec):
+    immutable = True
+    def pack_into(self, val, out):
+        if not -0x8000000000000000 <= val <= 0x7FFFFFFFFFFFFFFF:
+            raise XdrError(f"int64 out of range: {val}")
+        out += _I64.pack(val)
+
+    def unpack_from(self, buf, off):
+        if off + 8 > len(buf):
+            raise XdrError("short buffer for int64")
+        return _I64.unpack_from(buf, off)[0], off + 8
+
+
+class _Bool(XdrCodec):
+    immutable = True
+    def pack_into(self, val, out):
+        out += _U32.pack(1 if val else 0)
+
+    def unpack_from(self, buf, off):
+        v, off = uint32.unpack_from(buf, off)
+        if v not in (0, 1):
+            raise XdrError(f"bad bool discriminant {v}")
+        return bool(v), off
+
+
+uint32 = _UInt32()
+int32 = _Int32()
+uint64 = _UInt64()
+int64 = _Int64()
+xbool = _Bool()
+
+
+def _pad(n: int) -> int:
+    return (4 - n % 4) % 4
+
+
+class _Opaque(XdrCodec):
+    """Fixed-length opaque[n]."""
+
+    immutable = True
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def pack_into(self, val, out):
+        if len(val) != self.n:
+            raise XdrError(f"opaque[{self.n}] got {len(val)} bytes")
+        out += val
+        out += b"\x00" * _pad(self.n)
+
+    def unpack_from(self, buf, off):
+        end = off + self.n
+        pend = end + _pad(self.n)
+        if pend > len(buf):
+            raise XdrError(f"short buffer for opaque[{self.n}]")
+        if any(buf[end:pend]):
+            raise XdrError("nonzero padding")
+        return bytes(buf[off:end]), pend
+
+
+class _VarOpaque(XdrCodec):
+    """Variable-length opaque<max>."""
+
+    immutable = True
+
+    def __init__(self, maxlen: Optional[int] = None):
+        self.maxlen = maxlen if maxlen is not None else 0xFFFFFFFF
+
+    def pack_into(self, val, out):
+        if len(val) > self.maxlen:
+            raise XdrError(f"opaque<{self.maxlen}> got {len(val)} bytes")
+        out += _U32.pack(len(val))
+        out += val
+        out += b"\x00" * _pad(len(val))
+
+    def unpack_from(self, buf, off):
+        n, off = uint32.unpack_from(buf, off)
+        if n > self.maxlen:
+            raise XdrError(f"opaque<{self.maxlen}> length {n}")
+        end = off + n
+        pend = end + _pad(n)
+        if pend > len(buf):
+            raise XdrError("short buffer for var opaque")
+        if any(buf[end:pend]):
+            raise XdrError("nonzero padding")
+        return bytes(buf[off:end]), pend
+
+
+class _String(_VarOpaque):
+    """string<max>; values are ``str``, encoded as the raw bytes on the wire.
+
+    XDR strings are byte strings; we keep them as ``str`` (utf-8/ascii) at the
+    Python level and enforce the byte-length bound like xdrpp does.
+    """
+
+    def pack_into(self, val, out):
+        _VarOpaque.pack_into(self, val.encode("utf-8"), out)
+
+    def unpack_from(self, buf, off):
+        raw, off = _VarOpaque.unpack_from(self, buf, off)
+        try:
+            return raw.decode("utf-8"), off
+        except UnicodeDecodeError as e:
+            raise XdrError(f"invalid string bytes: {e}") from e
+
+
+class _Array(XdrCodec):
+    """Fixed-length array T[n]."""
+
+    def __init__(self, elem: XdrCodec, n: int):
+        self.elem = elem
+        self.n = n
+
+    def pack_into(self, val, out):
+        if len(val) != self.n:
+            raise XdrError(f"array[{self.n}] got {len(val)} elements")
+        for v in val:
+            self.elem.pack_into(v, out)
+
+    def unpack_from(self, buf, off):
+        vals = []
+        for _ in range(self.n):
+            v, off = self.elem.unpack_from(buf, off)
+            vals.append(v)
+        return vals, off
+
+    def copy(self, val):
+        if self.elem.immutable:
+            return list(val)
+        return [self.elem.copy(v) for v in val]
+
+
+class _VarArray(XdrCodec):
+    """Variable-length array T<max>."""
+
+    def __init__(self, elem: XdrCodec, maxlen: Optional[int] = None):
+        self.elem = elem
+        self.maxlen = maxlen if maxlen is not None else 0xFFFFFFFF
+
+    def pack_into(self, val, out):
+        if len(val) > self.maxlen:
+            raise XdrError(f"array<{self.maxlen}> got {len(val)} elements")
+        out += _U32.pack(len(val))
+        for v in val:
+            self.elem.pack_into(v, out)
+
+    def unpack_from(self, buf, off):
+        n, off = uint32.unpack_from(buf, off)
+        if n > self.maxlen:
+            raise XdrError(f"array<{self.maxlen}> length {n}")
+        vals = []
+        for _ in range(n):
+            v, off = self.elem.unpack_from(buf, off)
+            vals.append(v)
+        return vals, off
+
+    def copy(self, val):
+        if self.elem.immutable:
+            return list(val)
+        return [self.elem.copy(v) for v in val]
+
+
+class _Option(XdrCodec):
+    """Optional data (T*): bool-prefixed."""
+
+    def __init__(self, elem: XdrCodec):
+        self.elem = elem
+        self.immutable = elem.immutable
+
+    def pack_into(self, val, out):
+        if val is None:
+            out += _U32.pack(0)
+        else:
+            out += _U32.pack(1)
+            self.elem.pack_into(val, out)
+
+    def unpack_from(self, buf, off):
+        present, off = xbool.unpack_from(buf, off)
+        if not present:
+            return None, off
+        return self.elem.unpack_from(buf, off)
+
+    def copy(self, val):
+        return None if val is None else self.elem.copy(val)
+
+
+class _Enum(XdrCodec):
+    immutable = True
+    def __init__(self, enum_cls):
+        self.enum_cls = enum_cls
+
+    def pack_into(self, val, out):
+        try:
+            val = self.enum_cls(val)
+        except ValueError as e:
+            raise XdrError(
+                f"bad {self.enum_cls.__name__} value {val!r}"
+            ) from e
+        out += _I32.pack(int(val))
+
+    def unpack_from(self, buf, off):
+        v, off = int32.unpack_from(buf, off)
+        try:
+            return self.enum_cls(v), off
+        except ValueError as e:
+            raise XdrError(f"bad {self.enum_cls.__name__} value {v}") from e
+
+
+def opaque(n: int) -> XdrCodec:
+    return _Opaque(n)
+
+
+def var_opaque(maxlen: Optional[int] = None) -> XdrCodec:
+    return _VarOpaque(maxlen)
+
+
+def string(maxlen: Optional[int] = None) -> XdrCodec:
+    return _String(maxlen)
+
+
+def array(elem: XdrCodec, n: int) -> XdrCodec:
+    return _Array(elem, n)
+
+
+def var_array(elem: XdrCodec, maxlen: Optional[int] = None) -> XdrCodec:
+    return _VarArray(elem, maxlen)
+
+
+def option(elem: XdrCodec) -> XdrCodec:
+    return _Option(elem)
+
+
+_ENUM_CODECS: Dict[type, _Enum] = {}
+
+
+def xenum(enum_cls):
+    """Register an IntEnum as an XDR enum; returns its codec."""
+    codec = _ENUM_CODECS.get(enum_cls)
+    if codec is None:
+        codec = _Enum(enum_cls)
+        _ENUM_CODECS[enum_cls] = codec
+    return codec
+
+
+def xf(codec: XdrCodec, default: Any = dataclasses.MISSING, factory: Any = None):
+    """Declare a dataclass field carrying its XDR codec in metadata.
+
+    Fields with no explicit default get ``None`` so positional/keyword
+    construction stays flexible; packing a ``None`` required field raises.
+    """
+    kw: Dict[str, Any] = {"metadata": {"xdr": codec}}
+    if factory is not None:
+        kw["default_factory"] = factory
+    elif default is not dataclasses.MISSING:
+        kw["default"] = default
+    else:
+        kw["default"] = None
+    return dataclasses.field(**kw)
+
+
+def _fixed_leaf(codec):
+    """(struct-format, byte-check-n, enum-cls) for codecs packable inside a
+    single struct.Struct run, else None.  Opaque[n%4==0] needs an explicit
+    length check ('Ns' silently pads short values); enums pack their int
+    value and keep decode-side validation."""
+    if isinstance(codec, _UInt32):
+        return ("I", None, None)
+    if isinstance(codec, _Int32):
+        return ("i", None, None)
+    if isinstance(codec, _UInt64):
+        return ("Q", None, None)
+    if isinstance(codec, _Int64):
+        return ("q", None, None)
+    if isinstance(codec, _Opaque) and codec.n % 4 == 0:
+        return (f"{codec.n}s", codec.n, None)
+    if isinstance(codec, _Enum):
+        return ("i", None, codec.enum_cls)
+    return None
+
+
+class _StructCodec(XdrCodec):
+    """Derived struct codec with a fast path: maximal runs of fixed-size
+    leaf fields (ints, fixed opaque, enums) pack/unpack through one
+    precompiled struct.Struct instead of per-field codec dispatch — the
+    generic loop was the top ledger-close cost after the copy fixes."""
+
+    def __init__(self, cls, fields: List[Tuple[str, XdrCodec]]):
+        self.cls = cls
+        self.fields = fields
+        # plan items: ("run", Struct, names, checks, enums) | ("one", name, codec)
+        plan = []
+        fmt, names, checks, enums = "", [], [], []
+
+        def flush():
+            nonlocal fmt, names, checks, enums
+            if names:
+                plan.append(
+                    ("run", struct.Struct(">" + fmt), tuple(names),
+                     tuple(checks), tuple(enums))
+                )
+                fmt, names, checks, enums = "", [], [], []
+
+        for name, codec in fields:
+            leaf = _fixed_leaf(codec)
+            if leaf is None:
+                flush()
+                plan.append(("one", name, codec))
+            else:
+                f, n, ecls = leaf
+                fmt += f
+                names.append(name)
+                checks.append((name, n) if n is not None else None)
+                enums.append(ecls)
+        flush()
+        self._plan = plan
+        # copy plan: skip codec dispatch for immutable-valued fields; a
+        # whole struct declaring XDR_VALUE_SEMANTICS (all-immutable fields,
+        # instances never mutated in place — e.g. PublicKey) is shared
+        self._copy_plan = tuple((n, c, c.immutable) for n, c in fields)
+        self.immutable = bool(
+            getattr(cls, "XDR_VALUE_SEMANTICS", False)
+        ) and all(imm for _, _, imm in self._copy_plan)
+
+    def pack_into(self, val, out):
+        for item in self._plan:
+            if item[0] == "run":
+                _, st, names, checks, enums = item
+                for chk in checks:
+                    if chk is not None:
+                        v = getattr(val, chk[0])
+                        if not isinstance(v, (bytes, bytearray)) or len(
+                            v
+                        ) != chk[1]:
+                            raise XdrError(
+                                f"{self.cls.__name__}.{chk[0]}: opaque"
+                                f"[{chk[1]}] needs {chk[1]} bytes, got "
+                                f"{v!r:.32}"
+                            )
+                vals = []
+                for n, ecls in zip(names, enums):
+                    v = getattr(val, n)
+                    if ecls is not None and (
+                        v not in ecls._value2member_map_
+                    ):
+                        # keep _Enum.pack_into's fail-fast contract: a bad
+                        # enum int must never silently reach the wire/hash
+                        raise XdrError(
+                            f"bad {ecls.__name__} value {v!r}"
+                        )
+                    vals.append(v)
+                try:
+                    out += st.pack(*vals)
+                except (struct.error, TypeError, ValueError) as e:
+                    raise XdrError(
+                        f"packing {self.cls.__name__}: {e}"
+                    ) from e
+            else:
+                _, name, codec = item
+                try:
+                    codec.pack_into(getattr(val, name), out)
+                except XdrError:
+                    raise
+                except Exception as e:
+                    raise XdrError(
+                        f"packing {self.cls.__name__}.{name}: {e}"
+                    ) from e
+
+    def unpack_from(self, buf, off):
+        kw = {}
+        for item in self._plan:
+            if item[0] == "run":
+                _, st, names, _, enums = item
+                if off + st.size > len(buf):
+                    raise XdrError(
+                        f"short buffer for {self.cls.__name__}"
+                    )
+                vals = st.unpack_from(buf, off)
+                off += st.size
+                for name, v, ecls in zip(names, vals, enums):
+                    if ecls is not None:
+                        m = ecls._value2member_map_.get(v)
+                        if m is None:
+                            raise XdrError(
+                                f"bad {ecls.__name__} value {v}"
+                            )
+                        v = m
+                    kw[name] = v
+            else:
+                _, name, codec = item
+                kw[name], off = codec.unpack_from(buf, off)
+        return self.cls(**kw), off
+
+    def copy(self, val):
+        if self.immutable:
+            return val
+        return self.cls(
+            *[
+                getattr(val, n) if imm else c.copy(getattr(val, n))
+                for n, c, imm in self._copy_plan
+            ]
+        )
+
+
+def xstruct(cls):
+    """Decorator: dataclass + XDR codec derived from ``xf`` field metadata.
+
+    Classes declaring ``XDR_VALUE_SEMANTICS = True`` become frozen
+    dataclasses: xdr_copy shares their instances, so an accidental in-place
+    mutation must fail loudly instead of corrupting shared snapshots."""
+    cls = dataclass(cls, frozen=bool(getattr(cls, "XDR_VALUE_SEMANTICS", False)))
+    fields = []
+    for f in dataclasses.fields(cls):
+        codec = f.metadata.get("xdr")
+        if codec is None:
+            raise TypeError(f"{cls.__name__}.{f.name} lacks xdr metadata")
+        fields.append((f.name, codec))
+    cls._codec = _StructCodec(cls, fields)
+    cls.to_xdr = lambda self: self._codec.pack(self)
+    cls.from_xdr = classmethod(lambda c, data: c._codec.unpack(data))
+    return cls
+
+
+class _UnionCodec(XdrCodec):
+    def __init__(self, cls, switch_codec, arms, default_void):
+        self.cls = cls
+        self.switch_codec = switch_codec
+        self.arms = arms  # discriminant -> codec | None (void)
+        self.default_void = default_void
+        # see _StructCodec: XDR_VALUE_SEMANTICS unions (e.g. PublicKey)
+        # with immutable arms are shared by xdr_copy
+        self.immutable = bool(
+            getattr(cls, "XDR_VALUE_SEMANTICS", False)
+        ) and all(c is None or c.immutable for c in arms.values())
+
+    def _arm_codec(self, disc):
+        try:
+            return self.arms[disc]
+        except KeyError:
+            if self.default_void:
+                return None
+            raise XdrError(
+                f"{self.cls.__name__}: bad discriminant {disc!r}"
+            ) from None
+
+    def pack_into(self, val, out):
+        try:
+            self.switch_codec.pack_into(val.type, out)
+        except XdrError:
+            raise
+        except Exception as e:
+            raise XdrError(
+                f"{self.cls.__name__}: bad discriminant {val.type!r}: {e}"
+            ) from e
+        codec = self._arm_codec(val.type)
+        if codec is not None:
+            codec.pack_into(val.value, out)
+        elif val.value is not None:
+            raise XdrError(
+                f"{self.cls.__name__}: void arm {val.type!r} carries a value"
+            )
+
+    def unpack_from(self, buf, off):
+        disc, off = self.switch_codec.unpack_from(buf, off)
+        codec = self._arm_codec(disc)
+        if codec is None:
+            return self.cls(disc, None), off
+        v, off = codec.unpack_from(buf, off)
+        return self.cls(disc, v), off
+
+    def copy(self, val):
+        if self.immutable:
+            return val
+        codec = self._arm_codec(val.type)
+        if codec is None:
+            return self.cls(val.type, None)
+        if codec.immutable:
+            return self.cls(val.type, val.value)
+        return self.cls(val.type, codec.copy(val.value))
+
+
+def xunion(switch_codec, arms: Dict[Any, Optional[XdrCodec]], default_void=False):
+    """Class decorator for XDR unions.
+
+    The decorated class becomes a dataclass with fields ``type`` and ``value``
+    plus one read-only property per named arm.  ``arms`` maps discriminant ->
+    (name, codec) for data arms or (name, None)/None for void arms.
+    """
+
+    def deco(cls):
+        if not dataclasses.is_dataclass(cls):
+            cls = dataclass(
+                cls, frozen=bool(getattr(cls, "XDR_VALUE_SEMANTICS", False))
+            )
+        names = {f.name for f in dataclasses.fields(cls)}
+        if not {"type", "value"} <= names:
+            raise TypeError(f"{cls.__name__} must declare 'type' and 'value' fields")
+        norm_arms: Dict[Any, Optional[XdrCodec]] = {}
+        for disc, spec in arms.items():
+            if spec is None:
+                norm_arms[disc] = None
+                continue
+            name, codec = spec
+            norm_arms[disc] = codec
+            if name:
+                def _mk(d):
+                    def get(self):
+                        if self.type != d:
+                            raise ValueError(
+                                f"{cls.__name__} is {self.type!r}, not {d!r}"
+                            )
+                        return self.value
+                    return get
+                setattr(cls, name, property(_mk(disc)))
+        cls._codec = _UnionCodec(cls, switch_codec, norm_arms, default_void)
+        cls.to_xdr = lambda self: self._codec.pack(self)
+        cls.from_xdr = classmethod(lambda c, data: c._codec.unpack(data))
+        return cls
+
+    return deco
+
+
+import threading as _threading
+
+
+class DepthLimited(XdrCodec):
+    """Bounds recursion for self-referential types (e.g. SCPQuorumSet), so a
+    crafted wire message deepens into XdrError instead of RecursionError.
+    Depth is tracked per-thread: decodes on worker threads don't interfere."""
+
+    def __init__(self, inner: Optional[XdrCodec] = None, max_depth: int = 8):
+        self.inner = inner
+        self.max_depth = max_depth
+        self._tls = _threading.local()
+
+    def _enter(self):
+        depth = getattr(self._tls, "depth", 0) + 1
+        if depth > self.max_depth:
+            raise XdrError(f"recursion deeper than {self.max_depth}")
+        self._tls.depth = depth
+
+    def _exit(self):
+        self._tls.depth -= 1
+
+    def pack_into(self, val, out):
+        self._enter()
+        try:
+            self.inner.pack_into(val, out)
+        finally:
+            self._exit()
+
+    def copy(self, val):
+        self._enter()
+        try:
+            return self.inner.copy(val)
+        finally:
+            self._exit()
+
+    def unpack_from(self, buf, off):
+        self._enter()
+        try:
+            return self.inner.unpack_from(buf, off)
+        finally:
+            self._exit()
+
+
+def codec_of(obj_or_cls) -> XdrCodec:
+    cls = obj_or_cls if isinstance(obj_or_cls, type) else type(obj_or_cls)
+    codec = getattr(cls, "_codec", None)
+    if codec is None:
+        raise TypeError(f"{cls.__name__} is not an XDR type")
+    return codec
+
+
+def pack(val: Any, codec: Optional[XdrCodec] = None) -> bytes:
+    return (codec or codec_of(val)).pack(val)
+
+
+def pack_many(values, cls_or_codec, frames: bool = False) -> bytes:
+    """Concatenated XDR encoding of ``values`` (all one codec) in ONE C
+    call when the extension compiled — the batch plane for hot sites that
+    serialize whole lists per ledger close (bucket add_batch packs the
+    close's live/dead entries through this).  ``frames=True`` prefixes
+    every record with the RFC 5531 record mark (length | 0x80000000), the
+    XDROutputFileStream framing, so a bucket batch becomes one buffer to
+    hash and one write.
+
+    Same octet stream and XdrError failure contract as per-value
+    ``pack``: a malformed element raises and nothing is returned (the
+    partially-built buffer is discarded — pinned by the hostile cases in
+    tests/test_cxdrpack.py).  Hosts without the extension (or with a
+    codec the C side does not model) run the equivalent Python loop."""
+    codec = (
+        cls_or_codec
+        if isinstance(cls_or_codec, XdrCodec)
+        else codec_of(cls_or_codec)
+    )
+    vals = values if isinstance(values, (list, tuple)) else list(values)
+    prog = codec._cprog
+    if prog is None:
+        prog = codec._compile_cprog()
+    if prog is not False:
+        fn = getattr(_cxdr(), "pack_many", None)  # tolerate a stale .so
+        if fn is not None:
+            return fn(prog, vals, 1 if frames else 0)
+    out = bytearray()
+    for v in vals:
+        body = codec.pack(v)
+        if frames:
+            if len(body) >= 0x80000000:
+                raise XdrError("record too large")
+            out += _U32.pack(len(body) | 0x80000000)
+        out += body
+    return bytes(out)
+
+
+def unpack(cls, data: bytes) -> Any:
+    return codec_of(cls).unpack(data)
+
+
+def xdr_to_opaque(*items: Any) -> bytes:
+    """Concatenated XDR encoding of several values, matching xdrpp's
+    variadic ``xdr_to_opaque`` (the form used for hash preimages, e.g.
+    TransactionFrame.cpp:60 and HerderImpl.cpp:343).
+
+    Each item is either an instance of an ``xstruct``/``xunion`` class, a
+    ``(codec, value)`` tuple, an IntEnum registered with ``xenum``, or raw
+    32-byte ``bytes`` (packed as opaque[32] — the Hash/uint256 case).
+    """
+    out = bytearray()
+    for it in items:
+        if isinstance(it, tuple) and len(it) == 2 and isinstance(it[0], XdrCodec):
+            out += it[0].pack(it[1])  # .pack takes the C path when compiled
+        elif isinstance(it, enum.IntEnum):
+            xenum(type(it)).pack_into(it, out)
+        elif isinstance(it, (bytes, bytearray)):
+            if len(it) != 32:
+                raise XdrError(
+                    "raw bytes in xdr_to_opaque must be 32-byte hashes; "
+                    "use (codec, value) otherwise"
+                )
+            _Opaque(32).pack_into(bytes(it), out)
+        else:
+            out += codec_of(it).pack(it)
+    return bytes(out)
+
+
+def pack_var_array_of(cls, items) -> bytes:
+    """XDR xvector<T> encoding of `items` (count + each element)."""
+    out = bytearray()
+    var_array(codec_of(cls)).pack_into(list(items), out)
+    return bytes(out)
+
+
+def unpack_var_arrays(data: bytes, classes) -> Tuple[list, ...]:
+    """Decode consecutive xvector<T> blocks — the layout xdrpp produces for
+    `xdr_to_opaque(vecA, vecB, ...)` (e.g. the persisted SCP state blob,
+    HerderImpl.cpp:1482)."""
+    offset = 0
+    out = []
+    for cls in classes:
+        lst, offset = var_array(codec_of(cls)).unpack_from(data, offset)
+        out.append(lst)
+    if offset != len(data):
+        raise XdrError("trailing bytes after var arrays")
+    return tuple(out)
+
+
+# process-wide xdr_copy call counter: the copy plane is the ledger close's
+# dominant remaining host cost (close profiles), so bench.py surfaces
+# copies-per-tx on every close line and profile_close.py --copy-report
+# attributes them per call site.  A bare int += keeps the hot path cost
+# to nanoseconds; readers only ever difference two samples.
+_N_COPIES = 0
+
+
+def xdr_copy_calls() -> int:
+    """Total xdr_copy invocations in this process (monotonic; sample
+    before/after a workload and difference)."""
+    return _N_COPIES
+
+
+def xdr_copy(obj):
+    """Codec-driven structural deep copy of any xstruct/xunion value —
+    equivalent to ``from_xdr(to_xdr(obj))`` without the serialization.
+    Takes the C fast path (native/cxdrpack.c copy_node — same sharing
+    semantics: immutable subtrees shared, containers rebuilt) when the
+    codec compiled; the ledger apply path copies entries/headers per
+    nested delta, so this is hot at close."""
+    global _N_COPIES
+    _N_COPIES += 1
+    codec = obj._codec
+    prog = codec._cprog
+    if prog is None:
+        prog = codec._compile_cprog()
+    if prog is not False:
+        return _cxdr().copy(prog, obj)
+    return codec.copy(obj)
+
+
+# -- C pack fast path -------------------------------------------------------
+#
+# The declarative codec tree compiles to a flat program interpreted by the
+# cxdrpack CPython extension (stellar_tpu/native/cxdrpack.c) — same octet
+# stream, same XdrError failure contract, ~an order of magnitude less pack
+# time (the pack layer was ~1.2 s of a 5000-tx ledger close).  Compilation
+# is lazy per codec; anything the C side does not model falls back to the
+# pure-Python pack_into path forever (codec._cprog = False).
+
+_cxdr_mod: Any = None
+_cxdr_checked = False
+
+
+def _cxdr():
+    global _cxdr_mod, _cxdr_checked
+    if not _cxdr_checked:
+        _cxdr_checked = True
+        try:
+            from ..native import load_cxdrpack
+
+            _cxdr_mod = load_cxdrpack()
+        except Exception:
+            _cxdr_mod = None
+    return _cxdr_mod
+
+
+class _CUnsupported(Exception):
+    """Codec shape the C interpreter does not model."""
+
+
+def _min_wire_size(codec: XdrCodec, _seen: Optional[Set[int]] = None) -> int:
+    """Conservative lower bound on the serialized size (bytes) of one value
+    of `codec`.  Validates the C unpacker's hostile-count guard at compile
+    time (see the _VarArray branch of _cspec_of).  Recursion cycles
+    contribute 0, which can only under-estimate — i.e. reject a codec the
+    C path could have handled, never accept one it can't."""
+    if _seen is None:
+        _seen = set()
+    if id(codec) in _seen:
+        return 0
+    _seen.add(id(codec))
+    try:
+        if isinstance(codec, (_UInt32, _Int32, _Bool, _Enum)):
+            return 4
+        if isinstance(codec, (_UInt64, _Int64)):
+            return 8
+        if isinstance(codec, _Opaque):
+            return (codec.n + 3) // 4 * 4
+        if isinstance(codec, (_String, _VarOpaque, _VarArray, _Option)):
+            return 4  # count / discriminant alone
+        if isinstance(codec, _Array):
+            return codec.n * _min_wire_size(codec.elem, _seen)
+        if isinstance(codec, _StructCodec):
+            return sum(_min_wire_size(c, _seen) for _, c in codec.fields)
+        if isinstance(codec, _UnionCodec):
+            arms = [
+                0 if c is None else _min_wire_size(c, _seen)
+                for c in codec.arms.values()
+            ]
+            if codec.default_void or not arms:
+                arms.append(0)
+            return 4 + min(arms)
+        if isinstance(codec, DepthLimited):
+            return 0 if codec.inner is None else _min_wire_size(codec.inner, _seen)
+    finally:
+        _seen.discard(id(codec))
+    return 0  # unknown codec: conservative
+
+
+def _cspec_of(codec: XdrCodec, defs: List[Any], memo: Dict[int, int]) -> int:
+    """Append the compiled spec of `codec` (and its children) to `defs`,
+    returning its slot index.  `memo` closes recursive codec cycles
+    (SCPQuorumSet) by reserving the slot before descending."""
+    key = id(codec)
+    if key in memo:
+        return memo[key]
+    idx = len(defs)
+    memo[key] = idx
+    defs.append(None)  # reserved; filled below (recursion-safe)
+
+    if isinstance(codec, _UInt32):
+        spec: Any = ("u32",)
+    elif isinstance(codec, _Int32):
+        spec = ("i32",)
+    elif isinstance(codec, _UInt64):
+        spec = ("u64",)
+    elif isinstance(codec, _Int64):
+        spec = ("i64",)
+    elif isinstance(codec, _Bool):
+        spec = ("bool",)
+    elif isinstance(codec, _Enum):
+        # one source of truth: the C side derives its validation set from
+        # the member map's keys
+        spec = ("enum", dict(codec.enum_cls._value2member_map_))
+    elif isinstance(codec, _Opaque):
+        spec = ("opaque", codec.n)
+    elif isinstance(codec, _String):  # before _VarOpaque: subclass
+        spec = ("string", codec.maxlen)
+    elif isinstance(codec, _VarOpaque):
+        spec = ("varopaque", codec.maxlen)
+    elif isinstance(codec, _Array):
+        spec = ("array", codec.n, _cspec_of(codec.elem, defs, memo))
+    elif isinstance(codec, _VarArray):
+        if _min_wire_size(codec.elem) < 4:
+            # the C unpacker's hostile-count guard (cxdrpack.c
+            # rd_check_count: n > remaining/4) assumes every element
+            # occupies >= 4 wire bytes; a zero/short-sized element
+            # (fieldless struct, opaque[0], array[T,0]) would make it
+            # reject streams the Python decoder accepts — keep such
+            # codecs on the Python path
+            raise _CUnsupported("vararray element min wire size < 4")
+        spec = ("vararray", codec.maxlen, _cspec_of(codec.elem, defs, memo))
+    elif isinstance(codec, _Option):
+        spec = ("option", _cspec_of(codec.elem, defs, memo))
+    elif isinstance(codec, _StructCodec):
+        names = tuple(n for n, _ in codec.fields)
+        kids = tuple(_cspec_of(c, defs, memo) for _, c in codec.fields)
+        spec = ("struct", names, kids, codec.cls, int(codec.immutable))
+    elif isinstance(codec, _UnionCodec):
+        sw = codec.switch_codec
+        if isinstance(sw, _Enum):
+            sw_spec: Any = ("enum", dict(sw.enum_cls._value2member_map_))
+        elif isinstance(sw, _Int32):
+            sw_spec = ("i32",)
+        elif isinstance(sw, _UInt32):
+            sw_spec = ("u32",)
+        else:
+            raise _CUnsupported(f"union switch {type(sw).__name__}")
+        arms = {
+            int(disc): (-1 if c is None else _cspec_of(c, defs, memo))
+            for disc, c in codec.arms.items()
+        }
+        spec = (
+            "union", sw_spec, arms, int(codec.default_void), codec.cls,
+            int(codec.immutable),
+        )
+    elif isinstance(codec, DepthLimited):
+        if codec.inner is None:
+            raise _CUnsupported("DepthLimited with unbound inner")
+        spec = (
+            "depth",
+            codec.max_depth,
+            _cspec_of(codec.inner, defs, memo),
+        )
+    else:
+        raise _CUnsupported(type(codec).__name__)
+    defs[idx] = spec
+    return idx
+
+
+# -- hot-field accessors (C getfield/setfield over raw XDR bytes) -----------
+#
+# Read or patch ONE scalar field of a packed value without a full unpack:
+# the C interpreter (native/cxdrpack.c getfield/setfield) walks the same
+# compiled spec the pack/copy/unpack fast paths use, skipping everything
+# off the field path.  Shaped like the other interpreters: same program
+# capsule, same XdrError failure contract, pinned by the fuzzed
+# differential suite (tests/test_cxdrpack.py).  Paths are resolved ONCE
+# per (codec, path) against the declarative codec tree — struct fields by
+# name, union arms by discriminant (mismatch on the wire raises), array
+# elements by index; option/DepthLimited wrappers are transparent, and an
+# absent option on the path reads as None.  Hosts without the C toolchain
+# fall back to unpack + attribute walk (+ repack for setfield) — slower,
+# same results.
+
+_FIELD_PATH_MEMO: Dict[Tuple[int, tuple], tuple] = {}
+
+
+def _normalize_field_path(path) -> tuple:
+    if isinstance(path, str):
+        parts: tuple = tuple(path.split("."))
+    elif isinstance(path, (tuple, list)):
+        parts = tuple(path)
+    else:
+        parts = (path,)
+    out = []
+    for p in parts:
+        if isinstance(p, str) and p.lstrip("-").isdigit():
+            p = int(p)
+        out.append(p)
+    return tuple(out)
+
+
+def _resolve_field_path(codec: XdrCodec, path: tuple):
+    """(C step ints, terminal codec) for `path` rooted at `codec`."""
+    steps = []
+    cur = codec
+    for elt in path:
+        while isinstance(cur, (DepthLimited, _Option)):
+            cur = cur.inner if isinstance(cur, DepthLimited) else cur.elem
+        if isinstance(cur, _StructCodec):
+            if not isinstance(elt, str):
+                raise TypeError(
+                    f"struct step must be a field name, got {elt!r}"
+                )
+            for i, (n, c) in enumerate(cur.fields):
+                if n == elt:
+                    steps.append(i)
+                    cur = c
+                    break
+            else:
+                raise KeyError(
+                    f"{cur.cls.__name__} has no field {elt!r}"
+                )
+        elif isinstance(cur, _UnionCodec):
+            if isinstance(elt, str):
+                raise TypeError(
+                    f"union step must be a discriminant, got {elt!r}"
+                )
+            disc = int(elt)
+            arm = _MISSING_ARM
+            for d, c in cur.arms.items():
+                if int(d) == disc:
+                    arm = c
+                    break
+            if arm is _MISSING_ARM or arm is None:
+                raise KeyError(
+                    f"{cur.cls.__name__}: no data arm for discriminant"
+                    f" {disc}"
+                )
+            steps.append(disc)
+            cur = arm
+        elif isinstance(cur, (_Array, _VarArray)):
+            steps.append(int(elt))
+            cur = cur.elem
+        else:
+            raise TypeError(
+                f"field path descends into a scalar at {elt!r}"
+            )
+    return tuple(steps), cur
+
+
+_MISSING_ARM = object()
+
+
+def _field_path_of(codec: XdrCodec, path) -> tuple:
+    """(C steps, normalized path, terminal-is-union) for `path`.  A path
+    may TERMINATE at a union: it then addresses the DISCRIMINANT (read as
+    a plain int, never settable) — the hot statement-type accessor shape
+    (``xdr_getfield(SCPEnvelope, raw, ("statement", "pledges"))``)."""
+    norm = _normalize_field_path(path)
+    key = (id(codec), norm)
+    hit = _FIELD_PATH_MEMO.get(key)
+    if hit is None:
+        steps, terminal = _resolve_field_path(codec, norm)
+        while isinstance(terminal, (DepthLimited, _Option)):
+            terminal = (
+                terminal.inner
+                if isinstance(terminal, DepthLimited)
+                else terminal.elem
+            )
+        hit = (steps, norm, isinstance(terminal, _UnionCodec))
+        _FIELD_PATH_MEMO[key] = hit
+    return hit
+
+
+def _py_walk(obj, norm: tuple):
+    """Python-fallback (and oracle) walk over a DECODED value."""
+    for elt in norm:
+        if obj is None:
+            return None  # absent option on the path
+        if isinstance(elt, str):
+            obj = getattr(obj, elt)
+        elif hasattr(obj, "type") and hasattr(obj, "value") and not isinstance(
+            obj, (list, bytes)
+        ):
+            if int(obj.type) != int(elt):
+                raise XdrError(
+                    f"union arm mismatch: value carries {int(obj.type)},"
+                    f" path expects {int(elt)}"
+                )
+            obj = obj.value
+        else:
+            try:
+                obj = obj[int(elt)]
+            except IndexError:
+                raise XdrError(
+                    f"array index {int(elt)} out of range"
+                ) from None
+    return obj
+
+
+def _cprog_for(codec: XdrCodec):
+    prog = codec._cprog
+    if prog is None:
+        prog = codec._compile_cprog()
+    return prog
+
+
+def xdr_getfield(cls_or_codec, data: bytes, path):
+    """The scalar at `path` inside the packed value `data` — without a
+    full unpack when the C interpreter is available.  `path` is a dotted
+    string or tuple: struct fields by name, union arms by discriminant
+    (int/IntEnum), array elements by index.  Absent options read as None.
+
+    NOT a validator: only the bytes on the path are bounds-checked; a
+    value that is malformed OFF the path can still answer.  Anything that
+    must reject malformed input keeps calling ``unpack``."""
+    codec = cls_or_codec if isinstance(cls_or_codec, XdrCodec) else codec_of(
+        cls_or_codec
+    )
+    steps, norm, union_terminal = _field_path_of(codec, path)
+    prog = _cprog_for(codec)
+    if prog is not False:
+        return _cxdr().getfield(prog, data, steps)
+    obj = _py_walk(codec.unpack(data), norm)
+    if union_terminal:
+        # parity with the C walker: a terminal union reads as its
+        # discriminant (plain int), None behind an absent option
+        return None if obj is None else int(obj.type)
+    return obj
+
+
+def xdr_setfield(cls_or_codec, data: bytes, path, value) -> bytes:
+    """New bytes with the FIXED-WIDTH scalar at `path` patched in place
+    (ints, bools, enums, opaque[n]) — no unpack/repack round trip on the
+    C path.  Raises XdrError for variable-width terminals, out-of-range
+    values, union-arm mismatches, or truncated buffers."""
+    codec = cls_or_codec if isinstance(cls_or_codec, XdrCodec) else codec_of(
+        cls_or_codec
+    )
+    steps, norm, union_terminal = _field_path_of(codec, path)
+    if union_terminal:
+        # patching a discriminant would change which arm follows (and
+        # usually the value's length) — not a fixed-width scalar patch
+        raise XdrError("cannot set a union discriminant")
+    prog = _cprog_for(codec)
+    if prog is not False:
+        return _cxdr().setfield(prog, data, steps, value)
+    # fallback: decode, set, re-encode (same octets, slower)
+    obj = codec.unpack(data)
+    if len(norm) == 0:
+        raise XdrError("empty field path")
+    parent = _py_walk(obj, norm[:-1])
+    if parent is None:
+        raise XdrError("cannot set a field behind an absent option")
+    last = norm[-1]
+    if isinstance(last, str):
+        object.__setattr__(parent, last, value)
+    elif isinstance(parent, list):
+        parent[int(last)] = value
+    else:
+        if int(parent.type) != int(last):
+            raise XdrError(
+                f"union arm mismatch: value carries {int(parent.type)},"
+                f" path expects {int(last)}"
+            )
+        object.__setattr__(parent, "value", value)
+    return codec.pack(obj)
+
+
+def iter_scalar_field_paths(codec: XdrCodec, val):
+    """Yield (path, leaf_codec, value) for every scalar leaf reachable in
+    the DECODED value `val` — paths in xdr_getfield/xdr_setfield shape
+    (struct names, union discriminants, array indices; options and depth
+    guards transparent).  Shared by the fuzzer's structured single-field
+    mutants and the accessor differential tests, so the one walker stays
+    in lockstep with the path grammar it feeds."""
+    while isinstance(codec, DepthLimited):
+        codec = codec.inner
+    if isinstance(codec, _Option):
+        if val is None:
+            return
+        codec = codec.elem
+    if isinstance(codec, _StructCodec):
+        for name, c in codec.fields:
+            for p, leaf, v in iter_scalar_field_paths(c, getattr(val, name)):
+                yield (name,) + p, leaf, v
+    elif isinstance(codec, _UnionCodec):
+        arm = codec.arms.get(val.type)
+        if arm is not None:
+            for p, leaf, v in iter_scalar_field_paths(arm, val.value):
+                yield (int(val.type),) + p, leaf, v
+    elif isinstance(codec, (_Array, _VarArray)):
+        for i, item in enumerate(val):
+            for p, leaf, v in iter_scalar_field_paths(codec.elem, item):
+                yield (i,) + p, leaf, v
+    else:
+        yield (), codec, val

@@ -55,7 +55,10 @@ phase's failure is caught while the run carries on):
               checks; both kernels must have launched and neither plain
               version run; span sums beside the host-hash run's;
 6. torsion  — ``torsion_check`` on 512 encodings against
-              ``ref25519.is_torsion_free``;
+              ``ref25519.is_torsion_free``, and the host path (the
+              ``native/halfagg.c`` ladder, what the cpu backend and a batch
+              below the cutover run) equal to the card on the same
+              encodings;
 7. bucket hash — the port's ``bucket/hashplane`` on a seeded framed
               buffer of 10^6 records (~108 MB, the 10^6-account rung of
               STATE_LADDER_r22.json): ``hash_frames`` over the whole buffer
@@ -91,9 +94,26 @@ phase's failure is caught while the run carries on):
               payments on the card and on the plain versions on the CPU,
               hash for hash (the plain version costs about a second a call
               on the CPU whatever the batch, and the full load makes ~1350
-              calls).
+              calls);
+10. scenario flood — ``scenario_flood``: the chaos matrix's
+              ``byzantine_flood_gpu`` at its big spec (a 4-core + 4-tier
+              ring, 1200 load txs, 50 invalid envelopes and 10 invalid txs
+              every 0.4 s from 0.5 s to 20 s on node 0), every node on the
+              gpu backend at cutover 0 on the card: the scenario's floors
+              (ledgers agree, every flooded envelope rejected, the cache
+              unpolluted), device dispatches under the ``overlay`` caller
+              (``device_dispatches`` in the backends' stats), no plain
+              call, no stall, and every launch's verdicts held against the
+              plain version on the card afterwards;
+11. fuzz    — ``--genfuzz`` then ``--fuzz`` through ``python -m
+              stellar_tpu_torch.main.cli`` (its node pair on the card):
+              both exit 0.
 
-Then, on lines of their own: the kernels' JSON line, the nvidia-smi line,
+Every phase fails on a dispatch that outlived its budget
+(``stalled_items``), one the card never answered
+(``stall_rejected_items``) or a latch flip: no batch ever leaves the card
+for the host, and the card's runs hide no stall.  Then, on lines
+of their own: the kernels' JSON line, the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 rest of the repository beside it, the script exits non-zero and prints no
 result.  Keys, messages and bucket records come from a seed; signatures
@@ -192,6 +212,9 @@ PLAIN_DISPATCH_BUDGET_S = 900.0
 CONSENSUS_ACCOUNTS, CONSENSUS_TXS, CONSENSUS_RATE = 300, 1000, 100
 PAIR_ACCOUNTS, PAIR_TXS, PAIR_RATE = 10, 40, 10
 CONSENSUS_LEDGERS = 5
+# scenario_flood: the chaos plane's gpu flood class, at its big spec
+FLOOD_CLASS = "byzantine_flood_gpu"
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def emit(obj) -> None:
@@ -778,9 +801,9 @@ def phase_main(fx, rng, loads, device_hash=False):
         assert launches["sha512_h"] == 0, "the host-hash path launched the SHA-512 kernel"
     assert plain_calls == {"ed25519": 0, "sha512": 0}, f"plain versions ran on the main path: {plain_calls}"
     assert stats["device_hash"] is device_hash, stats["device_hash"]
-    for key in ("cpu_cutover_items", "stall_rejected_items", "host_assist_items"):
+    for key in ("cpu_cutover_items", "host_assist_items"):
         assert stats[key] == 0, f"{key} = {stats[key]}: items left the device"
-    assert stats["wedge_latch_flips"] == {}, f"device stalls: {stats['wedge_latch_flips']}"
+    assert _stalls(stats) == 0, f"device stalls: {stats}"
     emit({
         "phase": phase, "launches": launches, "plain_calls": plain_calls,
         "libsodium_checked": fx.sodium, "stats": stats,
@@ -789,6 +812,10 @@ def phase_main(fx, rng, loads, device_hash=False):
 
 
 def phase_torsion(fx, rng, backend, pks):
+    """``torsion_check`` on TORSION_ENCS encodings on the card against
+    ``ref25519.is_torsion_free``, and the host path on the same encodings
+    against the card."""
+    from stellar_tpu_torch.crypto.sigbackend import CpuSigBackend
     from stellar_tpu_torch.ops import ed25519 as ed
     from stellar_tpu_torch.ops import ed25519_cuda as ec
     from stellar_tpu_torch.ops import ref25519 as ref
@@ -825,9 +852,16 @@ def phase_torsion(fx, rng, backend, pks):
     launches, plain_calls = ec.launches, ed.plain_calls
     assert got == want, f"torsion: {sum(g != w for g, w in zip(got, want))} verdicts differ"
     assert launches > 0 and plain_calls == 0, (launches, plain_calls)
+    assert _stalls(backend.stats()) == 0, backend.stats()
+    # the host path (native/halfagg.c's ladder): what the cpu backend and a
+    # torsion batch below the cutover run instead of the card
+    t0 = time.perf_counter()
+    host = CpuSigBackend().torsion_check(encs)
+    host_sec = time.perf_counter() - t0
+    assert host == got, f"torsion: the host path differs from the card on {sum(h != g for h, g in zip(host, got))} encodings"
     emit({
         "phase": "torsion", "encodings": len(encs), "torsion_free": sum(want),
-        "launches": launches, "ms": sec * 1e3,
+        "launches": launches, "ms": sec * 1e3, "host_path_equal": True, "host_ms": host_sec * 1e3,
     })
 
 
@@ -1042,7 +1076,11 @@ def _node_counts(reset=False):
 
 
 def _stalls(stats):
-    return stats["stall_rejected_items"] + sum(stats["wedge_latch_flips"].values())
+    """Items of dispatches that outlived their budget or that the card
+    never answered, plus latch flips: any of them fails the phase (the
+    card's runs hide no stall)."""
+    return (stats["stalled_items"] + stats["stall_rejected_items"]
+            + sum(stats["wedge_latch_flips"].values()))
 
 
 def node_close_leg(load, tmp, leg, device, device_hash, untimed_close):
@@ -1154,10 +1192,11 @@ def phase_node_close(fx, tmp):
     assert card["ledger_hashes"] == card_dh["ledger_hashes"], "card legs disagree"
     assert card["ledger_hashes"][:n_timed] == plain["ledger_hashes"], "card and plain disagree"
     assert [ln["bad_tx"] for ln in (card, card_dh, plain)] == ["txBAD_AUTH"] * 3
+    assert [ln["stalls"] for ln in (card, card_dh, plain)] == [0, 0, 0], "a dispatch stalled"
     for line in (card, card_dh):
         assert line["launches"]["ed25519_verify"] > 0, f"{line['leg']}: no verify launch"
         assert line["plain_calls"] == {"ed25519": 0, "sha512": 0, "sha256": 0}, line["plain_calls"]
-        assert line["stalls"] == 0 and line["cpu_cutover_items"] == 0, line
+        assert line["cpu_cutover_items"] == 0, line
         n_create = sum(len(envs) for envs in load.create_ledgers)
         assert line["txs_applied"] == n_create + NODE_TXS * (NODE_ROUNDS + 1), line["txs_applied"]
     assert card["launches"]["sha512_h"] == 0 and card_dh["launches"]["sha512_h"] > 0
@@ -1228,7 +1267,8 @@ class VerifyTap:
     """While installed, every verify kernel launch keeps a copy of its
     input chunk and its verdicts (on the card, on the launch's stream), so
     a run's verdicts can be held against the plain version afterwards.  It
-    wraps the wrapper: the launch count is the wrapper's own."""
+    wraps the wrapper: the launch count is the wrapper's own.  Install it
+    before the nodes are built: a verifier binds the wrapper when built."""
 
     def __init__(self):
         from stellar_tpu_torch.ops import ed25519_cuda
@@ -1305,6 +1345,7 @@ def phase_node_consensus(tmp):
               "wall_s": run["wall_s"], **run["counts"],
               "stalls": sum(_stalls(st) for st in run["stats"]),
               "ledger_hashes": run["hashes"][0]})
+    assert all(_stalls(st) == 0 for run in pair.values() for st in run["stats"])
     n = min(pair["cuda"]["ledgers"], pair["cpu"]["ledgers"]) - 1
     assert n >= CONSENSUS_LEDGERS - 1
     assert [h[:n] for h in pair["cuda"]["hashes"]] == [h[:n] for h in pair["cpu"]["hashes"]]
@@ -1313,6 +1354,103 @@ def phase_node_consensus(tmp):
     emit({"phase": "node_consensus", "pair_hashes_equal": n})
     return {"ed25519_verify": c["launches"]["ed25519_verify"],
             "sha256_frames": c["launches"]["sha256_frames"]}
+
+
+# -- phase 10: the chaos scenario on the card --------------------------------
+
+
+def phase_scenario_flood():
+    """``scenario_flood``: the port's ``byzantine_flood_gpu`` class at its
+    big spec — a 4-core + 4-tier ring, every node on the gpu backend at
+    cutover 0 on the card, 1200 load txs, and ``ByzantineFlood(at=0.5,
+    until=20.0, envelopes_per_tick=50, txs_per_tick=10, tick=0.4)`` on node
+    0.  The scenario's own floors hold (ledgers agree, every flooded
+    envelope rejected, the cache unpolluted); the verify kernel launched,
+    the overlay caller class dispatched to the card (the backends'
+    ``device_dispatches``) and the plain version never ran; no dispatch
+    stalled; every launch's verdicts held against the plain version on the
+    card afterwards.  Returns the kernel's launches."""
+    from stellar_tpu_torch.scenarios.matrix import big_specs
+    from stellar_tpu_torch.scenarios.scenario import Scenario
+
+    spec = big_specs()[FLOOD_CLASS]
+    assert (spec.signature_backend, spec.gpu_cpu_cutover, spec.sig_device) == ("gpu", 0, "cuda")
+    assert (spec.n_nodes, spec.tier_n, spec.load_txs) == (4, 4, 1200), spec
+    flood = spec.faults[0]
+    stats = {}
+    _node_counts(reset=True)
+    t0 = time.perf_counter()
+    with VerifyTap() as tap:
+        scn = Scenario(spec)
+        reached = scn._target_reached
+
+        def check():
+            done = reached()
+            if done:
+                for raw, app in scn.sim.nodes.items():
+                    stats[raw.hex()[:8]] = app.sig_backend.stats()
+            return done
+
+        scn._target_reached = check
+        r = scn.run()
+    wall = time.perf_counter() - t0
+    counts = _node_counts()
+    sb = r.scoreboard
+    by_caller = {}
+    for st in stats.values():
+        for caller, n in st["device_dispatches"].items():
+            by_caller[caller] = by_caller.get(caller, 0) + n
+    line = {
+        "phase": "scenario_flood", "scenario": spec.name, "ok": r.ok, "failures": r.failures,
+        "nodes": len(stats), "ledgers": sb.ledgers_closed, "ledgers_per_sec": sb.ledgers_per_sec,
+        "wall_s": wall, "virtual_s": sb.wall_seconds, **counts,
+        "dispatches_by_caller": dict(sorted(by_caller.items())),
+        "lanes": sum(int(p.shape[1]) for p, _ in tap.calls),
+        "flood": {"envelopes": flood.n_envelopes, "txs": flood.n_txs,
+                  "fast_rejects": sb.fast_rejects,
+                  "fast_reject_rate_per_sec": sb.fast_reject_rate_per_sec,
+                  "cache_unpolluted": flood.assert_cache_unpolluted()},
+        "stalls": sum(_stalls(st) for st in stats.values()),
+        "device_calls": [st["device_calls"] for st in stats.values()],
+        "cpu_cutover_items": sum(st["cpu_cutover_items"] for st in stats.values()),
+        "final_hash": sb.final_hash,
+    }
+    emit(line)
+    assert r.ok, r.failures
+    assert len(stats) == 8, f"backend stats of {len(stats)} nodes"
+    assert sb.ledgers_agree and sb.ledgers_closed >= 10, (sb.ledgers_agree, sb.ledgers_closed)
+    assert sb.fast_rejects == flood.n_envelopes > 0, (sb.fast_rejects, flood.n_envelopes)
+    assert line["flood"]["cache_unpolluted"] == flood.n_envelopes
+    assert counts["launches"]["ed25519_verify"] > 0 and by_caller.get("overlay", 0) > 0, by_caller
+    assert counts["plain_calls"] == {"ed25519": 0, "sha512": 0, "sha256": 0}, counts
+    assert line["stalls"] == 0 and line["cpu_cutover_items"] == 0, "a batch stalled or left the card"
+    verdicts = tap.check()
+    emit({"phase": "scenario_flood", "verdicts_vs_plain": verdicts})
+    assert verdicts["launches"] == counts["launches"]["ed25519_verify"], verdicts
+    assert verdicts["mismatches"] == 0, verdicts
+    return counts["launches"]["ed25519_verify"]
+
+
+# -- phase 11: the fuzzer through the CLI -------------------------------------
+
+
+def phase_fuzz(tmp):
+    """``fuzz``: ``--genfuzz`` then ``--fuzz`` through ``python -m
+    stellar_tpu_torch.main.cli``, its loopback node pair on the card (the
+    CLI's test configs default to the gpu backend on cuda); both exit 0."""
+    path = os.path.join(tmp, "fuzz.xdr")
+    line = {"phase": "fuzz"}
+    for mode in ("genfuzz", "fuzz"):
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "stellar_tpu_torch.main.cli", f"--{mode}", path],
+            cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True,
+            timeout=600,
+        )
+        line[f"{mode}_rc"], line[f"{mode}_s"] = p.returncode, time.perf_counter() - t0
+        assert p.returncode == 0, f"--{mode}: rc {p.returncode}: {p.stderr[-2000:]}"
+    line["corpus_bytes"] = os.path.getsize(path)
+    emit(line)
 
 
 def sass_instructions(lib: str):
@@ -1464,6 +1602,9 @@ def main() -> int:
     bucket_launches = phase_bucket(buf, frames)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_node_") as tmp:
         consensus_launches = phase_node_consensus(tmp)
+    flood_launches = phase_scenario_flood()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fuzz_") as tmp:
+        phase_fuzz(tmp)
 
     rows[0]["launches"] = launches["ed25519_verify"]
     rows[1]["launches"] = dh_launches["sha512_h"]
@@ -1471,7 +1612,8 @@ def main() -> int:
     # each path's own count, set to 0 just before it and read just after
     rows[0]["launches_by_path"] = {"main_path": launches["ed25519_verify"],
                                    "node_close": close_launches["ed25519_verify"],
-                                   "node_consensus": consensus_launches["ed25519_verify"]}
+                                   "node_consensus": consensus_launches["ed25519_verify"],
+                                   "scenario_flood": flood_launches}
     rows[1]["launches_by_path"] = {"main_path_device_hash": dh_launches["sha512_h"],
                                    "node_close": close_launches["sha512_h"]}
     rows[2]["launches_by_path"] = {"bucket_hash": bucket_launches,

@@ -141,14 +141,18 @@ class SigBackend:
         """Batched prime-order-subgroup proofs ([L]·P == identity) over
         compressed point encodings — the aggregate plane's fresh-R proof
         surface.  True iff the encoding is a canonical, decodable,
-        torsion-free point.  The host implementation needs the
-        half-aggregation plane, which is not part of the port yet; the gpu
-        backend proves on the device batch plane at and above its
-        cutover."""
-        raise NotImplementedError(
-            "host torsion proofs need the half-aggregation plane, which is "
-            "not ported yet; use the gpu backend at or above its cutover"
-        )
+        torsion-free point.  The base implementation strict-decodes and
+        proves on host (native/halfagg.c's ladder or the ref25519 oracle);
+        the gpu backend overrides with the device batch plane, under the
+        same cutover and stall contracts as verify_batch.  ``vals`` —
+        optional decoded points parallel to ``encs`` (what the aggregate
+        plane's _decompress_many already produced): the host path proves
+        them directly instead of re-decoding the encodings."""
+        from ..crypto.aggregate import halfagg
+
+        if vals is not None:
+            return halfagg.torsion_free_points(vals)
+        return halfagg.torsion_free_encs(encs)
 
     def verify_batch_async(
         self, items: Sequence[VerifyTriple], caller: str = CALLER_PIPELINE
@@ -379,11 +383,11 @@ class CpuSigBackend(SigBackend):
 
 
 class DeviceStallError(RuntimeError):
-    """A device dispatch did not finish within its budget, or its caller
-    class is latched after such a stall.  The batch is NOT verified on the
-    host: its tensors may still be in flight on the card, and the card's
-    machine has no libsodium.  The caller decides what a stalled flush
-    means (drop, retry later, abort the close)."""
+    """The card never answered a dispatch within DEVICE_GIVE_UP, or its
+    caller class is latched after such a dispatch.  The batch is NOT
+    verified on the host: its tensors may still be in flight on the card,
+    and the card's machine has no libsodium.  The caller decides what a
+    lost flush means (drop, retry later, abort the close)."""
 
 
 class GpuSigBackend(SigBackend):
@@ -403,11 +407,14 @@ class GpuSigBackend(SigBackend):
     dispatch's budget.
 
     Stall contract (unlike the JAX package's TpuSigBackend, which finishes
-    a stalled batch on host): a dispatch that outlives its budget raises
-    DeviceStallError and latches ITS caller class for RETRY_INTERVAL, in
-    which that class's batches raise at once without a dispatch.  Other
-    caller classes keep dispatching.  No batch ever moves to the host
-    after it reached the device path."""
+    a stalled batch on host): a dispatch that outlives its budget is a
+    stall, counted in ``stalled_items``, and the caller goes on waiting
+    for the card's verdicts.  Only a card that has not answered after
+    DEVICE_GIVE_UP raises DeviceStallError and latches ITS caller class
+    for RETRY_INTERVAL, in which that class's batches raise at once
+    without a dispatch; other caller classes keep dispatching.  An error
+    of the kernel, its build or its launch raises to the caller.  No batch
+    ever moves to the host after it reached the device path."""
 
     name = "gpu"
     # class-level default: harness code (and tests) that build the backend
@@ -438,51 +445,59 @@ class GpuSigBackend(SigBackend):
         self.cpu_cutover = cpu_cutover
         self.n_cutover_items = 0
         self.n_cutover_torsion = 0
-        self.n_stall_rejected_items = 0
+        self.n_stalled_items = 0  # analysis: locked-by _wedge_lock
+        self.n_stall_rejected_items = 0  # analysis: locked-by _wedge_lock
+        # dispatches that reached the card, per caller class
+        self.n_device_dispatches: dict = {}  # analysis: locked-by _wedge_lock
         # per-surface first-dispatch latches: verify and torsion launch
         # with different inputs, so each surface keeps the long budget
         # until ITS OWN first device call has completed
         self._warm: set = set()  # analysis: locked-by _wedge_lock
-        # stall latch, scoped PER CALLER CLASS: a stalled pipelined
-        # prewarm (caller="pipeline") fails only the pipeline plane fast —
-        # the synchronous close-path batches (caller="close") keep
-        # probing the device, and vice versa
+        # dead-card latch, scoped PER CALLER CLASS: a pipelined prewarm
+        # (caller="pipeline") the card never answered fails only the
+        # pipeline plane fast — the synchronous close-path batches
+        # (caller="close") keep probing the device, and vice versa
         self._wedged_until: dict = {}  # analysis: locked-by _wedge_lock
-        self.n_latch_flips: dict = {}
+        self.n_latch_flips: dict = {}  # analysis: locked-by _wedge_lock
         # verify_batch is called concurrently (async signature prewarm
-        # worker + the SCP crank); the latch read/write and the budget
+        # worker + the SCP crank); the latch, the counters and the budget
         # choice go under one small lock so callers see consistent state
         self._wedge_lock = threading.Lock()
 
-    # A wedged device dispatch must never stall a caller indefinitely —
-    # SCP envelope flushes run on the main crank and ledger close joins
-    # the prewarm.  After the budget the caller gets DeviceStallError and
-    # its class is latched for RETRY_INTERVAL (a persistently-dead device
-    # costs at most one bounded stall per interval, not one per batch).
-    # The FIRST dispatch of each surface gets a longer budget: it pays the
-    # CUDA context and module load, and on a CPU test host the plain
-    # version's first run.  Env-overridable (the JAX package's variable
-    # names); a malformed value falls back to the default.
+    # A slow card must not hide: a dispatch that outlives its budget is
+    # counted (stats()) and logged, and the caller goes on waiting for its
+    # verdicts.  The FIRST dispatch of each surface gets a longer budget:
+    # it pays the CUDA context and module load, and on a CPU test host the
+    # plain version's first run.  A card that has not answered after
+    # DEVICE_GIVE_UP is taken for dead: the caller gets DeviceStallError
+    # and its class is latched for RETRY_INTERVAL (a dead card costs one
+    # bounded wait per interval, not one per batch).  The budgets are
+    # env-overridable (the JAX package's variable names); a malformed
+    # value falls back to the default.
     DEVICE_TIMEOUT = _env_float("STELLAR_TPU_DISPATCH_BUDGET", 15.0)
     DEVICE_FIRST_TIMEOUT = _env_float("STELLAR_TPU_FIRST_DISPATCH_BUDGET", 90.0)
+    DEVICE_GIVE_UP = 600.0
     RETRY_INTERVAL = 60.0
 
     def _dispatch(self, fn, n: int, caller: str, surface: str):
         """Run ``fn()`` (one BatchVerifier call over ``n`` items) on a
-        worker thread within the surface's budget; raise DeviceStallError
-        on a stall or while ``caller`` is latched."""
+        worker thread and wait for it: past the surface's budget the batch
+        counts as stalled under a ``sig.device_stall`` span; past
+        DEVICE_GIVE_UP, or while ``caller`` is latched, DeviceStallError
+        raises."""
         with self._wedge_lock:
             left = self._wedged_until.get(caller, 0.0) - time.monotonic()
+            if left > 0:
+                self.n_stall_rejected_items += n
             # every caller keeps the long budget until the surface's first
             # device call has COMPLETED (not merely been dispatched): a
-            # second caller arriving mid-warm-up must not false-latch a
-            # healthy device with the short budget
+            # second caller arriving mid-warm-up must not count a healthy
+            # device's warm-up as a stall
             first = surface not in self._warm
         if left > 0:
-            self.n_stall_rejected_items += n
             raise DeviceStallError(
-                f"{surface}: the {caller!r} caller class is latched after a"
-                f" device stall for another {left:.0f}s"
+                f"{surface}: the {caller!r} caller class is latched after the"
+                f" card did not answer, for another {left:.0f}s"
             )
         result: List[Any] = [None]
         err: List[BaseException] = []
@@ -492,34 +507,50 @@ class GpuSigBackend(SigBackend):
         def work():
             try:
                 result[0] = fn()
-                # warm on COMPLETION of a REAL device dispatch, even when
-                # the caller's wait already timed out (orphaned worker).
-                # An all-gate-rejected batch never dispatches and must NOT
+                # warm on COMPLETION of a REAL device dispatch.  An
+                # all-gate-rejected batch never dispatches and must NOT
                 # consume the first-dispatch budget
                 if self._verifier.n_device_calls > calls_before:
                     with self._wedge_lock:
                         self._warm.add(surface)
+                        self.n_device_dispatches[caller] = (
+                            self.n_device_dispatches.get(caller, 0) + 1
+                        )
             except BaseException as e:
                 err.append(e)
             finally:
                 done.set()
 
         threading.Thread(target=work, name=f"gpu-{surface}", daemon=True).start()
-        timeout = self.DEVICE_FIRST_TIMEOUT if first else self.DEVICE_TIMEOUT
-        if not done.wait(timeout):
+        budget = self.DEVICE_FIRST_TIMEOUT if first else self.DEVICE_TIMEOUT
+        if not done.wait(budget):
             with self._wedge_lock:
-                # latch flips are metered per caller class so telemetry
-                # (stats()) shows WHICH plane stalled
-                self._wedged_until[caller] = time.monotonic() + self.RETRY_INTERVAL
-                self.n_latch_flips[caller] = self.n_latch_flips.get(caller, 0) + 1
+                self.n_stalled_items += n
             _log.warning(
-                "device %s batch of %d stalled >%.0fs; failing the %r caller"
-                " class fast for %.0fs",
-                surface, n, timeout, caller, self.RETRY_INTERVAL,
+                "device %s batch of %d (%r caller) outlived its %.0fs budget;"
+                " waiting for the card up to %.0fs",
+                surface, n, caller, budget, self.DEVICE_GIVE_UP,
             )
-            raise DeviceStallError(
-                f"{surface}: device batch of {n} stalled >{timeout:.0f}s"
-            )
+            with self._tracer.span(
+                "sig.device_stall", items=n, caller=caller, surface=surface
+            ):
+                answered = done.wait(max(0.0, self.DEVICE_GIVE_UP - budget))
+            if not answered:
+                with self._wedge_lock:
+                    # latch flips are metered per caller class so telemetry
+                    # (stats()) shows WHICH plane lost the card
+                    self._wedged_until[caller] = time.monotonic() + self.RETRY_INTERVAL
+                    self.n_latch_flips[caller] = self.n_latch_flips.get(caller, 0) + 1
+                    self.n_stall_rejected_items += n
+                _log.warning(
+                    "device %s batch of %d: no answer from the card in %.0fs;"
+                    " failing the %r caller class fast for %.0fs",
+                    surface, n, self.DEVICE_GIVE_UP, caller, self.RETRY_INTERVAL,
+                )
+                raise DeviceStallError(
+                    f"{surface}: device batch of {n} stalled: no answer in"
+                    f" {self.DEVICE_GIVE_UP:.0f}s"
+                )
         if err:
             raise err[0]
         return result[0]
@@ -547,9 +578,9 @@ class GpuSigBackend(SigBackend):
         kernel computes [L]·P == identity AS-IS via verify(A := P,
         h := L, s := 0, R := identity-encoding) — no hash stage at all
         (BatchVerifier.verify_torsion).  Same cutover and stall contract
-        as verify_batch; below the cutover the host path needs the
-        half-aggregation plane and raises NotImplementedError until that
-        plane is ported."""
+        as verify_batch: below the cutover the host ladder proves them
+        (SigBackend.torsion_check), with the caller's already-decoded
+        ``vals`` when provided."""
         if len(encs) < self.cpu_cutover:
             self.n_cutover_torsion += len(encs)
             with self._tracer.span(
@@ -566,8 +597,11 @@ class GpuSigBackend(SigBackend):
         s = self._verifier.stats()
         s["cpu_cutover_items"] = self.n_cutover_items
         s["cpu_cutover_torsion"] = self.n_cutover_torsion
-        s["stall_rejected_items"] = self.n_stall_rejected_items
-        s["wedge_latch_flips"] = dict(self.n_latch_flips)
+        with self._wedge_lock:
+            s["stalled_items"] = self.n_stalled_items
+            s["stall_rejected_items"] = self.n_stall_rejected_items
+            s["wedge_latch_flips"] = dict(self.n_latch_flips)
+            s["device_dispatches"] = dict(self.n_device_dispatches)
         return s
 
 

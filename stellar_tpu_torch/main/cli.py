@@ -9,8 +9,8 @@ Flags mirror the reference binary:
   --genseed       print a random node seed + public key and exit
   --convertid ID  print an id (strkey/hex) in every representation
   --dumpxdr FILE  pretty-print an XDR record file
-  --genfuzz FILE  (not in this build: the fuzzer is not ported)
-  --fuzz FILE     (not in this build: the fuzzer is not ported)
+  --genfuzz FILE  write random fuzzer corpus seeds
+  --fuzz FILE     replay a fuzz file into a loopback node pair
   --c CMD         send an admin command to a running node (HTTP)
   --info          print node status from the database and exit
   --loadxdr FILE  load an XDR bucket file into the database (testing)
@@ -333,9 +333,15 @@ def main(argv=None) -> int:
         return _print_id_representations(mode_arg)
     if mode == "dumpxdr":
         return _dump_xdr(mode_arg)
-    if mode in ("genfuzz", "fuzz"):
-        print(f"--{mode}: the fuzzer is not ported to this build", file=sys.stderr)
-        return 2
+    if mode == "genfuzz":
+        from .fuzz import gen_fuzz
+
+        gen_fuzz(mode_arg)
+        return 0
+    if mode == "fuzz":
+        from .fuzz import fuzz
+
+        return fuzz(mode_arg)
 
     import os
 

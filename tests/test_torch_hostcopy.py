@@ -4,7 +4,9 @@ originals.
 The port copies the node's host planes (``util``, ``trace``, ``xdr``, the
 crypto helpers, ``database``, ``scp``, ``herder``, ``tx``, ``ledger``, the
 bucket list, ``overlay``, ``history``, ``invariant``, ``ingest``,
-``process``, ``main``, ``simulation``) and four C engines from
+``process``, ``main``, ``simulation``), the static-analysis gate
+(``analysis``), the fuzzer (``main/fuzz.py``), the chaos scenarios
+(``scenarios``) and four C engines from
 ``stellar_tpu/`` into ``stellar_tpu_torch/``.  Each copy is byte for byte
 its original, or one of the named seams below, each with its reason: a hand
 edit of a copy breaks the ledger hashes in ways that are hard to trace
@@ -18,8 +20,8 @@ lines and the copy's, so any other change on either side fails the test.  To
 take in a change of such an original, copy it again, leave out its tags, and
 put the new digests here (``_hunks`` prints them).
 
-Left out of the copy, and so out of this test: ``scenarios/``,
-``analysis/``, ``main/fuzz.py``, ``parallel/``.  The port's own modules at
+Left out of the copy, and so out of this test: ``parallel/`` (the
+multi-card signature mesh).  The port's own modules at
 the same paths (``crypto/sigbackend.py``, ``crypto/sodium.py``,
 ``crypto/sigcache.py``, ``bucket/hashplane.py``, ``native/__init__.py``,
 ``native/sighash.c``) are held against the JAX package by their own tests.
@@ -41,7 +43,7 @@ PORT = os.path.join(REPO, "stellar_tpu_torch")
 # subpackages copied whole
 WHOLE = ("util", "trace", "xdr", "crypto/aggregate", "database", "scp", "herder",
          "tx", "ledger", "overlay", "history", "invariant", "ingest", "process",
-         "simulation")
+         "simulation", "analysis", "scenarios")
 # modules copied one by one out of subpackages the port shares
 SINGLE = (
     "crypto/__init__.py", "crypto/sha.py", "crypto/strkey.py", "crypto/base58.py",
@@ -50,7 +52,7 @@ SINGLE = (
     "bucket/futurebucket.py", "bucket/manager.py", "bucket/mergeworker.py",
     "main/__init__.py", "main/application.py", "main/config.py",
     "main/persistentstate.py", "main/externalqueue.py", "main/commandhandler.py",
-    "main/selfcheck.py", "main/cli.py",
+    "main/selfcheck.py", "main/cli.py", "main/fuzz.py",
     "native/cxdrpack.c", "native/applycore.c", "native/bucketmerge.c", "native/halfagg.c",
 )
 # the copies whose code differs from the original, and why
@@ -63,22 +65,44 @@ SEAMS = {
                       " SIG_MESH 0 or 1 until multi-card sharding is ported; SIG_DEVICE",
     "main/application.py": "make_backend(device=SIG_DEVICE, cpu_cutover=GPU_CPU_CUTOVER);"
                            " the device bucket-hash backend resolved (built) at boot",
-    "main/cli.py": "no JAX platform latch; the fuzzer modes refuse (main/fuzz.py is not"
-                   " ported)",
+    "main/cli.py": "no JAX platform latch",
     "main/commandhandler.py": "/profiler runs torch.profiler",
     "tx/testutils.py": "imports the xdr package relatively; get_test_config defaults to"
                        " the gpu backend and puts its directories under the temp dir,"
                        " named by process",
+    "analysis/core.py": "_relpath_of scopes rules by the path after the last stellar_tpu"
+                        " or stellar_tpu_torch segment, so the path-scoped rules see the"
+                        " port's files",
+    "analysis/__main__.py": "prog, description and default path name the port's package",
+    "analysis/__init__.py": "the docstring names the port's package, its CLI and its test",
+    "scenarios/scenario.py": 'signature_backend None keeps the port\'s test default ("gpu",'
+                             " on the card); gpu_cpu_cutover sets GPU_CPU_CUTOVER; sig_device"
+                             " sets SIG_DEVICE, so a test runs the gpu class on the plain"
+                             " versions",
+    "scenarios/matrix.py": "byzantine_flood_tpu is byzantine_flood_gpu: the gpu backend at"
+                           " cutover 0, at the same flood rates; run_matrix takes a"
+                           " signature_backend for every node (the CLI's flag)",
+    "scenarios/killsweep.py": "imports the kill-point modules relatively; the child runs"
+                              " -m stellar_tpu_torch.scenarios on the test config's"
+                              " backend, or on the one run_kill_sweep is given (the"
+                              " tests ask for the cpu backend)",
+    "scenarios/faults.py": "imports the xdr package relatively",
+    "scenarios/__main__.py": "prog and usage name the port's package; --signature-backend"
+                             " sets every node's backend (the tests ask for cpu)",
 }
 # the only files a seam may be (the composition root's seams)
 SEAM_FILES = {
     "crypto/__init__.py", "crypto/keys.py", "crypto/ecdh.py", "overlay/peer.py",
     "main/config.py", "main/application.py", "main/cli.py", "main/commandhandler.py",
-    "tx/testutils.py",
+    "tx/testutils.py", "analysis/core.py", "analysis/__main__.py", "analysis/__init__.py",
+    "scenarios/scenario.py", "scenarios/matrix.py", "scenarios/killsweep.py",
+    "scenarios/faults.py", "scenarios/__main__.py",
 }
 # comment and docstring hunks whose words leave out the original's
 # development-history tags: "<original lines' digest>:<copy lines' digest>"
 RETAGGED = {
+    "analysis/crules.py": {'2c9c53a4c5b2:ff206f5ae51c'},
+    "analysis/rules.py": {'034f3712d04f:43529df5ad26', '120b3613b8f0:a50987a7092d', '69e47fc8c006:fb3ef9b822c0', '78f5df410bd6:4e0c7bf9720f', '90b04b7d641b:ac75964f9b70', 'b12a7a41f3bf:d90c10e05534', 'bc5caa7667e1:621d49d3c82b', 'c3b3165f2e13:b2d8c397cad6', 'd63ddba44a08:9703fc71c6f8', 'd6623a7af2d8:a2d970454ac2', 'e4cc11182592:4e4ec79d1bad', 'edf80176b3de:f47ae3d1c494', 'f2893ea9895c:020b47e849bf'},
     "bucket/bucket.py": {'8298ae39d33b:225694e820c2', 'f198db7b8404:07690910ca12'},
     "bucket/futurebucket.py": {'6d5868cfdfdb:2e2585dbc47b'},
     "bucket/manager.py": {'38ade84d42e7:44708279299f'},
@@ -106,6 +130,7 @@ RETAGGED = {
     "overlay/manager.py": {'d54e1136c05d:0e5436186964'},
     "overlay/peer.py": {'6ed210093e05:5810e9377a92', 'f9a6b4a0d732:e26fdb4db768'},
     "overlay/sendqueue.py": {'0068c751f562:fb37ea0597ad'},
+    "scenarios/scoreboard.py": {'4d85cdc2da8f:811c33403739', '5fa9dcb8ef02:aaad5ae6f99c', '8c5a6ff0d922:72ef5f2681cd', '9e1c005b2391:c78dba0520ff', 'c43410033b6f:af11594035fd', 'e14993cefdd9:55232bf070c9', 'e956d0890e96:3a421835bc01'},
     "simulation/simulation.py": {'71bc79a08271:f79ea4283d07'},
     "simulation/topologies.py": {'2f6983118cbc:e9dd0d6de11c', 'd1309adb92a6:a4daf01d9d3a'},
     "util/metrics.py": {'52328a194280:88565b7bbe1b', '6d1bd0abcb4d:fa2e079c48e5'},
@@ -167,5 +192,5 @@ def test_seams_are_the_composition_roots_files():
 
 
 def test_nothing_left_out_was_copied():
-    for rel in ("scenarios", "analysis", "parallel", "main/fuzz.py"):
+    for rel in ("parallel",):
         assert not os.path.exists(os.path.join(PORT, rel)), rel

@@ -30,7 +30,15 @@ def test_every_module_imports_without_jax_or_the_jax_package():
             "stellar_tpu_torch.ops.ed25519_cuda", "stellar_tpu_torch.native",
             "stellar_tpu_torch.ops.sha512", "stellar_tpu_torch.ops.sha512_cuda",
             "stellar_tpu_torch.ops.sha256", "stellar_tpu_torch.ops.sha256_cuda",
-            "stellar_tpu_torch.bucket.hashplane"} <= set(names)
+            "stellar_tpu_torch.bucket.hashplane", "stellar_tpu_torch.main.fuzz",
+            "stellar_tpu_torch.analysis", "stellar_tpu_torch.analysis.__main__",
+            "stellar_tpu_torch.analysis.core", "stellar_tpu_torch.analysis.crules",
+            "stellar_tpu_torch.analysis.registry", "stellar_tpu_torch.analysis.report",
+            "stellar_tpu_torch.analysis.rules", "stellar_tpu_torch.scenarios",
+            "stellar_tpu_torch.scenarios.__main__", "stellar_tpu_torch.scenarios.faults",
+            "stellar_tpu_torch.scenarios.killsweep", "stellar_tpu_torch.scenarios.matrix",
+            "stellar_tpu_torch.scenarios.scenario", "stellar_tpu_torch.scenarios.scoreboard",
+            "stellar_tpu_torch.scenarios.storagefaults"} <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"

@@ -2,7 +2,9 @@
 this CPU host: a standalone node closing ledgers, a stall on the close path,
 and the CLI.
 
-The JAX side runs ``SIGNATURE_BACKEND = "cpu"`` (libsodium).  The port runs
+The JAX side runs ``SIGNATURE_BACKEND = "cpu"`` (libsodium), or under a
+stall ``"tpu"`` with its verifier blocked (it finishes the batch on the
+host; the port waits for the card).  The port runs
 ``"gpu"`` with ``SIG_DEVICE = "cpu"``: every batch verify goes through
 GpuSigBackend → BatchVerifier → the verify kernel's plain PyTorch version
 (``ed25519.plain_calls > 0``), and with ``DEVICE_HASH`` the SHA-512 stage's,
@@ -26,6 +28,7 @@ import os
 import subprocess
 import sys
 import threading
+import time
 
 import pytest
 
@@ -176,10 +179,11 @@ def test_standalone_close_matches_jax(leg, jax_close, tmp_path):
 
 
 def test_stall_on_the_close_path_commits_nothing(tmp_path, monkeypatch):
-    """A dispatch that outlives its budget raises DeviceStallError out of
-    the close: the pipelined prewarm of the next ledger stalls and is
-    quarantined, then that ledger's close stalls on its own inline prewarm.
-    Nothing of the aborted ledger is committed."""
+    """A card that never answers within DEVICE_GIVE_UP raises
+    DeviceStallError out of the close: the pipelined prewarm of the next
+    ledger is given up and quarantined, then that ledger's close gives up
+    on its own inline prewarm.  Nothing of the aborted ledger is
+    committed, and no batch is verified on the host."""
     from stellar_tpu_torch.crypto.sigbackend import DeviceStallError
 
     _clear_caches()
@@ -201,6 +205,7 @@ def test_stall_on_the_close_path_commits_nothing(tmp_path, monkeypatch):
         monkeypatch.setattr(inner._verifier, "verify", blocking)
         monkeypatch.setattr(inner, "DEVICE_TIMEOUT", 0.2)
         monkeypatch.setattr(inner, "DEVICE_FIRST_TIMEOUT", 0.2)
+        monkeypatch.setattr(inner, "DEVICE_GIVE_UP", 0.4)
         txs1 = node.payments(1)
         pipe = app.close_pipeline
         pipe.note_upcoming(txs1)
@@ -236,6 +241,139 @@ def test_stall_on_the_close_path_commits_nothing(tmp_path, monkeypatch):
         release.set()
         app.graceful_stop()
         _clear_caches()
+
+
+def _stalled_node(pkg, tmp, monkeypatch):
+    """A node of either package on its device backend (the JAX package's
+    "tpu" with cutover 0, the port's "gpu" on the plain version) with 0.2 s
+    dispatch budgets, whose verifier outlives them: the JAX verifier
+    blocks until released (the JAX backend finishes the batch on the
+    host), the port's sleeps past the budget and then answers (the port
+    waits for the card).  Every batch that reaches the device path stalls.
+    Returns (node, release)."""
+    if pkg == "stellar_tpu":
+        node = Node(pkg, tmp, "tpu", TPU_CPU_CUTOVER=0)
+    else:
+        node = Node(pkg, tmp, "gpu", SIG_DEVICE="cpu")
+    inner = node.app.sig_backend.inner
+    release = threading.Event()
+
+    def slow(real):
+        def call(items):
+            if pkg == "stellar_tpu":
+                release.wait(120)
+                raise RuntimeError("released after the test")
+            time.sleep(0.3)
+            return real(items)
+
+        return call
+
+    monkeypatch.setattr(inner._verifier, "verify", slow(inner._verifier.verify))
+    monkeypatch.setattr(inner._verifier, "verify_torsion",
+                        slow(inner._verifier.verify_torsion))
+    monkeypatch.setattr(inner, "DEVICE_TIMEOUT", 0.2)
+    monkeypatch.setattr(inner, "DEVICE_FIRST_TIMEOUT", 0.2)
+    return node, release
+
+
+def _stalled_closes(pkg, tmp, monkeypatch):
+    """The standalone shape on a stalled node, each round's successor
+    registered as the close pipeline's prewarm."""
+    _clear_caches()
+    node, release = _stalled_node(pkg, tmp, monkeypatch)
+    app = node.app
+    try:
+        rows = [node.create_accounts()]
+        rounds = [node.payments(r, BAD_INDEX if r == BAD_ROUND else None)
+                  for r in range(ROUNDS)]
+        verdicts = []
+        for r, txs in enumerate(rounds):
+            ts = node.txset(txs)
+            verdicts.append(ts.check_valid(app))
+            if r + 1 < ROUNDS:
+                app.close_pipeline.note_upcoming(rounds[r + 1])
+            rows.append(node.close(ts))
+        bad = rounds[BAD_ROUND][BAD_INDEX].get_result_code().name
+        return {"ledgers": rows, "verdicts": verdicts, "bad": bad,
+                "stats": app.sig_backend.stats()}
+    finally:
+        release.set()
+        app.graceful_stop()
+        _clear_caches()
+
+
+def test_stalled_closes_match_jax(jax_close, tmp_path, monkeypatch):
+    """Every dispatch outlives its budget: the JAX node finishes its
+    batches on the host, the port node waits for the card's (here the
+    plain version's) verdicts.  Both close every ledger, with the same
+    header and bucket-list hashes as the unstalled JAX node; the port
+    counts its stalled items, latches nothing and verifies nothing on the
+    host."""
+    from stellar_tpu_torch.ops import ed25519
+
+    jax = _stalled_closes("stellar_tpu", tmp_path / "jax", monkeypatch)
+    ed25519.plain_calls = 0
+    got = _stalled_closes("stellar_tpu_torch", tmp_path / "port", monkeypatch)
+    assert got["ledgers"] == jax["ledgers"] == jax_close["ledgers"]
+    assert got["verdicts"] == jax["verdicts"] == [True, False, True]
+    assert got["bad"] == jax["bad"] == "txBAD_AUTH"
+    assert jax["stats"]["wedge_fallback_items"] > 0
+    st = got["stats"]
+    assert ed25519.plain_calls > 0 and st["device_calls"] > 0
+    assert st["stalled_items"] > 0 and st["device_dispatches"].get("close", 0) > 0
+    assert st["stall_rejected_items"] == 0 and st["wedge_latch_flips"] == {}
+    assert st["cpu_cutover_items"] == 0
+
+
+def test_stalled_scp_envelope_reaches_the_herder(tmp_path, monkeypatch):
+    """One SCP envelope through the overlay's batch flush under the 0.2 s
+    budget: the batch stalls (the JAX node finishes it on the host, the
+    port node waits for the card), and the envelope reaches the herder in
+    both packages (an envelope with a flipped signature byte is rejected
+    in both)."""
+    seen, stats = {}, {}
+    for pkg in ("stellar_tpu", "stellar_tpu_torch"):
+        _clear_caches()
+        node, release = _stalled_node(pkg, tmp_path / pkg, monkeypatch)
+        app = node.app
+        try:
+            X = _m(pkg, "xdr.scp")
+            herder = app.herder
+            envs = []
+            for flip in (False, True):
+                st = X.SCPStatement(
+                    nodeID=app.config.NODE_SEED.get_public_key(),
+                    slotIndex=2,
+                    pledges=X.SCPStatementPledges(
+                        X.SCPStatementType.SCP_ST_CONFIRM,
+                        X.SCPStatementConfirm(
+                            herder.scp.local_qset_hash, 1, X.SCPBallot(1, b"stall"), 1
+                        ),
+                    ),
+                )
+                env = X.SCPEnvelope(statement=st, signature=b"")
+                herder.sign_envelope(env)
+                if flip:
+                    env.signature = bytes([env.signature[0] ^ 1]) + env.signature[1:]
+                envs.append(env)
+            got, rejected = [], []
+            monkeypatch.setattr(herder, "recv_scp_envelope", got.append)
+            monkeypatch.setattr(herder, "note_envelope_rejected", rejected.append)
+            om = app.overlay_manager
+            for env in envs:
+                om.enqueue_scp_envelope(env)
+            om._flush_scp_batch()
+            seen[pkg] = (got == envs[:1], rejected == envs[1:])
+            stats[pkg] = app.sig_backend.stats()
+        finally:
+            release.set()
+            app.graceful_stop()
+            _clear_caches()
+    assert seen["stellar_tpu_torch"] == seen["stellar_tpu"] == (True, True)
+    assert stats["stellar_tpu"]["wedge_fallback_items"] == 2
+    port = stats["stellar_tpu_torch"]
+    assert port["stalled_items"] == 2 and port["device_dispatches"] == {"overlay": 1}
+    assert port["stall_rejected_items"] == 0 and port["wedge_latch_flips"] == {}
 
 
 def test_cli_newdb_on_a_gpu_node_on_the_cpu(tmp_path):

@@ -10,6 +10,7 @@ every verdict equal, the staged bytes equal byte for byte.
 
 import random
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -133,7 +134,10 @@ def test_host_assist_matches_and_reraises():
         ha.verify(bad)
 
 
-def test_verify_torsion_matches_oracle(port):
+def _torsion_lanes():
+    """Mixed-torsion lanes: prime-order points, prime-order plus 8-torsion,
+    small-order encodings, random bytes, a non-canonical and a short
+    encoding; with their ref25519 verdicts."""
     rng = random.Random(31)
     pts = [ref.decompress(SecretKey.pseudo_random_for_testing(i).public_raw) for i in range(4)]
     t8, y = None, 2
@@ -153,8 +157,13 @@ def test_verify_torsion_matches_oracle(port):
     for e in encs:
         pt = ref.decompress(e) if len(e) == 32 and ref.fe_is_canonical(e) else None
         want.append(pt is not None and ref.is_torsion_free(pt))
-    assert port.verify_torsion(encs) == want
     assert any(want) and not all(want)
+    return encs, want
+
+
+def test_verify_torsion_matches_oracle(port):
+    encs, want = _torsion_lanes()
+    assert port.verify_torsion(encs) == want
     assert port.verify_torsion([]) == []
 
 
@@ -206,24 +215,53 @@ def test_make_backend_gpu_on_cpu_with_cache():
     assert backend.verify_batch(items, caller="ingest") == want
     st = backend.stats()
     assert st["backend"] == "gpu" and st["device_calls"] == calls + 1
-    assert st["cpu_cutover_items"] == st["stall_rejected_items"] == 0
+    assert st["cpu_cutover_items"] == st["stalled_items"] == st["stall_rejected_items"] == 0
     assert st["wedge_latch_flips"] == {}
+    assert st["device_dispatches"] == {"close": 1, "ingest": 1}
     assert st["device_hash"] is False and st["mesh_devices"] == 0
     # the wrapper took the plain version: the tensors lay on the CPU
     assert ed25519_cuda.launches == 0
 
 
 def test_backend_cutover_and_torsion_host_path():
+    """Below the cutover the gpu backend verifies with libsodium and proves
+    torsion on the host ladder (native/halfagg.c), as the JAX package's
+    host path does; the cpu backend proves on the same host path."""
+    from stellar_tpu.crypto import sigbackend as jsb
+
     backend = make_backend("gpu", cache=VerifySigCache(), device="cpu", cpu_cutover=1024)
     items = _signed(6, b"cut", random.Random(4), bad_every=3)
     assert backend.verify_batch(items) == _sodium(items)
     st = backend.stats()
     assert st["cpu_cutover_items"] == 6 and st["device_calls"] == 0
-    with pytest.raises(NotImplementedError):
-        backend.torsion_check([items[0][0]])
-    assert make_backend("cpu", cache=VerifySigCache()).verify_batch(items) == _sodium(items)
+    encs, want = _torsion_lanes()
+    jax_host = jsb.CpuSigBackend().torsion_check(encs)
+    assert jax_host == want
+    assert backend.torsion_check(encs) == want
+    assert backend.stats()["cpu_cutover_torsion"] == len(encs)
+    assert backend.stats()["device_calls"] == 0
+    cpu = make_backend("cpu", cache=VerifySigCache())
+    assert cpu.torsion_check(encs) == want
+    # the decoded points the aggregate plane passes in prove the same
+    vals = [ref.decompress(e) if len(e) == 32 and ref.fe_is_canonical(e) else None
+            for e in encs]
+    live = [i for i, v in enumerate(vals) if v is not None]
+    assert cpu.torsion_check([encs[i] for i in live], vals=[vals[i] for i in live]) == [
+        want[i] for i in live
+    ]
+    assert cpu.verify_batch(items) == _sodium(items)
     with pytest.raises(ValueError):
         make_backend("tpu")
+
+
+def test_smallest_torsion_input_matches_jax():
+    """One encoding of the base point: True on every host path."""
+    from stellar_tpu.crypto import sigbackend as jsb
+
+    enc = ref.compress(ref.base_point())
+    assert jsb.make_backend("cpu", cache=jsb.VerifySigCache()).torsion_check([enc]) == [True]
+    assert make_backend("cpu", cache=VerifySigCache()).torsion_check([enc]) == [True]
+    assert GpuSigBackend(cpu_cutover=2, device="cpu").torsion_check([enc]) == [True]
 
 
 def test_default_cutover_sends_small_batches_to_the_device(monkeypatch):
@@ -243,29 +281,78 @@ def test_default_cutover_sends_small_batches_to_the_device(monkeypatch):
     assert st["cpu_cutover_items"] == 0 and st["device_calls"] == 1
 
 
+def _wedged(inner, answer_after=None):
+    """Make ``inner``'s verifier block until released, or, with
+    ``answer_after``, sleep that long and then answer; returns (release,
+    drained, entered): ``drained(t)`` waits until every blocked call has
+    run out."""
+    release, lock, running = threading.Event(), threading.Lock(), [0]
+    real_verify, real_torsion, entered = inner._verifier.verify, inner._verifier.verify_torsion, []
+
+    def blocking(real):
+        def call(batch):
+            with lock:
+                entered.append(len(batch))
+                running[0] += 1
+            if answer_after is None:
+                release.wait(60)
+            else:
+                time.sleep(answer_after)
+            try:
+                return real(batch)
+            finally:
+                with lock:
+                    running[0] -= 1
+
+        return call
+
+    def drained(timeout):
+        end = time.monotonic() + timeout
+        while time.monotonic() < end:
+            with lock:
+                if running[0] == 0:
+                    return True
+            time.sleep(0.05)
+        return False
+
+    inner._verifier.verify = blocking(real_verify)
+    inner._verifier.verify_torsion = blocking(real_torsion)
+    return release, drained, entered
+
+
 def test_device_stall_raises_and_latches_only_its_caller(monkeypatch):
-    """A dispatch that outlives its budget raises DeviceStallError and
-    nothing is verified on the host; its caller class then fails fast
+    """A dispatch that outlives its budget is counted as stalled and the
+    caller waits for the card's verdicts; one the card never answers
+    within DEVICE_GIVE_UP raises DeviceStallError.  Nothing is verified
+    on the host.  The caller class of the unanswered batch then fails fast
     without a dispatch, while another class still reaches the device."""
     items = _signed(4, b"stall", random.Random(9), bad_every=2)
     want = _sodium(items)
+    spans = []
+
+    class Tracer:
+        def span(self, name, **attrs):
+            import contextlib
+
+            spans.append((name, attrs.get("caller"), attrs.get("items")))
+            return contextlib.nullcontext()
+
+    slow = GpuSigBackend(device="cpu", cpu_cutover=0)
+    slow._tracer = Tracer()  # the backend's own spans (the verifier keeps its tracer)
+    slow.DEVICE_FIRST_TIMEOUT = 0.2
+    _, drained, entered = _wedged(slow, answer_after=0.5)
     monkeypatch.setattr(
         sodium, "verify_detached", lambda *a: pytest.fail("host verify after a stall")
     )
+    assert slow.verify_batch(items, caller="ingest") == want
+    assert entered == [4] and spans == [("sig.device_stall", "ingest", 4)]
+    st = slow.stats()
+    assert st["stalled_items"] == 4 and st["stall_rejected_items"] == 0
+    assert st["wedge_latch_flips"] == {} and st["device_dispatches"] == {"ingest": 1}
+
     inner = GpuSigBackend(device="cpu", cpu_cutover=0)
-    inner.DEVICE_FIRST_TIMEOUT = 0.2
-    release, finished = threading.Event(), threading.Event()
-    real_verify, entered = inner._verifier.verify, []
-
-    def wedged_verify(batch):
-        entered.append(len(batch))
-        release.wait(60)
-        try:
-            return real_verify(batch)
-        finally:
-            finished.set()
-
-    inner._verifier.verify = wedged_verify
+    inner.DEVICE_FIRST_TIMEOUT, inner.DEVICE_GIVE_UP = 0.2, 0.4
+    release, drained, entered = _wedged(inner)
     with pytest.raises(DeviceStallError, match="stalled"):
         inner.verify_batch(items, caller="pipeline")
     with pytest.raises(DeviceStallError, match="latched"):
@@ -273,11 +360,81 @@ def test_device_stall_raises_and_latches_only_its_caller(monkeypatch):
     assert entered == [4]  # the latched call never dispatched
     release.set()
     inner.DEVICE_FIRST_TIMEOUT = 600.0
-    assert finished.wait(60)  # the orphaned worker ran out on the device path
+    assert drained(60)  # the orphaned worker ran out on the device path
     assert inner.verify_batch(items, caller="close") == want
     st = inner.stats()
     assert st["wedge_latch_flips"] == {"pipeline": 1}
-    assert st["stall_rejected_items"] == 4 and st["cpu_cutover_items"] == 0
+    assert st["stall_rejected_items"] == 8 and st["stalled_items"] == 4
+    assert st["cpu_cutover_items"] == 0 and st["device_calls"] >= 1
+
+
+def test_stall_verdicts_match_jax():
+    """The same stalled verify and torsion batches on the JAX package's
+    TpuSigBackend (which finishes them on the host) and on the port's
+    GpuSigBackend (which waits for the card): equal verdicts.  The port
+    counts every stalled item and latches nothing."""
+    from stellar_tpu.crypto import sigbackend as jsb
+
+    items = _signed(4, b"stall-jax", random.Random(19), bad_every=2)
+    encs, want_t = _torsion_lanes()
+    j = jsb.TpuSigBackend.__new__(jsb.TpuSigBackend)
+    j.cpu_cutover, j.n_cutover_items, j.n_cutover_torsion = 0, 0, 0
+    j.n_wedge_fallback_items, j._verify_warm, j._torsion_warm = 0, False, False
+    j._wedged_until, j.n_latch_flips = {}, {}
+    j._wedge_lock = threading.Lock()
+
+    class Blocked:
+        n_device_calls = 0
+
+        def __init__(self):
+            self.release = threading.Event()
+
+        def verify(self, batch):
+            self.release.wait(60)
+            raise RuntimeError("released")
+
+        verify_torsion = verify
+
+        def stats(self):
+            return {}
+
+    j._verifier = Blocked()
+    j.DEVICE_FIRST_TIMEOUT = 0.2
+    inner = GpuSigBackend(device="cpu", cpu_cutover=0)
+    inner.DEVICE_FIRST_TIMEOUT = 0.2
+    _, drained, entered = _wedged(inner, answer_after=0.4)
+    try:
+        for b in (j, inner):
+            assert b.verify_batch(items, caller="overlay") == _sodium(items)
+            assert b.torsion_check(encs, caller="ingest") == want_t
+        assert j.stats()["wedge_fallback_items"] == 4 + len(encs)
+        ps = inner.stats()
+        assert entered == [4, len(encs)]
+        assert ps["stalled_items"] == 4 + len(encs) and ps["wedge_latch_flips"] == {}
+        assert ps["device_dispatches"] == {"overlay": 1, "ingest": 1}
+    finally:
+        j._verifier.release.set()
+        assert drained(60)  # no worker left running into interpreter exit
+
+
+def test_kernel_error_still_raises():
+    """An exception of the device call reaches the caller, and nothing is
+    counted as a stall."""
+    inner = GpuSigBackend(device="cpu", cpu_cutover=0)
+
+    def broken(batch):
+        raise RuntimeError("kernel launch failed")
+
+    inner._verifier.verify = broken
+    inner._verifier.verify_torsion = broken
+    items = _signed(2, b"err", random.Random(3), bad_every=0)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        inner.verify_batch(items, caller="close")
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        inner.torsion_check([items[0][0]], caller="overlay")
+    st = inner.stats()
+    assert st["stalled_items"] == st["stall_rejected_items"] == 0
+    assert st["wedge_latch_flips"] == {}
 
 
 def test_stats_keys_match_jax(port, jbv):

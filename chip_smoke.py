@@ -59,14 +59,31 @@ phase's failure is caught while the run carries on):
               ``native/halfagg.c`` ladder, what the cpu backend and a batch
               below the cutover run) equal to the card on the same
               encodings;
-7. bucket hash — the port's ``bucket/hashplane`` on a seeded framed
+7. mesh     — ``mesh``: the sharded verify path (``parallel/mesh.py``) on
+              the one card.  On a one-card host ``mesh_from_spec("auto")``
+              is None and a node config with ``SIG_MESH = 2`` refuses the
+              boot.  Then ``make_sharded_verifier`` over the repeated-device
+              meshes ``[cuda:0] * 2`` and ``[cuda:0] * 3`` (the test rig: own
+              buffers, streams and launches a shard, on one card), with and
+              without device hashing, on the 5000-tx ledger, the 300 SCP
+              envelopes, a 43-lane remainder of mixed and hostile lanes (the
+              tail shard short, a dead shard on three) and the 512 torsion
+              encodings: verdicts equal the unsharded verifier's in the same
+              call and the known ones; one B1 launch (and, for single-block
+              messages under device hashing, one B2 launch) a live shard and
+              none for a dead one; every shard's launch held against the
+              plain version on its inputs afterwards; ms per load beside the
+              unsharded verifier's, in turns.  With two cards or more the
+              same on ``[cuda:0, cuda:1]``; else ``"multi_card": "not run:
+              1 card"``;
+8. bucket hash — the port's ``bucket/hashplane`` on a seeded framed
               buffer of 10^6 records (~108 MB, the 10^6-account rung of
               STATE_LADDER_r22.json): ``hash_frames`` over the whole buffer
               and ``BucketHasher`` frame by frame, each through the device,
               native and hashlib backends — all six hashes equal; the
               SHA-256 kernel launched and its plain version did not run; MB/s
               per backend and the device backend's stage spans;
-8. node close — ``node_close``: BASELINE.md's 5000-tx single-signer ledger
+9. node close — ``node_close``: BASELINE.md's 5000-tx single-signer ledger
               through a standalone validator (``Application`` →
               ``TxSetFrame.check_valid`` → ``LedgerManager.close_ledger``,
               ``SIGNATURE_BACKEND = "gpu"``, 4096-lane chunks): 5001
@@ -81,8 +98,12 @@ phase's failure is caught while the run carries on):
               the close and flush spans' p50s, the kernels' launches, the
               plain versions' calls (0 on the card legs), eager ref25519
               verifies and stalls (0).  Every header hash equal across the
-              legs;
-9. node consensus — ``node_consensus``: three validators (threshold 2, all
+              legs.  A fourth leg, ``card_mesh2``, boots with ``SIG_MESH =
+              "auto"`` on a host whose ``local_devices`` lists the card
+              twice: the verify plane two shards wide, header hashes equal
+              to the card leg's, 0 stalls; with two cards or more, a fifth,
+              ``card_mesh_cards``, the same over all of them;
+10. node consensus — ``node_consensus``: three validators (threshold 2, all
               running) over the loopback overlay, all on the card, under a
               seeded 300-account, 1000-payment ``LoadGenerator`` load, the
               first node with ``DEVICE_BUCKET_HASH`` (the SHA-256 kernel in
@@ -95,7 +116,7 @@ phase's failure is caught while the run carries on):
               hash for hash (the plain version costs about a second a call
               on the CPU whatever the batch, and the full load makes ~1350
               calls);
-10. scenario flood — ``scenario_flood``: the chaos matrix's
+11. scenario flood — ``scenario_flood``: the chaos matrix's
               ``byzantine_flood_gpu`` at its big spec (a 4-core + 4-tier
               ring, 1200 load txs, 50 invalid envelopes and 10 invalid txs
               every 0.4 s from 0.5 s to 20 s on node 0), every node on the
@@ -105,7 +126,7 @@ phase's failure is caught while the run carries on):
               (``device_dispatches`` in the backends' stats), no plain
               call, no stall, and every launch's verdicts held against the
               plain version on the card afterwards;
-11. fuzz    — ``--genfuzz`` then ``--fuzz`` through ``python -m
+12. fuzz    — ``--genfuzz`` then ``--fuzz`` through ``python -m
               stellar_tpu_torch.main.cli`` (its node pair on the card):
               both exit 0.
 
@@ -214,6 +235,11 @@ PAIR_ACCOUNTS, PAIR_TXS, PAIR_RATE = 10, 40, 10
 CONSENSUS_LEDGERS = 5
 # scenario_flood: the chaos plane's gpu flood class, at its big spec
 FLOOD_CLASS = "byzantine_flood_gpu"
+# mesh: the repeated-device meshes on one card, the remainder load's lanes,
+# and the timed calls of each load on each verifier (in turns)
+MESH_SHARDS = (2, 3)
+MESH_REMAINDER = 43
+MESH_REPS = 5
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -814,7 +840,7 @@ def phase_main(fx, rng, loads, device_hash=False):
 def phase_torsion(fx, rng, backend, pks):
     """``torsion_check`` on TORSION_ENCS encodings on the card against
     ``ref25519.is_torsion_free``, and the host path on the same encodings
-    against the card."""
+    against the card.  Returns the encodings and their verdicts."""
     from stellar_tpu_torch.crypto.sigbackend import CpuSigBackend
     from stellar_tpu_torch.ops import ed25519 as ed
     from stellar_tpu_torch.ops import ed25519_cuda as ec
@@ -863,6 +889,237 @@ def phase_torsion(fx, rng, backend, pks):
         "phase": "torsion", "encodings": len(encs), "torsion_free": sum(want),
         "launches": launches, "ms": sec * 1e3, "host_path_equal": True, "host_ms": host_sec * 1e3,
     })
+    return encs, want
+
+
+# -- phase 7: the sharded verify path ----------------------------------------
+
+
+def hostile_items(item):
+    """Lanes built from one signed triple that the strict gate refuses (s
+    >= L, a small-order A, short fields) or that fail the curve check (a
+    wrong message, a corrupted R)."""
+    from stellar_tpu_torch.ops import ref25519 as ref
+
+    pk, msg, sig = item
+    bad_r = bytes([sig[0] ^ 0x10]) + sig[1:]
+    return [
+        (pk, msg, sig[:32] + ref.L.to_bytes(32, "little")),
+        (pk, msg, sig[:32] + (ref.L + 7).to_bytes(32, "little")),
+        (pk, msg, sig[:32] + (2**256 - 1).to_bytes(32, "little")),
+        (bytes(32), msg, sig),
+        (pk[:31], msg, sig),
+        (pk, msg, sig[:63]),
+        (pk, msg + b"!", sig),
+        (pk, msg, bad_r),
+    ]
+
+
+def verify_calls_vs_plain(calls):
+    """The plain version over kept (input chunk, verdicts) pairs of verify
+    kernel launches, in LANES-lane calls on the card: launches, lanes,
+    accepts, mismatches and seconds."""
+    import torch
+
+    from stellar_tpu_torch.ops import ed25519 as ed
+
+    torch.cuda.synchronize()
+    card = calls[0][0].device  # launches on other cards are checked on the first's
+    packed = torch.cat([p.to(card) for p, _ in calls], dim=1)
+    kernel = torch.cat([v.to(card) for _, v in calls])
+    t0 = time.perf_counter()
+    plain = torch.cat([ed._verify_packed(packed[:, i:i + LANES].contiguous())
+                       for i in range(0, packed.shape[1], LANES)])
+    torch.cuda.synchronize()
+    return {"launches": len(calls), "lanes": int(packed.shape[1]),
+            "accepts": int(kernel.sum()), "mismatches": int((kernel != plain).sum()),
+            "plain_s": time.perf_counter() - t0}
+
+
+class ShardTap:
+    """Keeps every launch of one verifier's kernels while ``recording``:
+    B1's input chunk and verdicts (wrapping the verifier's bound wrapper,
+    so its launch count stays the wrapper's own) and, for every verifier at
+    once, B2's chunk before and h rows after its in-place launch.  ``check``
+    holds them all against the plain versions on the card."""
+
+    def __init__(self):
+        from stellar_tpu_torch.ops import sha512_cuda
+
+        self.mod = sha512_cuda
+        self.hash_in_place = sha512_cuda.hash_in_place
+        self.b1, self.b2 = [], []
+        self.recording = False
+
+    def wrap(self, bv):
+        real = bv._verify_packed
+
+        def tapped(p):
+            out = real(p)
+            if self.recording:
+                self.b1.append((p.clone(), out.clone()))
+            return out
+
+        bv._verify_packed = tapped
+        return real
+
+    def __enter__(self):
+        def tapped(p):
+            before = p.clone() if self.recording else None
+            self.hash_in_place(p)
+            if before is not None:
+                self.b2.append((before, p[96:128].clone()))
+
+        self.mod.hash_in_place = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.hash_in_place = self.hash_in_place
+
+    def check(self):
+        import torch
+
+        from stellar_tpu_torch.ops import sha512 as tsha
+
+        b1 = verify_calls_vs_plain(self.b1)
+        card = self.b2[0][0].device
+        before = torch.cat([p.to(card) for p, _ in self.b2], dim=1)
+        h = torch.cat([r.to(card) for _, r in self.b2], dim=1)
+        want = torch.cat([tsha.h_rows_from_packed(before[:, i:i + LANES]).to(torch.uint8)
+                          for i in range(0, before.shape[1], LANES)], dim=1)
+        return {"ed25519_verify": b1, "sha512_h": {
+            "launches": len(self.b2), "lanes": int(before.shape[1]),
+            "mismatches": int((h != want).any(dim=0).sum())}}
+
+
+def _expected_shards(bv, n):
+    """(live shards, dead shards) of an n-item load through ``bv``: its
+    chunks of max_batch lanes, each cut as ``_shard_ranges`` cuts it."""
+    live = dead = 0
+    for s in range(0, n, bv.max_batch):
+        ranges = bv._shard_ranges(min(bv.max_batch, n - s))
+        live += len(ranges)
+        dead += len(bv.mesh) - len(ranges)
+    return live, dead
+
+
+def mesh_loads(fx, ledger, scp, torsion):
+    """The mesh phase's loads: (name, kind, items, verdicts, single-block)."""
+    rem = ledger[0][:MESH_REMAINDER]
+    rem_items = list(rem[: MESH_REMAINDER - 8])
+    for j, h in enumerate(hostile_items(ledger[0][0])):
+        rem_items.insert(4 * j + 1, h)
+    rem_want = fx.ref_verify(rem_items)
+    assert any(rem_want) and not all(rem_want)
+    return [
+        ("ledger_5000tx", "verify", *ledger, True),
+        ("scp_300", "verify", *scp, False),
+        (f"remainder_{MESH_REMAINDER}", "verify", rem_items, rem_want, True),
+        (f"torsion_{TORSION_ENCS}", "torsion", *torsion, False),
+    ]
+
+
+def phase_mesh(fx, tmp, ledger, scp, torsion):
+    """``mesh``: the sharded verify path on the card (module docstring).
+    Returns the sharded verifiers' B1 and B2 launches."""
+    import torch
+
+    from stellar_tpu_torch.ops import ed25519 as ed
+    from stellar_tpu_torch.ops import ed25519_cuda as ec
+    from stellar_tpu_torch.ops import sha512 as tsha
+    from stellar_tpu_torch.ops import sha512_cuda as sc
+    from stellar_tpu_torch.parallel import mesh as pm
+
+    n_cards = torch.cuda.device_count()
+    line = {"phase": "mesh", "device_count": n_cards}
+    if n_cards == 1:
+        assert pm.mesh_from_spec("auto") is None, "auto made a mesh on one card"
+        from stellar_tpu_torch.main.application import Application
+        from stellar_tpu_torch.util.clock import REAL_TIME, VirtualClock
+
+        try:
+            Application.create(VirtualClock(REAL_TIME), node_config(tmp, "mesh_refused", "cuda",
+                                                                    SIG_MESH=2), new_db=True)
+        except ValueError as e:
+            assert "addressable" in str(e), e
+            line["sig_mesh_2_refused"] = str(e)
+        else:
+            raise AssertionError("SIG_MESH = 2 booted on one card")
+    card = torch.device("cuda", 0)
+    meshes = {f"cuda0x{k}": [card] * k for k in MESH_SHARDS}
+    if n_cards >= 2:
+        meshes["cuda0_cuda1"] = [card, torch.device("cuda", 1)]
+    if n_cards > 2:
+        meshes[f"cards_x{n_cards}"] = pm.local_devices()
+    if n_cards == 1:
+        line["multi_card"] = "not run: 1 card"
+    emit(line)
+    loads = mesh_loads(fx, ledger, scp, torsion)
+    launched = {"ed25519_verify": 0, "sha512_h": 0}
+    with ShardTap() as tap:
+        for device_hash in (False, True):
+            verifiers = {"unsharded": ed.BatchVerifier(max_batch=LANES, device="cuda",
+                                                       device_hash=device_hash,
+                                                       tracer=SpanSums())}
+            for name, devs in meshes.items():
+                verifiers[name] = pm.make_sharded_verifier(
+                    mesh=pm.make_mesh(devs), max_batch=LANES, device_hash=device_hash,
+                    tracer=SpanSums())
+            bound = {name: tap.wrap(bv) for name, bv in verifiers.items() if name != "unsharded"}
+            for load, kind, items, want, single_block in loads:
+                run = {}
+                for name, bv in verifiers.items():
+                    fn = bv.verify if kind == "verify" else bv.verify_torsion
+                    sharded = name != "unsharded"
+                    ec.launches = sc.launches = 0
+                    ed.plain_calls = tsha.plain_calls = 0
+                    tap.recording = sharded
+                    got = fn(items)
+                    tap.recording = False
+                    counts = {"ed25519_verify": ec.launches, "sha512_h": sc.launches}
+                    assert ed.plain_calls == tsha.plain_calls == 0, (name, load)
+                    assert got == want, (
+                        f"mesh {name} {load}: {sum(g != w for g, w in zip(got, want))} "
+                        "verdicts differ from the known ones")
+                    run[name] = {"launches": counts}
+                    if sharded:
+                        live, dead = _expected_shards(bv, len(items))
+                        b2 = live if device_hash and single_block else 0
+                        assert counts == {"ed25519_verify": live, "sha512_h": b2}, (
+                            name, load, counts, live)
+                        run[name].update(live_shards=live, dead_shards=dead)
+                        for key in launched:
+                            launched[key] += counts[key]
+                # the unsharded verifier's verdicts in this call: the known ones
+                # too, so sharded == unsharded; now the timed calls, in turns
+                # (the tap's wrappers taken off the sharded verifiers)
+                for name, real in bound.items():
+                    verifiers[name]._verify_packed = real
+                times = {name: [] for name in verifiers}
+                for bv in verifiers.values():
+                    bv._tracer.take_ms()
+                for _ in range(MESH_REPS):
+                    for name, bv in verifiers.items():
+                        fn = bv.verify if kind == "verify" else bv.verify_torsion
+                        t0 = time.perf_counter()
+                        fn(items)
+                        times[name].append((time.perf_counter() - t0) * 1e3)
+                for name in bound:
+                    tap.wrap(verifiers[name])
+                emit({"phase": "mesh", "load": load, "items": len(items),
+                      "device_hash": device_hash, "verdicts_equal_unsharded": True,
+                      "ms": {name: statistics.median(t) for name, t in times.items()},
+                      "ms_all": times,
+                      "span_ms": {name: {k: v / MESH_REPS for k, v in bv._tracer.take_ms().items()}
+                                  for name, bv in verifiers.items()},
+                      "shards": {name: r for name, r in run.items()}})
+            for bv in verifiers.values():
+                assert bv.stats()["mesh_devices"] == (len(bv.mesh) if bv.mesh is not None else 0)
+        verdicts = tap.check()
+    emit({"phase": "mesh", "verdicts_vs_plain": verdicts, "launches": launched})
+    for name, v in verdicts.items():
+        assert v["launches"] == launched[name] > 0 and v["mismatches"] == 0, verdicts
+    return launched
 
 
 class _BucketKnob:
@@ -951,7 +1208,7 @@ def phase_bucket(buf, frames):
     return device_launches
 
 
-# -- phases 8-9: the validator node -----------------------------------------
+# -- phases 9-10: the validator node ----------------------------------------
 
 
 def _account_seed(n: int) -> bytes:
@@ -1083,7 +1340,7 @@ def _stalls(stats):
             + sum(stats["wedge_latch_flips"].values()))
 
 
-def node_close_leg(load, tmp, leg, device, device_hash, untimed_close):
+def node_close_leg(load, tmp, leg, device, device_hash, untimed_close, **knobs):
     """One standalone validator: the account ledgers, NODE_ROUNDS timed
     closes (``TxSetFrame.check_valid`` + ``LedgerManager.close_ledger``, on
     the card the next round registered as the close pipeline's prewarm
@@ -1099,7 +1356,7 @@ def node_close_leg(load, tmp, leg, device, device_hash, untimed_close):
     from stellar_tpu_torch.xdr.ledger import LedgerUpgrade, LedgerUpgradeType, StellarValue
 
     cfg = node_config(tmp, leg, device, DEVICE_HASH=device_hash,
-                      DESIRED_MAX_TX_PER_LEDGER=2 * NODE_TXS, INVARIANT_SAMPLED=True)
+                      DESIRED_MAX_TX_PER_LEDGER=2 * NODE_TXS, INVARIANT_SAMPLED=True, **knobs)
     _node_counts(reset=True)
     # REAL_TIME: the closes are driven synchronously and the spans must
     # carry wall time (a virtual clock stands still between cranks)
@@ -1165,7 +1422,7 @@ def node_close_leg(load, tmp, leg, device, device_hash, untimed_close):
         "p95_ms": _p(times, 0.95) * 1e3, "span_p50_ms": spans, "setup_s": setup_s,
         "txs_applied": applied, "bad_tx": bad_tx, **counts, "stalls": _stalls(stats),
         "cpu_cutover_items": stats["cpu_cutover_items"], "ledger_hashes": hashes,
-        "pipeline": app.close_pipeline.stats(),
+        "mesh_devices": stats["mesh_devices"], "pipeline": app.close_pipeline.stats(),
     }
     emit(line)
     return line
@@ -1187,6 +1444,7 @@ def phase_node_close(fx, tmp):
           "signatures": NODE_TXS * (NODE_ROUNDS + 1), "libsodium": fx.sodium})
     card = node_close_leg(load, tmp, "card", "cuda", False, untimed_close=True)
     card_dh = node_close_leg(load, tmp, "card_device_hash", "cuda", True, untimed_close=True)
+    meshes = node_close_mesh_legs(load, tmp, card)
     plain = node_close_leg(load, tmp, "plain", "cpu", False, untimed_close=False)
     n_timed = len(load.create_ledgers) + NODE_ROUNDS
     assert card["ledger_hashes"] == card_dh["ledger_hashes"], "card legs disagree"
@@ -1203,9 +1461,39 @@ def phase_node_close(fx, tmp):
     assert plain["launches"]["ed25519_verify"] == 0 and plain["plain_calls"]["ed25519"] > 0
     emit({"phase": "node_close", "hashes_equal": True, "bad_tx": "txBAD_AUTH",
           "ledgers": len(card["ledger_hashes"]),
-          "p50_ms": {ln["leg"]: ln["p50_ms"] for ln in (card, card_dh, plain)}})
+          "p50_ms": {ln["leg"]: ln["p50_ms"] for ln in (card, card_dh, *meshes, plain)}})
     return {"ed25519_verify": card["launches"]["ed25519_verify"] + card_dh["launches"]["ed25519_verify"],
-            "sha512_h": card_dh["launches"]["sha512_h"]}
+            "sha512_h": card_dh["launches"]["sha512_h"],
+            "mesh_ed25519_verify": sum(ln["launches"]["ed25519_verify"] for ln in meshes)}
+
+
+def node_close_mesh_legs(load, tmp, card):
+    """The card leg with ``SIG_MESH = "auto"``: ``card_mesh2`` on a host
+    whose ``local_devices`` lists the one card twice (the repeated-device
+    rig: the node's verify plane two shards wide on the card) and, where
+    there are two cards or more, ``card_mesh_cards`` over all of them.
+    Each equals the card leg hash for hash, with 0 stalls."""
+    import torch
+
+    from stellar_tpu_torch.parallel import mesh as pm
+
+    real = pm.local_devices
+    pm.local_devices = lambda kind="cuda": [torch.device("cuda", 0)] * 2
+    try:
+        legs = [node_close_leg(load, tmp, "card_mesh2", "cuda", False, untimed_close=True,
+                               SIG_MESH="auto")]
+    finally:
+        pm.local_devices = real
+    if torch.cuda.device_count() >= 2:
+        legs.append(node_close_leg(load, tmp, "card_mesh_cards", "cuda", False,
+                                   untimed_close=True, SIG_MESH="auto"))
+    for leg, shards in zip(legs, (2, torch.cuda.device_count())):
+        assert leg["ledger_hashes"] == card["ledger_hashes"], f"{leg['leg']} disagrees"
+        assert leg["mesh_devices"] == shards and card["mesh_devices"] == 0, leg["mesh_devices"]
+        assert leg["stalls"] == 0 and leg["bad_tx"] == "txBAD_AUTH", leg
+        assert leg["launches"]["ed25519_verify"] > card["launches"]["ed25519_verify"], leg
+        assert leg["plain_calls"] == {"ed25519": 0, "sha512": 0, "sha256": 0}, leg["plain_calls"]
+    return legs
 
 
 def consensus_run(tmp, tag, device, n_accounts, n_txs, rate, bucket_hash_node=None):
@@ -1290,22 +1578,7 @@ class VerifyTap:
         self.mod.verify_packed = self.launch
 
     def check(self):
-        """The plain version over every kept chunk, in LANES-lane calls on
-        the card: lanes, accepts, mismatches and seconds."""
-        import torch
-
-        from stellar_tpu_torch.ops import ed25519 as ed
-
-        torch.cuda.synchronize()
-        packed = torch.cat([p for p, _ in self.calls], dim=1)
-        kernel = torch.cat([v for _, v in self.calls])
-        t0 = time.perf_counter()
-        plain = torch.cat([ed._verify_packed(packed[:, i:i + LANES].contiguous())
-                           for i in range(0, packed.shape[1], LANES)])
-        torch.cuda.synchronize()
-        return {"launches": len(self.calls), "lanes": int(packed.shape[1]),
-                "accepts": int(kernel.sum()), "mismatches": int((kernel != plain).sum()),
-                "plain_s": time.perf_counter() - t0}
+        return verify_calls_vs_plain(self.calls)
 
 
 def phase_node_consensus(tmp):
@@ -1356,7 +1629,7 @@ def phase_node_consensus(tmp):
             "sha256_frames": c["launches"]["sha256_frames"]}
 
 
-# -- phase 10: the chaos scenario on the card --------------------------------
+# -- phase 11: the chaos scenario on the card --------------------------------
 
 
 def phase_scenario_flood():
@@ -1431,7 +1704,7 @@ def phase_scenario_flood():
     return counts["launches"]["ed25519_verify"]
 
 
-# -- phase 11: the fuzzer through the CLI -------------------------------------
+# -- phase 12: the fuzzer through the CLI -------------------------------------
 
 
 def phase_fuzz(tmp):
@@ -1594,9 +1867,10 @@ def main() -> int:
             emit({"phase": "main_path_compare", "load": name,
                   "host_hash": host, "device_hash": dh_loads[name]})
 
-        phase_torsion(fx, rng, backend, [it[0] for it in ledger1[0][:TORSION_ENCS]])
+        torsion = phase_torsion(fx, rng, backend, [it[0] for it in ledger1[0][:TORSION_ENCS]])
 
         with tempfile.TemporaryDirectory(prefix="chip_smoke_node_") as tmp:
+            mesh_launches = phase_mesh(fx, tmp, ledger1, scp, torsion)
             close_launches = phase_node_close(fx, tmp)
 
     bucket_launches = phase_bucket(buf, frames)
@@ -1611,10 +1885,13 @@ def main() -> int:
     rows[2]["launches"] = bucket_launches
     # each path's own count, set to 0 just before it and read just after
     rows[0]["launches_by_path"] = {"main_path": launches["ed25519_verify"],
+                                   "mesh": mesh_launches["ed25519_verify"],
                                    "node_close": close_launches["ed25519_verify"],
+                                   "node_close_mesh": close_launches["mesh_ed25519_verify"],
                                    "node_consensus": consensus_launches["ed25519_verify"],
                                    "scenario_flood": flood_launches}
     rows[1]["launches_by_path"] = {"main_path_device_hash": dh_launches["sha512_h"],
+                                   "mesh": mesh_launches["sha512_h"],
                                    "node_close": close_launches["sha512_h"]}
     rows[2]["launches_by_path"] = {"bucket_hash": bucket_launches,
                                    "node_consensus": consensus_launches["sha256_frames"]}

@@ -403,6 +403,8 @@ class GpuSigBackend(SigBackend):
 
     ``device="cpu"`` runs the kernel's plain PyTorch version instead (the
     tests); without CUDA and without ``device="cpu"`` construction raises.
+    ``mesh`` / ``sig_mesh`` shard every chunk over several devices
+    (``parallel/mesh.py``).
     The CUDA library and the C host stage are built here, never inside a
     dispatch's budget.
 
@@ -424,17 +426,30 @@ class GpuSigBackend(SigBackend):
     def __init__(
         self,
         max_batch: int = 4096,
+        mesh=None,
+        sig_mesh=0,
         cpu_cutover: int = DEFAULT_GPU_CPU_CUTOVER,
         streams: int = 1,
-        device="cuda",
+        device=None,
         device_hash: Optional[bool] = None,
         tracer=None,
     ):
         from ..ops.ed25519 import BatchVerifier
 
         self._tracer = tracer if tracer is not None else NULL_TRACER
+        # sig_mesh: the Config.SIG_MESH wiring — 0/off, "auto" (every
+        # device of ``device``'s type), or an explicit device count; an
+        # explicit ``mesh=`` wins.  The mesh's devices take the place of
+        # ``device``'s index.  Sharded dispatch rides the same
+        # BatchVerifier surface, so every caller class and the stall and
+        # latch contracts inherit it unchanged.
+        if mesh is None and sig_mesh:
+            from ..parallel.mesh import mesh_from_spec
+
+            mesh = mesh_from_spec(sig_mesh, device="cuda" if device is None else device)
         self._verifier = BatchVerifier(
             max_batch=max_batch,
+            mesh=mesh,
             device=device,
             streams=streams,
             device_hash=device_hash,
@@ -615,7 +630,8 @@ def make_backend(
     one unless ``cache`` is given): the card's kernels by default, libsodium
     for ``"cpu"``.  ``kw`` goes to GpuSigBackend —
     ``device="cpu"`` runs the plain PyTorch version, ``device_hash=True``
-    hashes single-block messages on the card."""
+    hashes single-block messages on the card, ``sig_mesh`` (or ``mesh``)
+    shards the verify plane over several devices."""
     if kind == "cpu":
         inner: SigBackend = CpuSigBackend()
     elif kind == "gpu":

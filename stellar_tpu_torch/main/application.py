@@ -73,6 +73,7 @@ class Application:
         self.sig_backend = make_backend(
             config.SIGNATURE_BACKEND,
             max_batch=config.SIG_BATCH_MAX,
+            sig_mesh=config.SIG_MESH,
             device=config.SIG_DEVICE,
             device_hash=bool(config.DEVICE_HASH),
             cpu_cutover=config.GPU_CPU_CUTOVER,

@@ -183,8 +183,15 @@ class Config:
         # kernels, on SIG_DEVICE) by default; "cpu" is libsodium on the host
         self.SIGNATURE_BACKEND = "gpu"
         self.SIG_BATCH_MAX = 4096
-        # multi-card sharded verify is not ported yet: 0 (off) or 1 (one
-        # card, the same thing); any other value fails the boot
+        # multi-chip sharded verify (parallel/mesh.py): shard every packed
+        # device chunk over a 1-D batch-axis mesh of addressable chips.
+        # 0 = off (single-queue dispatch); "auto" = all addressable
+        # devices (falls back to unsharded on a one-chip host); an int
+        # pins an exact device count (boot fails when the host has
+        # fewer; 1 normalizes to the unsharded single-chip path like a
+        # one-chip "auto").  Only meaningful with SIGNATURE_BACKEND =
+        # "gpu"; the mesh's devices are of SIG_DEVICE's type and take the
+        # place of its index.
         self.SIG_MESH = 0
         # the torch device of the gpu backend and of the device
         # bucket-hash backend: "cuda" runs the kernels (and raises
@@ -433,10 +440,15 @@ class Config:
 
         validate_scheme(self.SCP_SIG_SCHEME)
         sm = self.SIG_MESH
-        if not (sm is False or (not isinstance(sm, bool) and sm in (0, 1))):
+        if not (
+            sm == 0
+            or sm is False
+            or sm == "auto"
+            or (isinstance(sm, int) and not isinstance(sm, bool) and sm >= 1)
+        ):
             raise ValueError(
-                f"SIG_MESH must be 0 or 1 (multi-card sharding is not"
-                f" ported yet), got {sm!r}"
+                f'SIG_MESH must be 0, "auto", or a device count >= 1, '
+                f"got {sm!r}"
             )
         dh = self.DEVICE_HASH
         if not (

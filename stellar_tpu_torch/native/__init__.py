@@ -26,6 +26,15 @@ gitignored), under a name keyed by a hash of the source and the flags, so
 an edited source is rebuilt and a stale object is never loaded.  A build
 writes a per-process temporary name and renames it into place, so
 concurrent first builds in sibling processes do not race.
+
+Sanitizer build mode: ``STELLAR_TPU_SANITIZE=<list>`` (e.g.
+``"address,undefined"``) builds every C engine with ``-fsanitize=<list>
+-fno-sanitize-recover=all -g -O1`` (and without ``-O3``) into a separate
+artifact whose name carries the set (``_sighash.san-address-undefined-…``),
+so the normal build is never replaced.  A sanitized CPython extension loads
+only into an interpreter with the sanitizer runtime present: run it in a
+subprocess with ``LD_PRELOAD`` set from ``sanitizer_preload_libs()``
+(``tests/test_torch_native_sanitize.py``).  The CUDA builds ignore the mode.
 """
 
 from __future__ import annotations
@@ -33,10 +42,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
@@ -94,6 +104,63 @@ def build_cuda_library(source: str, stem: str) -> str:
     return so
 
 
+# -- sanitizer build mode of the C engines ------------------------------------
+
+
+def sanitize_mode() -> Optional[str]:
+    """The sanitizer set of ``STELLAR_TPU_SANITIZE``, or None."""
+    return os.environ.get("STELLAR_TPU_SANITIZE") or None
+
+
+def _san_flags() -> tuple:
+    mode = sanitize_mode()
+    if not mode:
+        return ()
+    return (f"-fsanitize={mode}", "-fno-sanitize-recover=all", "-g", "-O1")
+
+
+def _c_flags(extra: Sequence[str] = (), optimize: Sequence[str] = ()) -> tuple:
+    """An engine's compiler flags after the default -O2: ``optimize``
+    (e.g. -O3) only in a normal build — it would out-rank the sanitizer's
+    deliberate -O1 — and the sanitizer's flags in a sanitizer build."""
+    return (*extra, *(_san_flags() or optimize))
+
+
+def _stem(name: str) -> str:
+    """An engine's artifact stem: its name, plus the exact sanitizer set in
+    a sanitizer build (an address-only build is never reused for an
+    address,undefined run)."""
+    mode = sanitize_mode()
+    if not mode:
+        return name
+    return f"{name}.san-{re.sub(r'[^A-Za-z0-9]+', '-', mode).strip('-')}"
+
+
+def sanitizer_preload_libs(kinds: Sequence[str] = ("asan", "ubsan")) -> Optional[List[str]]:
+    """Paths of the sanitizer runtimes to ``LD_PRELOAD`` into a subprocess
+    that loads sanitized engines, or None where the toolchain does not name
+    them as shared libraries (clang's static runtimes, no toolchain)."""
+    out = []
+    for kind in kinds:
+        path = None
+        for cc in ("cc", "gcc", "clang"):
+            try:
+                r = subprocess.run(
+                    [cc, f"-print-file-name=lib{kind}.so"],
+                    capture_output=True, timeout=30, text=True,
+                )
+            except (OSError, subprocess.TimeoutExpired):
+                continue
+            cand = r.stdout.strip()
+            if r.returncode == 0 and os.sep in cand and os.path.exists(cand):
+                path = cand
+                break
+        if path is None:
+            return None
+        out.append(path)
+    return out
+
+
 def _compile_so(src: str, so: str, extra_flags: Sequence[str] = ()) -> None:
     """Compile ``src`` into the shared object ``so``; raise on failure."""
     os.makedirs(os.path.dirname(so), exist_ok=True)
@@ -123,8 +190,9 @@ def _compile_so(src: str, so: str, extra_flags: Sequence[str] = ()) -> None:
 
 
 def _load_extension(name: str, src: str, extra_flags: Sequence[str] = ()):
-    """Build (unless a build of this exact source exists) and load a
-    CPython extension by path.  The unresolved CPython symbols bind into
+    """Build (unless a build of this exact source and these flags exists)
+    and load a CPython extension by path; ``extra_flags`` come from
+    ``_c_flags``.  The unresolved CPython symbols bind into
     the running interpreter at dlopen time, so no libpython link is
     needed."""
     import importlib.machinery
@@ -132,7 +200,7 @@ def _load_extension(name: str, src: str, extra_flags: Sequence[str] = ()):
     import sysconfig
 
     flags = (f"-I{sysconfig.get_paths()['include']}", *extra_flags)
-    so = build_path([src], flags, name, ".so")
+    so = build_path([src], flags, _stem(name), ".so")
     if not os.path.exists(so):
         _compile_so(src, so, flags)
     loader = importlib.machinery.ExtensionFileLoader(name, so)
@@ -155,7 +223,7 @@ def load_sighash():
     global _sighash_mod
     with _sighash_lock:
         if _sighash_mod is None:
-            _sighash_mod = _load_extension("_sighash", _SIGHASH_SRC, ("-pthread",))
+            _sighash_mod = _load_extension("_sighash", _SIGHASH_SRC, _c_flags(("-pthread",)))
         return _sighash_mod
 
 
@@ -181,9 +249,10 @@ def _engine(name: str, load):
 
 
 def _load_bucketmerge():
-    so = build_path([_BUCKETMERGE_SRC], (), "_bucketmerge", ".so")
+    flags = _c_flags()
+    so = build_path([_BUCKETMERGE_SRC], flags, _stem("_bucketmerge"), ".so")
     if not os.path.exists(so):
-        _compile_so(_BUCKETMERGE_SRC, so)
+        _compile_so(_BUCKETMERGE_SRC, so, flags)
     lib = ctypes.CDLL(so)
     lib.bucket_merge.restype = ctypes.c_int
     lib.bucket_merge.argtypes = [
@@ -294,22 +363,25 @@ def bucket_hash_v2_file(path: str) -> Optional[Tuple[bytes, int]]:
 
 def load_cxdrpack():
     """The compiled C XDR pack interpreter, or None (pure-Python codec)."""
-    return _engine("cxdrpack", lambda: _load_extension("_cxdrpack", _CXDR_SRC))
+    return _engine("cxdrpack", lambda: _load_extension("_cxdrpack", _CXDR_SRC, _c_flags()))
 
 
 def load_applycore():
     """The compiled parallel-apply host leg (``encode_history_rows``), or
     None (ledger/applysched.py encodes the rows in Python)."""
-    return _engine("applycore", lambda: _load_extension("_applycore", _APPLYCORE_SRC))
+    return _engine(
+        "applycore", lambda: _load_extension("_applycore", _APPLYCORE_SRC, _c_flags())
+    )
 
 
 def load_halfagg():
     """The compiled half-aggregation curve core (batch strict
     ``decompress``, Pippenger ``msm``/``msm_ext``), or None (the aggregate
-    plane runs ref25519).  -O3 after the default -O2: its field loops gain
-    from the extra unrolling."""
+    plane runs ref25519).  -O3 after the default -O2 (not in a sanitizer
+    build): its field loops gain from the extra unrolling."""
     return _engine(
-        "halfagg", lambda: _load_extension("_halfagg", _HALFAGG_SRC, ("-O3",))
+        "halfagg",
+        lambda: _load_extension("_halfagg", _HALFAGG_SRC, _c_flags(optimize=("-O3",))),
     )
 
 

@@ -302,23 +302,30 @@ def _verify_packed_device_hash(p):
 # to the Python gate's — both derive from ref25519.small_order_blacklist)
 _BLACKLIST = b"".join(ref.small_order_blacklist())
 ROWS = 128  # packed staging rows: A, R, s, h
+# least bucket of a chunk under a mesh (the JAX verifier's default
+# ``min_device_batch``); buckets only place the shard boundaries here, as
+# nothing is padded to them
+_MIN_DEVICE_BATCH = 16
 
 
 class _Staged(NamedTuple):
-    """One staged chunk: the packed ``(128, n)`` upload tensor (``(160, n)``
-    for a device-hash verify chunk) plus the host gate verdicts that mask
-    the device results at drain time."""
+    """One staged chunk: a ``(shard, first lane, packed)`` triple for each
+    shard that holds a live lane (the one shard without a mesh), each
+    ``packed`` a ``(128, lanes)`` upload tensor (``(160, lanes)`` for a
+    device-hash verify chunk), plus the host gate verdicts that mask the
+    device results at drain time."""
 
-    packed: torch.Tensor  # (rows, n) uint8, contiguous (pinned for cuda)
+    shards: tuple         # (shard, first lane, (rows, lanes) uint8 pinned for cuda)
     ok: np.ndarray        # (n,) bool — strict-input gate results
     n: int                # live lanes
-    bufs: tuple           # staging-pool token; released after drain
+    bufs: tuple           # staging-pool tokens, one a shard; released after drain
 
 
 class _StagingPool:
-    """Reusable preallocated staging buffers of ``max_batch`` lanes: a flat
-    uint8 tensor of ``rows`` bytes a lane (pinned when the verifier runs on
-    the card) of which a chunk of n lanes uses the first rows·n bytes as a
+    """Reusable preallocated staging buffers of ``lanes`` lanes (a chunk's
+    ``max_batch``, or a shard's share of it under a mesh): a flat uint8
+    tensor of ``rows`` bytes a lane (pinned when the verifier runs on the
+    card) of which a chunk of n lanes uses the first rows·n bytes as a
     contiguous (rows, n) view — a 128-row torsion chunk fits in a 160-row
     device-hash buffer — plus a numpy gate-verdict vector.
 
@@ -326,7 +333,8 @@ class _StagingPool:
     i.e. after the event recorded behind that chunk's kernel (and its
     non_blocking upload) has completed — an earlier release would let the
     next chunk's host stage overwrite bytes the copy engine is still
-    reading.  Pool size is bounded by the pipeline depth."""
+    reading.  Pool size is bounded by the pipeline depth (times the shard
+    count under a mesh)."""
 
     def __init__(self, lanes: int, rows: int, pin: bool):
         self._lanes = lanes
@@ -367,12 +375,26 @@ class BatchVerifier:
     chunks stage the (160, n) raw layout (``sighash.stage_raw``), and the
     SHA-512 kernel writes h in place ahead of the verify kernel whenever a
     live lane has a single-block message (flag 1).  Verdicts are the same
-    either way."""
+    either way.
+
+    ``mesh`` (``parallel/mesh.py``) shards every chunk over its devices, as
+    the JAX package's verifier does: a chunk of n lanes takes a bucket of
+    ``_bucket(n)`` lanes (a multiple of the shard count k, which
+    ``max_batch`` is rounded up to), and shard j holds the lanes
+    ``[j·w, j·w + w)`` of it, w = bucket // k, so the tail shard holds
+    fewer live lanes and the shards past the live range (dead shards) hold
+    none.  Each shard with a live lane is staged into its own pooled pinned
+    buffer, copied to its own device and run there on its own stream (one
+    a stager thread and shard), over its live lanes only; its verdicts come
+    back into its slice of one pinned host result.  A dead shard, or one
+    whose live lanes all fail the gate, launches nothing.  The mesh's
+    devices take the place of ``device``."""
 
     def __init__(
         self,
         max_batch: int = 4096,
-        device="cuda",
+        mesh=None,
+        device=None,
         streams: int = 1,
         host_assist: float = 0.0,
         device_hash: Optional[bool] = None,
@@ -382,16 +404,33 @@ class BatchVerifier:
         from . import ed25519_cuda
 
         self._tracer = tracer if tracer is not None else NULL_TRACER
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            self.device = mesh.devices[0]
+            if device is not None and torch.device(device).type != self.device.type:
+                raise ValueError(
+                    f"device {device!r} is not of the mesh's type ({self.device.type})"
+                )
+        else:
+            self.device = resolve_device("cuda" if device is None else device)
+        # every bucket splits evenly over the mesh: the granule is the
+        # shard count
+        self._granule = len(mesh) if mesh is not None else 1
         self.max_batch = max(1, max_batch)
+        if self._granule > 1:
+            self.max_batch = max(
+                self._granule, -(-self.max_batch // self._granule) * self._granule
+            )
         if device_hash is None:
             device_hash = os.environ.get("STELLAR_TPU_DEVICE_HASH", "0") == "1"
         self.device_hash = bool(device_hash)
         self._rows = sha512.DH_ROWS if self.device_hash else ROWS
         self._verify_packed = ed25519_cuda.verify_packed
         if self.device.type == "cuda":
-            # build now, never inside a dispatch
-            ed25519_cuda.load_library()
+            # build now, and make the constant block on every device of the
+            # mesh: never inside a dispatch
+            for dev in dict.fromkeys(self._devices()):
+                ed25519_cuda.prepare(dev)
             if self.device_hash:
                 sha512_cuda.load_library()
         # Host stage: the native C extension (gate + batch SHA-512 mod L +
@@ -399,13 +438,15 @@ class BatchVerifier:
         from .. import native as _native
 
         self._sighash = _native.load_sighash()
-        self._pool = _StagingPool(self.max_batch, self._rows, pin=self.device.type == "cuda")
+        self._pool = _StagingPool(
+            self.max_batch // self._granule, self._rows, pin=self.device.type == "cuda"
+        )
         # Fraction of each large batch peeled off to a concurrent libsodium
         # loop while device chunks upload/execute; results are identical by
         # construction.  0 disables.
         self.host_assist = min(0.9, max(0.0, host_assist))
         # dispatch streams: stager threads that stage+upload+launch chunks
-        # concurrently, each on its own CUDA stream
+        # concurrently, each on its own CUDA stream (one a shard)
         self.streams = max(1, streams)
         self._local = threading.local()
         self.n_device_calls = 0
@@ -417,12 +458,38 @@ class BatchVerifier:
         # n_device_calls is bumped from every stager thread
         self._calls_lock = threading.Lock()
 
+    def _devices(self) -> tuple:
+        """The device of each shard (the one device without a mesh, which
+        is a mesh of one shard)."""
+        return self.mesh.devices if self.mesh is not None else (self.device,)
+
+    def _bucket(self, n: int) -> int:
+        """Lanes of an n-lane chunk's bucket, as the JAX package computes
+        it: ``_MIN_DEVICE_BATCH`` rounded up to the granule, doubled until
+        it holds n, capped at ``max_batch``."""
+        b = max(_MIN_DEVICE_BATCH, self._granule)
+        b = -(-b // self._granule) * self._granule
+        while b < n:
+            b *= 2
+        return min(b, self.max_batch) if n <= self.max_batch else self.max_batch
+
+    def _shard_ranges(self, n: int) -> List[Tuple[int, int, int]]:
+        """(shard, first lane, live lanes) of each shard that holds a live
+        lane of an n-lane chunk; dead shards are not listed."""
+        width = self._bucket(n) // self._granule
+        return [
+            (k, k * width, min(width, n - k * width))
+            for k in range(self._granule)
+            if k * width < n
+        ]
+
     def verify(self, items: Sequence[Tuple[bytes, bytes, bytes]]) -> List[bool]:
         """items: (pubkey32, msg, sig64) triples -> list of bool.
 
         Chunks are (start, n) RANGES over ``items``: each chunk's gate +
         hash + staging happens in one C call over the original bytes
-        objects, and gate verdicts mask the device results at drain time."""
+        objects (one a shard under a mesh), and gate verdicts mask the
+        device results at drain time."""
         items = items if isinstance(items, (list, tuple)) else list(items)
         out = [False] * len(items)
         self.n_items += len(items)
@@ -469,8 +536,7 @@ class BatchVerifier:
             # fut None: every lane was gate-rejected — out[] rows stay
             # False without a device round-trip
             self._tracer.end(dsp, items=n)
-            if staged is not None:
-                self._pool.release(staged.bufs)
+            self._release(staged)
 
         chunks = [
             (s, min(self.max_batch, n_dev - s))
@@ -495,7 +561,8 @@ class BatchVerifier:
         [L]·P == identity is computed AS-IS via verify(A := P, h := L,
         s := 0, R := identity-encoding) — the ladder evaluates
         0·B + L·(−P) and the byte compare against the identity encoding
-        passes iff L·P is the identity.  No hash stage runs.
+        passes iff L·P is the identity.  No hash stage runs; under a mesh
+        the chunk shards as a verify chunk does.
 
         A malformed length, non-canonical y, or undecodable encoding
         returns False."""
@@ -513,8 +580,7 @@ class BatchVerifier:
                 res = np.logical_and(self._collect(fut)[:n], staged.ok[:n])
                 out[start : start + n] = res.tolist()
             self._tracer.end(dsp, items=n)
-            if staged is not None:
-                self._pool.release(staged.bufs)
+            self._release(staged)
 
         chunks = [
             (s, min(self.max_batch, len(encs) - s))
@@ -530,10 +596,11 @@ class BatchVerifier:
         identity encoding, s = 0, h = L (host-precomputed — no hash)."""
         if n == 0:
             return None
-        bufs = self._pool.acquire()
-        packed = bufs[0][: ROWS * n].view(ROWS, n)
-        self._fill_torsion(encs, start, n, packed.numpy(), bufs[1])
-        return _Staged(packed, bufs[1][:n].astype(bool), n, bufs)
+        return self._stage_shards(encs, start, n, ROWS, self._fill_torsion_into)[0]
+
+    def _fill_torsion_into(self, encs, start, n, packed, okbuf) -> int:
+        self._fill_torsion(encs, start, n, packed.numpy(), okbuf)
+        return 0
 
     @staticmethod
     def _fill_torsion(encs, start, n, packed, okbuf) -> None:
@@ -619,71 +686,124 @@ class BatchVerifier:
         h = SHA-512(R‖A‖M) mod L + the packed transposed (128, n) upload
         layout, written straight into a pooled (pinned) buffer.  With
         device_hash: gate + the raw (160, n) layout, hashing only messages
-        longer than one block (``stage_raw``)."""
+        longer than one block (``stage_raw``).  One such pass a shard, into
+        the shard's own buffer: the chunk is never repacked on the host."""
         if n == 0:
             return None
-        bufs = self._pool.acquire()
-        packed = bufs[0][: self._rows * n].view(self._rows, n)
-        stage = self._sighash.stage_raw if self.device_hash else self._sighash.stage
         sp = self._tracer.begin("ed25519.host_hash")
-        rejects = stage(items, start, n, packed.numpy(), bufs[1], _BLACKLIST, 0)
+        staged, rejects = self._stage_shards(items, start, n, self._rows, self._stage_into)
         self._tracer.end(sp, items=n, rejects=rejects, device_hash=self.device_hash)
         if rejects:
             with self._calls_lock:  # stager threads update concurrently
                 self.n_gate_rejects += int(rejects)
-        return _Staged(packed, bufs[1][:n].astype(bool), n, bufs)
+        return staged
 
-    def _stream(self):
-        """This thread's CUDA stream: each stager thread launches on its
-        own, so with streams > 1 one chunk's upload overlaps another's
-        kernel."""
-        s = getattr(self._local, "stream", None)
+    def _stage_into(self, items, start, n, packed, okbuf) -> int:
+        """One C host-stage pass (GIL released) into a (rows, n) pooled
+        view; returns the gate's rejects."""
+        stage = self._sighash.stage_raw if self.device_hash else self._sighash.stage
+        return stage(items, start, n, packed.numpy(), okbuf, _BLACKLIST, 0)
+
+    def _stage_shards(self, items, start, n, rows, fill) -> Tuple[_Staged, int]:
+        """Staging -> (the staged chunk, the gate's rejects): each shard
+        with a live lane gets its own pooled buffer, filled by ``fill`` over
+        the shard's live range only (a (rows, live lanes) view).  Live lanes
+        lie shard-major over the bucket, so the tail shard is short and dead
+        shards stage nothing; without a mesh the one shard is the chunk."""
+        shards, bufs = [], []
+        ok = np.zeros(n, dtype=bool)
+        rejects = 0
+        for k, lo, cnt in self._shard_ranges(n):
+            buf = self._pool.acquire()
+            bufs.append(buf)
+            packed = buf[0][: rows * cnt].view(rows, cnt)
+            rejects += fill(items, start + lo, cnt, packed, buf[1])
+            ok[lo : lo + cnt] = buf[1][:cnt].astype(bool)
+            shards.append((k, lo, packed))
+        return _Staged(tuple(shards), ok, n, tuple(bufs)), rejects
+
+    def _release(self, staged: Optional[_Staged]) -> None:
+        if staged is None:
+            return
+        for bufs in staged.bufs:
+            self._pool.release(bufs)
+
+    def _stream(self, shard: int = 0):
+        """This thread's CUDA stream for ``shard`` (on the shard's device):
+        each stager thread launches on its own, so with streams > 1 one
+        chunk's upload overlaps another's kernel, and each shard has its
+        own, so shards overlap even when a mesh names one device twice."""
+        streams = getattr(self._local, "streams", None)
+        if streams is None:
+            streams = self._local.streams = {}
+        s = streams.get(shard)
         if s is None:
-            s = self._local.stream = torch.cuda.Stream(self.device)
+            s = streams[shard] = torch.cuda.Stream(self._devices()[shard])
         return s
 
+    def _run_kernels(self, packed: torch.Tensor, device: torch.device) -> torch.Tensor:
+        """One staged host tensor through the kernels on ``device`` ->
+        (n,) bool verdicts.  On the card: ONE copy to the device, then, for
+        a device-hash chunk, the SHA-512 kernel in place when a lane has
+        flag 1 (the host reads the flag row of its own staging buffer, so
+        an all-flag-0 chunk skips the launch), and the verify kernel over
+        the first 128 rows — all on the current device and stream."""
+        device_hash = packed.shape[0] == sha512.DH_ROWS
+        if device.type != "cuda":
+            if device_hash:
+                return _verify_packed_device_hash(packed)
+            return self._verify_packed(packed)
+        dev = packed.to(device, non_blocking=True)
+        if device_hash:
+            if packed[sha512.ROW_FLAG].numpy().any():
+                sha512_cuda.hash_in_place(dev)
+            dev = dev[:ROWS]
+        return self._verify_packed(dev)
+
     def _dispatch_staged(self, staged: Optional[_Staged]):
-        """Upload the packed staging tensor (ONE transfer) and launch the
-        kernel(s).  A device-hash chunk launches the SHA-512 kernel first,
-        in place, when a lane has flag 1 — the host reads the flag row of
-        its own staging buffer, so an all-flag-0 chunk skips the launch —
-        and the verify kernel then reads the first 128 rows.  Returns the
-        in-flight result — on the card a (pinned host result, event) pair —
-        or None when every lane was gate-rejected (hostile floods never
-        reach the chip)."""
+        """Upload the staged chunk and launch the kernel(s): for each shard
+        with a live, gate-passing lane, one copy and one launch of each
+        kernel, on the shard's device and stream.  Returns the in-flight
+        result — a (host result, [events]) pair, the events empty on the
+        CPU — or None when every lane was gate-rejected (hostile floods
+        never reach the chip)."""
         if staged is None or not staged.ok.any():
             return None
         dsp = self._tracer.begin("ed25519.device_dispatch")
-        device_hash = staged.packed.shape[0] == sha512.DH_ROWS
-        if self.device.type == "cuda":
-            stream = self._stream()
+        cuda = self.device.type == "cuda"
+        parts = tuple(
+            (k, lo, p) for k, lo, p in staged.shards if staged.ok[lo : lo + p.shape[1]].any()
+        )
+        # one host result for the chunk; the lanes of a shard that launched
+        # nothing are all gate-rejected, and the drain masks them False
+        host = torch.empty(staged.n, dtype=torch.bool, pin_memory=cuda)
+        events = []
+        for k, lo, packed in parts:
+            dev = self._devices()[k]
+            out = host[lo : lo + packed.shape[1]]
+            if not cuda:
+                out.copy_(self._run_kernels(packed, dev))
+                continue
+            stream = self._stream(k)
+            # the stream makes its device current; the wrappers make the
+            # tensor's device current around each launch
             with torch.cuda.stream(stream):
-                dev = staged.packed.to(self.device, non_blocking=True)
-                if device_hash:
-                    if staged.packed[sha512.ROW_FLAG].numpy().any():
-                        sha512_cuda.hash_in_place(dev)
-                    dev = dev[:ROWS]
-                res = self._verify_packed(dev)
-                host = torch.empty(res.shape, dtype=torch.bool, pin_memory=True)
-                host.copy_(res, non_blocking=True)
+                out.copy_(self._run_kernels(packed, dev), non_blocking=True)
                 done = torch.cuda.Event()
                 done.record(stream)
-            fut = (host, done)
-        elif device_hash:
-            fut = (_verify_packed_device_hash(staged.packed), None)
-        else:
-            fut = (self._verify_packed(staged.packed), None)
-        self._tracer.end(dsp, lanes=staged.packed.shape[1], device=str(self.device))
+            events.append(done)
+        self._tracer.end(dsp, lanes=staged.n, shards=len(parts), device=str(self.device))
         with self._calls_lock:
             self.n_device_calls += 1
-        return fut
+        return host, events
 
     @staticmethod
     def _collect(fut) -> np.ndarray:
-        """Wait for a dispatched chunk (its event covers the upload, the
-        kernel and the copy back) and return its verdicts."""
-        res, done = fut
-        if done is not None:
+        """Wait for a dispatched chunk (its events, one a launched shard,
+        cover the uploads, the kernels and the copies back) and return its
+        verdicts."""
+        res, events = fut
+        for done in events:
             done.synchronize()
         return res.numpy()
 
@@ -698,5 +818,6 @@ class BatchVerifier:
             "device_hash": self.device_hash,
             "torsion_items": self.n_torsion_items,
             "verify_seconds": self.verify_seconds,
-            "mesh_devices": 0,
+            # 0 = unsharded; >0 = shards of the mesh (Config.SIG_MESH)
+            "mesh_devices": len(self.mesh) if self.mesh is not None else 0,
         }

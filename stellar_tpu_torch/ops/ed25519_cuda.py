@@ -24,6 +24,7 @@ import torch
 
 from .. import native
 from . import ed25519 as ed
+from . import launch_device
 from . import ref25519 as ref
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -102,11 +103,20 @@ def _device_constants(device) -> torch.Tensor:
     return t
 
 
+def prepare(device) -> None:
+    """Build and load the library, and make the constant block on
+    ``device``: what a launch there needs, done before the first one."""
+    load_library()
+    with _lib_lock:
+        _device_constants(torch.device(device))
+
+
 def verify_packed(p: torch.Tensor) -> torch.Tensor:
     """Verdicts of the packed (128, N) uint8 chunk -> (N,) bool.
 
     CPU tensor: the plain PyTorch version.  CUDA tensor: the kernel, on
-    the current stream, or an exception."""
+    the tensor's device and that device's current stream, or an
+    exception."""
     global launches
     if p.device.type == "cpu":
         return ed._verify_packed(p)
@@ -127,10 +137,11 @@ def verify_packed(p: torch.Tensor) -> torch.Tensor:
     consts = _device_constants(p.device)
     if consts.numel() != lib.ed25519_const_ints():
         raise RuntimeError("kernel constant block size mismatch")
-    stream = torch.cuda.current_stream(p.device).cuda_stream
-    err = lib.ed25519_verify_launch(
-        p.data_ptr(), out.data_ptr(), n, consts.data_ptr(), stream
-    )
+    with launch_device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        err = lib.ed25519_verify_launch(
+            p.data_ptr(), out.data_ptr(), n, consts.data_ptr(), stream
+        )
     if err != 0:
         raise RuntimeError(
             f"ed25519 verify kernel launch failed: "

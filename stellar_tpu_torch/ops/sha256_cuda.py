@@ -19,7 +19,7 @@ import threading
 import torch
 
 from .. import native
-from . import sha256
+from . import launch_device, sha256
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(os.path.dirname(_HERE), "csrc", "sha256_frames.cu")
@@ -77,10 +77,11 @@ def digest_rows(p: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return out
     lib = load_library()
-    stream = torch.cuda.current_stream(p.device).cuda_stream
-    err = lib.sha256_frames_launch(
-        p.data_ptr(), nblocks.data_ptr(), out.data_ptr(), n, rows // 64, stream
-    )
+    with launch_device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        err = lib.sha256_frames_launch(
+            p.data_ptr(), nblocks.data_ptr(), out.data_ptr(), n, rows // 64, stream
+        )
     if err != 0:
         raise RuntimeError(
             f"sha256_frames kernel launch failed: "

@@ -27,7 +27,7 @@ import threading
 import torch
 
 from .. import native
-from . import sha512
+from . import launch_device, sha512
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(os.path.dirname(_HERE), "csrc", "sha512_h.cu")
@@ -83,7 +83,8 @@ def _raise_on(lib, err: int, what: str) -> None:
 def launch_noop(device) -> None:
     """Launch the library's empty kernel on ``device``'s current stream."""
     lib = load_library()
-    _raise_on(lib, lib.sha512_h_noop_launch(torch.cuda.current_stream(device).cuda_stream), "noop kernel")
+    with launch_device(device):
+        _raise_on(lib, lib.sha512_h_noop_launch(torch.cuda.current_stream(device).cuda_stream), "noop kernel")
 
 
 def _launch(p: torch.Tensor, out: torch.Tensor) -> None:
@@ -92,8 +93,9 @@ def _launch(p: torch.Tensor, out: torch.Tensor) -> None:
     if n == 0:
         return
     lib = load_library()
-    stream = torch.cuda.current_stream(p.device).cuda_stream
-    _raise_on(lib, lib.sha512_h_launch(p.data_ptr(), out.data_ptr(), n, stream), "sha512_h kernel")
+    with launch_device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        _raise_on(lib, lib.sha512_h_launch(p.data_ptr(), out.data_ptr(), n, stream), "sha512_h kernel")
     with _count_lock:
         launches += 1
 

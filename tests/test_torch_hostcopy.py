@@ -20,11 +20,12 @@ lines and the copy's, so any other change on either side fails the test.  To
 take in a change of such an original, copy it again, leave out its tags, and
 put the new digests here (``_hunks`` prints them).
 
-Left out of the copy, and so out of this test: ``parallel/`` (the
-multi-card signature mesh).  The port's own modules at
-the same paths (``crypto/sigbackend.py``, ``crypto/sodium.py``,
-``crypto/sigcache.py``, ``bucket/hashplane.py``, ``native/__init__.py``,
-``native/sighash.c``) are held against the JAX package by their own tests.
+Ported, not copied, and so out of this test: ``parallel/`` (the verify
+plane's device mesh, on ``torch.device`` instead of ``jax.sharding``).  It
+and the port's own modules at the same paths (``crypto/sigbackend.py``,
+``crypto/sodium.py``, ``crypto/sigcache.py``, ``bucket/hashplane.py``,
+``native/__init__.py``, ``native/sighash.c``) are held against the JAX
+package by their own tests (``tests/test_torch_mesh.py`` for the mesh).
 """
 
 from __future__ import annotations
@@ -62,9 +63,10 @@ SEAMS = {
     "crypto/keys.py": "signs and eagerly verifies with ref25519 where libsodium does not"
                       " load, and counts those verifies (stats)",
     "main/config.py": 'SIGNATURE_BACKEND is "gpu" (the default) or "cpu"; GPU_CPU_CUTOVER;'
-                      " SIG_MESH 0 or 1 until multi-card sharding is ported; SIG_DEVICE",
-    "main/application.py": "make_backend(device=SIG_DEVICE, cpu_cutover=GPU_CPU_CUTOVER);"
-                           " the device bucket-hash backend resolved (built) at boot",
+                      " SIG_DEVICE, whose type SIG_MESH's devices take",
+    "main/application.py": "make_backend(sig_mesh=SIG_MESH, device=SIG_DEVICE,"
+                           " cpu_cutover=GPU_CPU_CUTOVER); the device bucket-hash backend"
+                           " resolved (built) at boot",
     "main/cli.py": "no JAX platform latch",
     "main/commandhandler.py": "/profiler runs torch.profiler",
     "tx/testutils.py": "imports the xdr package relatively; get_test_config defaults to"
@@ -192,5 +194,13 @@ def test_seams_are_the_composition_roots_files():
 
 
 def test_nothing_left_out_was_copied():
-    for rel in ("parallel",):
-        assert not os.path.exists(os.path.join(PORT, rel)), rel
+    """``parallel/`` is the one package the port rewrites rather than
+    copies: its module exists in both packages, and the port's is its own
+    (it names ``torch.device``, never ``jax``)."""
+    for rel in ("parallel/mesh.py",):
+        orig, port = os.path.join(JAX, rel), os.path.join(PORT, rel)
+        assert os.path.exists(orig) and os.path.exists(port), rel
+        assert not filecmp.cmp(orig, port, shallow=False), rel
+        assert rel not in COPIED, rel
+        src = open(port).read()
+        assert "import jax" not in src and "torch.device" in src, rel

@@ -38,7 +38,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
             "stellar_tpu_torch.scenarios.__main__", "stellar_tpu_torch.scenarios.faults",
             "stellar_tpu_torch.scenarios.killsweep", "stellar_tpu_torch.scenarios.matrix",
             "stellar_tpu_torch.scenarios.scenario", "stellar_tpu_torch.scenarios.scoreboard",
-            "stellar_tpu_torch.scenarios.storagefaults"} <= set(names)
+            "stellar_tpu_torch.scenarios.storagefaults",
+            "stellar_tpu_torch.parallel", "stellar_tpu_torch.parallel.mesh"} <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"
@@ -60,7 +61,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     for d, _, fs in os.walk(PKG)
     for f in fs
     if f.endswith(".py")
-) + [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "kernel_ab.py")])
+) + [os.path.join(REPO, f) for f in ("chip_smoke.py", "kernel_ab.py", "path_ab.py")])
 def test_sources_name_no_jax_or_jax_package_import(path):
     src = open(path).read()
     assert not re.search(r"^\s*(import|from)\s+jax\b", src, re.M), path

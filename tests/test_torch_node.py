@@ -416,16 +416,36 @@ def test_cli_newdb_on_a_gpu_node_on_the_cpu(tmp_path):
 
 
 def test_config_refuses_the_tpu_backend_and_a_mesh():
+    """The tpu backend, a malformed mesh and an unknown device fail
+    validation; SIG_MESH takes the JAX package's rule, so "auto" and a
+    device count validate (whether the host has the devices is the boot's
+    question)."""
     from stellar_tpu_torch.main.config import Config
 
     with pytest.raises(ValueError, match='"gpu"'):
         Config.from_dict({"SIGNATURE_BACKEND": "tpu"})
     with pytest.raises(ValueError, match="SIG_MESH"):
-        Config.from_dict({"SIG_MESH": "auto"})
+        Config.from_dict({"SIG_MESH": "all"})
     with pytest.raises(ValueError, match="SIG_DEVICE"):
         Config.from_dict({"SIG_DEVICE": "tpu"})
     cfg = Config.from_dict({"SIGNATURE_BACKEND": "gpu", "SIG_MESH": 1})
     assert cfg.SIG_DEVICE == "cuda" and cfg.GPU_CPU_CUTOVER == 0
+    assert Config.from_dict({"SIG_MESH": "auto"}).SIG_MESH == "auto"
+    assert Config.from_dict({"SIG_MESH": 2}).SIG_MESH == 2
+
+
+def test_sig_mesh_on_one_device(tmp_path):
+    """On one device (SIG_DEVICE "cpu" has one) SIG_MESH "auto" boots the
+    unsharded path, and SIG_MESH = 2 fails the boot: a validator told to
+    run 2-wide must not quietly run 1-wide."""
+    node = Node("stellar_tpu_torch", tmp_path / "auto", "gpu", SIG_DEVICE="cpu", SIG_MESH="auto")
+    try:
+        st = node.app.sig_backend.stats()
+        assert st["mesh_devices"] == 0 and node.app.sig_backend.inner._verifier.mesh is None
+    finally:
+        node.app.graceful_stop()
+    with pytest.raises(ValueError, match="addressable"):
+        Node("stellar_tpu_torch", tmp_path / "two", "gpu", SIG_DEVICE="cpu", SIG_MESH=2)
 
 
 def test_default_config_is_the_gpu_backend_on_the_card():

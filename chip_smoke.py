@@ -25,6 +25,16 @@ phase's failure is caught while the run carries on):
                 lane plain verdicts, and the 4096 lanes 8 times over
                 (32768); the row names the kernel's threads per signature
                 and block size;
+              - ed25519_verify_signed: the kernel's signed-digit instance
+                (``STELLAR_TPU_SIGNED_WINDOWS``) on the same lanes, the same
+                tails and the same wide shape, held against the signed plain
+                version, and on 64 raw-carry lanes (valid signatures whose s
+                or h is raised by a multiple of L past 0x77…78: the unsigned
+                instance accepts them, the signed one drops the window-63
+                carry and rejects them, as the JAX kernel does); both
+                instances graph-timed in turns on the same lanes at 4096 and
+                32768, and each one's registers, shared memory and resident
+                blocks an SM from the CUDA runtime;
               - sha512_h: 4096 device-hash lanes (every single-block
                 message length 0-47, host-hashed longer messages, gate-
                 rejected inert lanes), into a new tensor and in place; an
@@ -91,7 +101,8 @@ phase's failure is caught while the run carries on):
               from distinct accounts and one untimed close, in three legs
               on one set of pre-signed envelopes — the card with host
               hashing, the card with ``DEVICE_HASH``, and the plain versions
-              on the CPU (``SIG_DEVICE = "cpu"``, timed closes only).  One
+              on the CPU (``SIG_DEVICE = "cpu"``, the first two timed closes
+              only: a plain close costs ~25-37 s of CPU).  One
               payment of the second timed round carries a flipped signature
               byte: that round's txset check fails and the payment fails
               ``txBAD_AUTH`` on every leg.  Per leg: close ms (p50, p95),
@@ -102,7 +113,12 @@ phase's failure is caught while the run carries on):
               "auto"`` on a host whose ``local_devices`` lists the card
               twice: the verify plane two shards wide, header hashes equal
               to the card leg's, 0 stalls; with two cards or more, a fifth,
-              ``card_mesh_cards``, the same over all of them;
+              ``card_mesh_cards``, the same over all of them.  The leg
+              ``card_signed`` runs the card leg with the signed-digit
+              windows (the module constant ``ops/ed25519.py::_SIGNED_WIN``
+              set for the leg and restored after it): header hashes equal
+              to the card leg's, every verify launch a signed one, no plain
+              call, 0 stalls;
 10. node consensus — ``node_consensus``: three validators (threshold 2, all
               running) over the loopback overlay, all on the card, under a
               seeded 300-account, 1000-payment ``LoadGenerator`` load, the
@@ -178,6 +194,12 @@ TAIL_LANES = (904, 300)
 # multiplication, 36 for a squaring, plus 8 for the x38 fold of the reduction
 FIELD_SQRS_PER_VERIFY = 64 * 16 + 255 + 254
 FIELD_MULS_PER_VERIFY = 64 * 28 + 142 + 18 + 13
+# the signed-digit windows build the table to k = 8 only: 7 general adds of
+# 9M, 8 x 2d·T and -A's T (72M against 142M); the windows are the same
+FIELD_MULS_PER_VERIFY_SIGNED = 64 * 28 + 72 + 18 + 13
+# the least 256-bit scalar whose signed recode carries out of window 63
+RAW_CARRY = 2**256 - int("88" * 32, 16)
+RAW_CARRY_LANES = 64
 IMAD_PER_FIELD_SQR = 2 * 36 + 2 * 8
 IMAD_PER_FIELD_MUL = 2 * 64 + 2 * 8
 # bound of the SHA-512 mod L kernel (csrc/sha512_h.cu header note), in
@@ -224,6 +246,9 @@ NODE_ACCOUNTS = NODE_TXS + 1
 NODE_CREATE_PER_TX = 100
 NODE_CREATE_PER_LEDGER = 2000
 NODE_ROUNDS = 3
+# the plain leg's timed closes: through the flipped-signature round (each
+# plain close costs ~25-37 s of CPU, and the script's time limit is fixed)
+NODE_PLAIN_ROUNDS = 2
 NODE_BASE_FEE = 100
 # the payment of a timed round whose signature carries a flipped byte
 NODE_BAD_ROUND, NODE_BAD_INDEX = 1, 2500
@@ -527,6 +552,102 @@ def phase_kernels(rng, ledger_items):
     }
     emit({"phase": "kernels", **row, "tails": tails, "wide_lanes": wide.shape[1],
           "wide_mismatches": wide_bad, "wide_ms": wide_ms, "wide_call_ms": wide_call_ms})
+    return row, packed
+
+
+def raw_carry_lanes(packed, accepted, n=RAW_CARRY_LANES):
+    """n accepted lanes of the kernel mix's valid class (lane i % 8 == 0)
+    with s, or on every fourth lane h, raised by a multiple of L to at
+    least RAW_CARRY: the unsigned kernel accepts them (the modular
+    identity), the signed one drops the carry out of window 63 and rejects
+    them."""
+    import numpy as np
+
+    from stellar_tpu_torch.ops import ref25519 as ref
+
+    cols = [i for i in range(0, packed.shape[1], 8) if accepted[i]][:n]
+    assert len(cols) == n, f"{len(cols)} accepted lanes of the valid class"
+    src = packed[:, cols].cpu().numpy().copy()
+    for j in range(n):
+        row = 96 if j % 4 == 3 else 64
+        v = int.from_bytes(src[row : row + 32, j].tobytes(), "little")
+        k = max(k for k in range(16) if v + k * ref.L < 2**256) - j % 3
+        v += k * ref.L
+        assert v >= RAW_CARRY
+        src[row : row + 32, j] = np.frombuffer(v.to_bytes(32, "little"), dtype=np.uint8)
+    return src
+
+
+def phase_kernel_signed(packed):
+    """``ed25519_verify_signed``: the signed-digit instance against the
+    signed plain version on the kernel phase's lanes, tails, wide shape and
+    raw-carry lanes; both instances graph-timed in turns."""
+    import torch
+
+    from stellar_tpu_torch.ops import ed25519 as ed
+    from stellar_tpu_torch.ops import ed25519_cuda as ec
+
+    def signed(p):
+        return ec.verify_packed(p, signed=True)
+
+    def unsigned(p):
+        return ec.verify_packed(p, signed=False)
+
+    got = signed(packed)
+    torch.cuda.synchronize()
+    plain = ed._verify_packed(packed, signed=True)
+    torch.cuda.synchronize()
+    mismatches = int((got != plain).sum())
+    max_abs_err = int((got.to(torch.int32) - plain.to(torch.int32)).abs().max())
+    assert mismatches == 0, f"signed kernel disagrees with the signed plain version on {mismatches} lanes"
+    # the valid-signature class (s < L, h mod L): the unsigned verdicts too
+    accepted = unsigned(packed)
+    assert torch.equal(got[0::8], accepted[0::8]), "the instances part on valid lanes"
+    raw = torch.from_numpy(raw_carry_lanes(packed, accepted.cpu().tolist())).cuda()
+    raw_plain = ed._verify_packed(raw, signed=True)
+    raw_bad = int((signed(raw) != raw_plain).sum())
+    assert raw_bad == 0, f"signed kernel disagrees on {raw_bad} raw-carry lanes"
+    assert not raw_plain.any() and unsigned(raw).all(), "the raw-carry lanes do not part the instances"
+    tails = {}
+    for n in TAIL_LANES:
+        part = packed[:, :n].contiguous()
+        bad = int((signed(part) != plain[:n]).sum())
+        assert bad == 0, f"signed kernel disagrees with the signed plain version on {bad} of the first {n} lanes"
+        tails[n] = {"mismatches": bad, "ms": graph_ms(lambda: signed(part)),
+                    "call_ms": cuda_ms(lambda: signed(part), 7)}
+    wide = packed.repeat(1, WIDE_FACTOR).contiguous()
+    wide_bad = int((signed(wide) != plain.repeat(WIDE_FACTOR)).sum())
+    assert wide_bad == 0, f"signed kernel disagrees with the signed plain version on {wide_bad} wide lanes"
+    # both instances on the same lanes, in turns: unsigned, signed, signed, unsigned
+    turns = {}
+    for p, reps in ((packed, 5), (wide, 3)):
+        ms = [graph_ms(lambda: fn(p), reps=reps) for fn in (unsigned, signed, signed, unsigned)]
+        turns[p.shape[1]] = {"unsigned_ms": [ms[0], ms[3]], "signed_ms": [ms[1], ms[2]],
+                             "signed_over_unsigned": (ms[1] + ms[2]) / (ms[0] + ms[3])}
+    call_ms = cuda_ms(lambda: signed(packed), 7)
+    plain_ms = cuda_ms(lambda: ed._verify_packed(packed, signed=True), 3)
+    imads = FIELD_MULS_PER_VERIFY_SIGNED * IMAD_PER_FIELD_MUL + FIELD_SQRS_PER_VERIFY * IMAD_PER_FIELD_SQR
+    ops_s = LANES * imads / H100_IMAD_PER_S
+    bytes_s = (packed.numel() + LANES) / H100_BYTES_PER_S
+    row = {
+        "name": "ed25519_verify_signed",
+        "route": "cuda",
+        "source": "stellar_tpu_torch/csrc/ed25519_verify.cu",
+        "replaces": "stellar_tpu/ops/ed25519_pallas.py:171",
+        "lanes": LANES,
+        "mismatches": mismatches,
+        "max_abs_err": max_abs_err,
+        "ms": statistics.median(turns[LANES]["signed_ms"]),
+        "call_ms": call_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": 1e3 * max(ops_s, bytes_s),
+        "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+        "library_ms": None,
+    }
+    emit({"phase": "kernels", **row, "signed": True, "raw_carry_lanes": int(raw.shape[1]),
+          "raw_carry_mismatches": raw_bad, "tails": tails, "wide_lanes": wide.shape[1],
+          "wide_mismatches": wide_bad, "turns": turns,
+          "residency": {"unsigned": ec.residency(False), "signed": ec.residency(True)}})
     return row
 
 
@@ -792,7 +913,7 @@ def phase_main(fx, rng, loads, device_hash=False):
     backend = make_backend("gpu", cache=VerifySigCache(), tracer=tracer, device_hash=device_hash)
     phase = "main_path_device_hash" if device_hash else "main_path"
     results = []
-    ec.launches = sc.launches = 0
+    ec.launches = ec.signed_launches = sc.launches = 0
     ed.plain_calls = tsha.plain_calls = 0
     for name, caller, items, want, run in loads(backend):
         before = (ec.launches, sc.launches)
@@ -826,6 +947,7 @@ def phase_main(fx, rng, loads, device_hash=False):
     else:
         assert launches["sha512_h"] == 0, "the host-hash path launched the SHA-512 kernel"
     assert plain_calls == {"ed25519": 0, "sha512": 0}, f"plain versions ran on the main path: {plain_calls}"
+    assert ec.signed_launches == 0, "the main path launched the signed instance with the knob off"
     assert stats["device_hash"] is device_hash, stats["device_hash"]
     for key in ("cpu_cutover_items", "host_assist_items"):
         assert stats[key] == 0, f"{key} = {stats[key]}: items left the device"
@@ -1318,14 +1440,14 @@ def _node_counts(reset=False):
     from stellar_tpu_torch.ops import sha512_cuda as sc
 
     if reset:
-        ec.launches = sc.launches = c256.launches = 0
+        ec.launches = ec.signed_launches = sc.launches = c256.launches = 0
         ed.plain_calls = tsha.plain_calls = t256.plain_calls = 0
         keys.reset_stats()
         keys.PubKeyUtils.clear_verify_sig_cache()
         return None
     return {
-        "launches": {"ed25519_verify": ec.launches, "sha512_h": sc.launches,
-                     "sha256_frames": c256.launches},
+        "launches": {"ed25519_verify": ec.launches, "ed25519_verify_signed": ec.signed_launches,
+                     "sha512_h": sc.launches, "sha256_frames": c256.launches},
         "plain_calls": {"ed25519": ed.plain_calls, "sha512": tsha.plain_calls,
                         "sha256": t256.plain_calls},
         "eager_ref_verifies": keys.stats()["eager_ref_verifies"],
@@ -1340,8 +1462,9 @@ def _stalls(stats):
             + sum(stats["wedge_latch_flips"].values()))
 
 
-def node_close_leg(load, tmp, leg, device, device_hash, untimed_close, **knobs):
-    """One standalone validator: the account ledgers, NODE_ROUNDS timed
+def node_close_leg(load, tmp, leg, device, device_hash, untimed_close, rounds=NODE_ROUNDS,
+                   **knobs):
+    """One standalone validator: the account ledgers, ``rounds`` timed
     closes (``TxSetFrame.check_valid`` + ``LedgerManager.close_ledger``, on
     the card the next round registered as the close pipeline's prewarm
     candidate, as bench.py times them), and the untimed extra close when
@@ -1394,20 +1517,20 @@ def node_close_leg(load, tmp, leg, device, device_hash, untimed_close, **knobs):
             up = []
         setup_s = time.perf_counter() - t_setup
         app.tracer.clear()
-        rounds = [load.frames(envs) for envs in load.rounds]
+        frames = [load.frames(envs) for envs in load.rounds]
         times = []
-        for r in range(NODE_ROUNDS):
-            ts, ok, t0 = check(rounds[r])
-            if device == "cuda" and r + 1 < NODE_ROUNDS + untimed_close:
-                app.close_pipeline.note_upcoming(rounds[r + 1])
+        for r in range(rounds):
+            ts, ok, t0 = check(frames[r])
+            if device == "cuda" and r + 1 < rounds + untimed_close:
+                app.close_pipeline.note_upcoming(frames[r + 1])
             commit(ts)
             times.append(time.perf_counter() - t0)
             assert ok == (r != NODE_BAD_ROUND), f"{leg}: payment round {r}'s txset check: {ok}"
-        bad_tx = rounds[NODE_BAD_ROUND][NODE_BAD_INDEX].get_result_code().name
+        bad_tx = frames[NODE_BAD_ROUND][NODE_BAD_INDEX].get_result_code().name
         spans = {name: agg["p50_ms"] for name, agg in app.tracer.aggregates().items()
                  if name.startswith(("close.", "sig.", "ledger.", "txset."))}
         if untimed_close:
-            ts, ok, _ = check(rounds[NODE_ROUNDS])
+            ts, ok, _ = check(frames[rounds])
             assert ok, f"{leg}: the untimed round is invalid"
             commit(ts)
         counts = _node_counts()
@@ -1445,12 +1568,16 @@ def phase_node_close(fx, tmp):
     card = node_close_leg(load, tmp, "card", "cuda", False, untimed_close=True)
     card_dh = node_close_leg(load, tmp, "card_device_hash", "cuda", True, untimed_close=True)
     meshes = node_close_mesh_legs(load, tmp, card)
-    plain = node_close_leg(load, tmp, "plain", "cpu", False, untimed_close=False)
-    n_timed = len(load.create_ledgers) + NODE_ROUNDS
+    signed = node_close_signed_leg(load, tmp, card)
+    plain = node_close_leg(load, tmp, "plain", "cpu", False, untimed_close=False,
+                           rounds=NODE_PLAIN_ROUNDS)
+    n_timed = len(load.create_ledgers) + NODE_PLAIN_ROUNDS
     assert card["ledger_hashes"] == card_dh["ledger_hashes"], "card legs disagree"
     assert card["ledger_hashes"][:n_timed] == plain["ledger_hashes"], "card and plain disagree"
     assert [ln["bad_tx"] for ln in (card, card_dh, plain)] == ["txBAD_AUTH"] * 3
     assert [ln["stalls"] for ln in (card, card_dh, plain)] == [0, 0, 0], "a dispatch stalled"
+    for line in (card, card_dh, *meshes):
+        assert line["launches"]["ed25519_verify_signed"] == 0, f"{line['leg']}: a signed launch"
     for line in (card, card_dh):
         assert line["launches"]["ed25519_verify"] > 0, f"{line['leg']}: no verify launch"
         assert line["plain_calls"] == {"ed25519": 0, "sha512": 0, "sha256": 0}, line["plain_calls"]
@@ -1461,10 +1588,32 @@ def phase_node_close(fx, tmp):
     assert plain["launches"]["ed25519_verify"] == 0 and plain["plain_calls"]["ed25519"] > 0
     emit({"phase": "node_close", "hashes_equal": True, "bad_tx": "txBAD_AUTH",
           "ledgers": len(card["ledger_hashes"]),
-          "p50_ms": {ln["leg"]: ln["p50_ms"] for ln in (card, card_dh, *meshes, plain)}})
+          "p50_ms": {ln["leg"]: ln["p50_ms"] for ln in (card, card_dh, *meshes, signed, plain)}})
     return {"ed25519_verify": card["launches"]["ed25519_verify"] + card_dh["launches"]["ed25519_verify"],
             "sha512_h": card_dh["launches"]["sha512_h"],
-            "mesh_ed25519_verify": sum(ln["launches"]["ed25519_verify"] for ln in meshes)}
+            "mesh_ed25519_verify": sum(ln["launches"]["ed25519_verify"] for ln in meshes),
+            "ed25519_verify_signed": signed["launches"]["ed25519_verify_signed"]}
+
+
+def node_close_signed_leg(load, tmp, card):
+    """``card_signed``: the card leg with the signed-digit windows, the
+    module constant ``_SIGNED_WIN`` set for the leg and restored after it.
+    Hash for hash with the card leg; every verify launch a signed one, no
+    plain call, 0 stalls."""
+    from stellar_tpu_torch.ops import ed25519 as ed
+
+    was = ed._SIGNED_WIN
+    ed._SIGNED_WIN = True
+    try:
+        leg = node_close_leg(load, tmp, "card_signed", "cuda", False, untimed_close=True)
+    finally:
+        ed._SIGNED_WIN = was
+    assert leg["ledger_hashes"] == card["ledger_hashes"], "card_signed disagrees with the card leg"
+    assert leg["launches"]["ed25519_verify"] == 0, f"card_signed reached the unsigned kernel: {leg['launches']}"
+    assert leg["launches"]["ed25519_verify_signed"] > 0, "card_signed never launched the signed kernel"
+    assert leg["plain_calls"] == {"ed25519": 0, "sha512": 0, "sha256": 0}, leg["plain_calls"]
+    assert leg["stalls"] == 0 and leg["bad_tx"] == "txBAD_AUTH" and leg["cpu_cutover_items"] == 0, leg
+    return leg
 
 
 def node_close_mesh_legs(load, tmp, card):
@@ -1830,11 +1979,14 @@ def main() -> int:
 
         floor_ms = launch_floor_ms()
         emit({"phase": "kernels", "name": "noop", "launch_floor_ms": floor_ms})
+        b1_row, b1_packed = phase_kernels(rng, ledger1[0])
         rows = [
-            phase_kernels(rng, ledger1[0]),
+            b1_row,
+            phase_kernel_signed(b1_packed),
             phase_kernel_sha512(rng, ledger1[0]),
             phase_kernel_sha256(frames, frame_len),
         ]
+        del b1_packed
 
         def sync(backend, items, caller):
             return backend.verify_batch(items, caller=caller)
@@ -1881,8 +2033,9 @@ def main() -> int:
         phase_fuzz(tmp)
 
     rows[0]["launches"] = launches["ed25519_verify"]
-    rows[1]["launches"] = dh_launches["sha512_h"]
-    rows[2]["launches"] = bucket_launches
+    rows[1]["launches"] = close_launches["ed25519_verify_signed"]
+    rows[2]["launches"] = dh_launches["sha512_h"]
+    rows[3]["launches"] = bucket_launches
     # each path's own count, set to 0 just before it and read just after
     rows[0]["launches_by_path"] = {"main_path": launches["ed25519_verify"],
                                    "mesh": mesh_launches["ed25519_verify"],
@@ -1890,10 +2043,11 @@ def main() -> int:
                                    "node_close_mesh": close_launches["mesh_ed25519_verify"],
                                    "node_consensus": consensus_launches["ed25519_verify"],
                                    "scenario_flood": flood_launches}
-    rows[1]["launches_by_path"] = {"main_path_device_hash": dh_launches["sha512_h"],
+    rows[1]["launches_by_path"] = {"node_close_signed": close_launches["ed25519_verify_signed"]}
+    rows[2]["launches_by_path"] = {"main_path_device_hash": dh_launches["sha512_h"],
                                    "mesh": mesh_launches["sha512_h"],
                                    "node_close": close_launches["sha512_h"]}
-    rows[2]["launches_by_path"] = {"bucket_hash": bucket_launches,
+    rows[3]["launches_by_path"] = {"bucket_hash": bucket_launches,
                                    "node_consensus": consensus_launches["sha256_frames"]}
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
             "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -21,8 +21,13 @@ kernels phase:
 On each shape both kernels' results must equal the plain version's; then
 each is timed by ``chip_smoke.graph_ms`` (launches captured in a CUDA graph,
 replayed between one event pair; median of ``--reps`` replays) in turns:
-baseline, change, change, baseline.  Prints one JSON line per shape, the
-ptxas report of both builds, and the nvidia-smi line.  For ``sha512_h`` it
+baseline, change, change, baseline.  For ``ed25519_verify`` a third side,
+``signed``, is this checkout's signed-digit instance (``verify_packed(p,
+signed=True)``, ``STELLAR_TPU_SIGNED_WINDOWS``), held against the signed
+plain version and timed in the same turns: baseline, change, signed,
+signed, change, baseline; its line gives the signed-over-unsigned ratio of
+this checkout beside the change-over-baseline speedup.  Prints one JSON line
+per shape, the ptxas report of both builds, and the nvidia-smi line.  For ``sha512_h`` it
 also prints, per shape, the cycle stamps of block 0's two warps at the
 kernel's phase boundaries (this checkout's source built with
 ``-DSHA512_H_STAMPS``; the phases are named in ``STAMPS``).
@@ -74,7 +79,8 @@ def ptxas_of(mod):
 
 
 def verify_sides(base, packed):
-    """(baseline, change, plain, shapes) of the verify kernel."""
+    """(baseline, change, plain, shapes, extra sides) of the verify kernel;
+    the extra side is the signed instance with its own plain verdicts."""
     import torch
 
     from stellar_tpu_torch.ops import ed25519 as ed
@@ -93,8 +99,10 @@ def verify_sides(base, packed):
         assert err == 0, f"baseline launch failed ({err})"
         return out.view(torch.bool)
 
-    plain = ed._verify_packed(packed)
-    return run_base, ec.verify_packed, plain, (chip_smoke.LANES, *chip_smoke.TAIL_LANES)
+    plain = ed._verify_packed(packed, signed=False)
+    signed = (lambda p: ec.verify_packed(p, signed=True), ed._verify_packed(packed, signed=True))
+    return (run_base, lambda p: ec.verify_packed(p, signed=False), plain,
+            (chip_smoke.LANES, *chip_smoke.TAIL_LANES), {"signed": signed})
 
 
 def sha512_sides(base, packed):
@@ -115,7 +123,7 @@ def sha512_sides(base, packed):
         return out
 
     plain = tsha.h_rows_from_packed(packed).to(torch.uint8)
-    return run_base, sc.h_rows, plain, (chip_smoke.LANES, chip_smoke.TAIL_LANES[0])
+    return run_base, sc.h_rows, plain, (chip_smoke.LANES, chip_smoke.TAIL_LANES[0]), {}
 
 
 def sha512_stamps(out_dir, shapes):
@@ -177,26 +185,36 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         base, base_ptxas = build(args.baseline, tmp, f"{args.kernel}_baseline")
         new_ptxas = ptxas_of(mod)
-        run_base, run_change, plain, widths = sides(base, packed)
+        run_base, run_change, plain, widths, extra = sides(base, packed)
         shapes = {n: packed[:, :n].contiguous() for n in widths}
         wide = chip_smoke.LANES * chip_smoke.WIDE_FACTOR
         shapes[wide] = packed.repeat(1, chip_smoke.WIDE_FACTOR).contiguous()
+
+        def cut(v, n):
+            return v.repeat(*(1,) * (v.dim() - 1), chip_smoke.WIDE_FACTOR) if n == wide else v[..., :n]
+
         for n, p in shapes.items():
-            want = plain.repeat(*(1,) * (plain.dim() - 1), chip_smoke.WIDE_FACTOR) if n == wide else plain[..., :n]
             bad = {}
-            for side, fn in (("baseline", run_base), ("change", run_change)):
+            checks = [("baseline", run_base, plain), ("change", run_change, plain)]
+            checks += [(side, fn, want) for side, (fn, want) in extra.items()]
+            for side, fn, want in checks:
                 got = fn(p)
                 torch.cuda.synchronize()
-                diff = got != want
+                diff = got != cut(want, n)
                 bad[side] = int((diff.any(dim=0) if diff.dim() == 2 else diff).sum())
-            assert bad == {"baseline": 0, "change": 0}, (n, bad)
-            turns = [chip_smoke.graph_ms(lambda: fn(p), reps=args.reps)
-                     for fn in (run_base, run_change, run_change, run_base)]
-            print(json.dumps({
+            assert not any(bad.values()), (n, bad)
+            order = [run_base, run_change, *(fn for fn, _ in extra.values())]
+            order += order[::-1]
+            turns = [chip_smoke.graph_ms(lambda: fn(p), reps=args.reps) for fn in order]
+            line = {
                 "kernel": args.kernel, "lanes": n, "mismatches": bad,
-                "baseline_ms": [turns[0], turns[3]], "change_ms": [turns[1], turns[2]],
-                "speedup": (turns[0] + turns[3]) / (turns[1] + turns[2]),
-            }), flush=True)
+                "baseline_ms": [turns[0], turns[-1]], "change_ms": [turns[1], turns[-2]],
+                "speedup": (turns[0] + turns[-1]) / (turns[1] + turns[-2]),
+            }
+            for k, side in enumerate(extra, start=2):
+                line[f"{side}_ms"] = [turns[k], turns[-1 - k]]
+                line[f"{side}_over_change"] = (turns[k] + turns[-1 - k]) / (turns[1] + turns[-2])
+            print(json.dumps(line), flush=True)
         if args.kernel == "sha512_h":
             for n, stamps in sha512_stamps(tmp, shapes).items():
                 print(json.dumps({"kernel": args.kernel, "lanes": n, "stamps": stamps}), flush=True)

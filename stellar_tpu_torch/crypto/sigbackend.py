@@ -399,7 +399,10 @@ class GpuSigBackend(SigBackend):
     ``device_hash`` (the JAX package's ``Config.DEVICE_HASH``; None defers
     to ``STELLAR_TPU_DEVICE_HASH``, default off) moves the SHA-512 mod L of
     single-block messages onto the card, fused ahead of the verify kernel
-    (``BatchVerifier``).
+    (``BatchVerifier``).  ``native_hash`` (None defers to
+    ``STELLAR_TPU_NATIVE_SIGHASH``) picks the C host stage or, when False,
+    the Python one, reported as ``stats()["native_host_stage"]``;
+    ``streams`` None defers to ``STELLAR_TPU_VERIFY_STREAMS``.
 
     ``device="cpu"`` runs the kernel's plain PyTorch version instead (the
     tests); without CUDA and without ``device="cpu"`` construction raises.
@@ -429,8 +432,9 @@ class GpuSigBackend(SigBackend):
         mesh=None,
         sig_mesh=0,
         cpu_cutover: int = DEFAULT_GPU_CPU_CUTOVER,
-        streams: int = 1,
+        streams: Optional[int] = None,
         device=None,
+        native_hash: Optional[bool] = None,
         device_hash: Optional[bool] = None,
         tracer=None,
     ):
@@ -452,6 +456,7 @@ class GpuSigBackend(SigBackend):
             mesh=mesh,
             device=device,
             streams=streams,
+            native_hash=native_hash,
             device_hash=device_hash,
             tracer=tracer,
         )

@@ -2,8 +2,11 @@
 //
 // Replaces the TPU kernel stellar_tpu/ops/ed25519_pallas.py::
 // verify_kernel_pallas (and computes what its XLA twin
-// stellar_tpu/ops/ed25519.py::verify_kernel computes).  The plain PyTorch
-// version beside it is stellar_tpu_torch/ops/ed25519.py::_verify_packed;
+// stellar_tpu/ops/ed25519.py::verify_kernel computes), in two instances of
+// one template: unsigned 4-bit windows (signed=False, the default) and the
+// signed-digit windows of verify_kernel_pallas(signed=True), which
+// STELLAR_TPU_SIGNED_WINDOWS picks.  The plain PyTorch version beside it is
+// stellar_tpu_torch/ops/ed25519.py::_verify_packed (its ``signed`` flag);
 // the wrapper is stellar_tpu_torch/ops/ed25519_cuda.py.
 //
 // Input: the packed (128, N) uint8 staging chunk, one lane per column —
@@ -13,7 +16,13 @@
 // version's verdict too: y >= p decodes as the 255-bit value mod p, s >= L
 // runs unsigned 4-bit windows over all 256 bits (the modular result), an
 // undecompressable A fails, and torsion-proof lanes (A := P, s := 0,
-// h := L, R := identity encoding) compute [L]·P.
+// h := L, R := identity encoding) compute [L]·P.  The signed instance
+// recodes s and h as the JAX kernel does and drops the carry out of window
+// 63 as it does, so a raw scalar >= 0x77…78 (about 2^254.9; every s in
+// [8L, 2^256)) is taken as v − 2^256: it rejects such lanes where the
+// unsigned instance accepts, as verify_kernel_pallas(signed=True) does.
+// No lane that passes the gate (s < L) or carries h mod L, and no torsion
+// lane (h = L < 2^253), gets another verdict from the two instances.
 //
 // Bound: 3498 field operations per verify, counted from the JAX kernel's
 // algorithm (the work any implementation of it does, whatever this one
@@ -24,12 +33,17 @@
 //   - decompress: 255S + 18M (pow_p58's chain 251S + 11M), not counting
 //     the √−1 fix-up, which only some lanes take;
 //   - compress: 254S + 13M (the Fermat inversion 254S + 11M, then X/Z, Y/Z).
+// The signed instance's algorithm builds the table to k = 8 only: 72M (7
+// general adds of 9M, 8 × 2d·T, −A's T), so 1533 squarings and 1895
+// multiplications, 3428 field operations; its windows are the same 64 ×
+// (16S + 28M) (a select's negation is an addition, not counted).
 // As 32-bit integer multiply-adds (IMAD, low and high half each) on a
 // 255-bit value held in 8 words: a product is 8×8 word products, 128
 // IMADs; a squaring 36 distinct word products, 72 IMADs; the reduction
 // folds the 8 high words ×38 into the low 8, 16 IMADs more.  So 144 per
 // multiplication and 88 per squaring, 417,864 IMADs per verify; additions
-// and carries are not counted, so this stays a lower bound.  On an H100
+// and carries are not counted, so this stays a lower bound (407,784 for
+// the signed instance).  On an H100
 // SXM (132 SMs × 64 INT32 lanes × 1.98 GHz ≈ 16.7e12 IMAD/s) that is
 // ≈ 25 ns per verify — the kernel is bound by integer operations; its
 // 129 bytes per lane are ~1e-3 of that time at 3.35 TB/s.  chip_smoke.py
@@ -61,7 +75,16 @@
 //   32 banks; the [thread][k][limb] order would put a warp's reads of one
 //   limb 160 words apart, on one bank).  64 threads × 640 B = 40 KB, plus
 //   the fixed-base table (2.5 KB), stays under the 48 KB of static shared
-//   memory;
+//   memory.  The signed instance keeps k = 0..8: 64 × 360 B = 22.5 KB plus
+//   1.4 KB of the fixed-base table, 24,600 B a block against 43,640;
+// - signed digits: s and h are recoded in registers (a 256-bit add of
+//   0x88…88, digit = nibble − 8, recode_signed), and a negative digit
+//   negates the niels entry at the select with no shuffle: in the
+//   [k][limb][thread] layout thread r holds component r, so threads 0 and
+//   1 read their partner's slot (t ^ 1 in the table, component r ^ 1 of the
+//   fixed-base entry), swapping y+x and y−x, and thread 2 negates its
+//   2d·t.  A __syncwarp after the table build orders the partner's writes
+//   before those reads;
 // - no inversion of Z.  The group's odd threads decode R while its even
 //   threads decode A (one instruction stream on other data), and the
 //   verdict is
@@ -79,12 +102,11 @@
 // - field elements stay 10 signed 32-bit limbs in radix 2^25.5 (ref10's
 //   layout), products 32x32->64 multiply-adds summed in int64, every
 //   add/sub carried back to limbs < 2^26 so product columns stay far below
-//   2^63; unsigned 4-bit windows (signed digits would need a 65th digit
-//   for raw lanes with s >= 2^253); the fixed-base table of k·B comes from
-//   the wrapper (built from the port's ref25519) into shared memory.
-// Serial chain per lane: ~273 products (decode) + ~45 (table) + 768 (64
-// windows × 12) + 1, against 3498 field operations in the one-thread
-// design.
+//   2^63; the fixed-base table of k·B comes from the wrapper (built from
+//   the port's ref25519) into shared memory.
+// Serial chain per lane: ~273 products (decode) + ~45 (table; ~24 for
+// the signed instance) + 768 (64 windows × 12) + 1, against 3498 field
+// operations in the one-thread design.
 //
 // What is still left on the table.  At 4096 lanes each scheduler runs at
 // most one warp, and a stage issues several hundred instructions a thread
@@ -97,8 +119,16 @@
 // Left: fewer instructions a stage (operands of a product left uncarried, a
 // signed select-and-add in place of four additions); the two even threads
 // both decoding A; the 10-limb schoolbook product (100 IMAD.WIDE where
-// 64-bit limbs or tensor cores need fewer); signed windows (half the
-// table).
+// 64-bit limbs or tensor cores need fewer).
+//
+// Residency (64-thread blocks; ptxas -v and ed25519_residency() on an H100
+// SXM, printed by chip_smoke.py's build and kernels phases): both
+// instances use 168 registers a thread, 0 spills.  The unsigned one's
+// 43,640 B of shared memory allow 5 blocks an SM (registers would allow
+// 6): shared memory binds.  The signed one's 24,600 B would allow 9, the
+// registers 6: registers bind.  At 4096 lanes (256 blocks, about 2 an SM)
+// neither limit is reached; at 32768 lanes the 6 blocks against 5 show in
+// the time (PERF.md §6).
 
 
 #include <cuda_runtime.h>
@@ -416,15 +446,36 @@ __device__ __forceinline__ void load_words(const uint8_t *__restrict__ p, int n,
 constexpr int kBaseInts = 16 * 4 * 10;
 constexpr int kConstInts = kBaseInts + 3 * 10;
 
+// Signed-digit recode of a 256-bit scalar in place: digit t becomes nibble
+// t − 8 of w + 0x88…88, in [−8, 7].  The nibble of the sum is n_t + 8 + c_t
+// mod 16 with the carry c_{t+1} = (n_t + c_t >= 8), which is the JAX
+// kernel's loop d = n_t + c_t, c_{t+1} = d >= 8, d −= 16·c_{t+1}
+// (ed25519_pallas.py:138-145) in closed form; the carry out of bit 255 is
+// dropped, as there.
+__device__ __forceinline__ void recode_signed(uint64_t w[4]) {
+    const uint64_t k8 = 0x8888888888888888ull;
+    uint64_t c = 0;
+#pragma unroll
+    for (int k = 0; k < 4; k++) {
+        const uint64_t a = w[k] + k8;
+        const uint64_t b = a + c;
+        c = (uint64_t)(a < k8) | (uint64_t)(b < a);
+        w[k] = b;
+    }
+}
+
 // Lane i = blockIdx.x · (blockDim.x / 4) + threadIdx.x / 4; blockDim.x is a
-// multiple of 4 and at most kThreads.
+// multiple of 4 and at most kThreads.  kSigned: the signed-digit windows of
+// verify_kernel_pallas(signed=True), tables of k = 0..8 (module note).
+template <bool kSigned = false>
 __global__ void __launch_bounds__(kThreads)
 ed25519_verify_kernel(const uint8_t *__restrict__ p, uint8_t *__restrict__ out,
                       int n, const int32_t *__restrict__ consts) {
-    __shared__ int32_t base[kBaseInts];
+    constexpr int kTab = kSigned ? 9 : 16;  // table entries k = 0..kTab−1
+    __shared__ int32_t base[kTab * 4 * 10];
     __shared__ int32_t cst[30];
-    __shared__ int32_t tab[16 * 10 * kThreads];  // [k][limb][thread]
-    for (int k = threadIdx.x; k < kBaseInts; k += blockDim.x) base[k] = consts[k];
+    __shared__ int32_t tab[kTab * 10 * kThreads];  // [k][limb][thread]
+    for (int k = threadIdx.x; k < kTab * 4 * 10; k += blockDim.x) base[k] = consts[k];
     for (int k = threadIdx.x; k < 30; k += blockDim.x) cst[k] = consts[kBaseInts + k];
     __syncthreads();
 
@@ -461,7 +512,7 @@ ed25519_verify_kernel(const uint8_t *__restrict__ p, uint8_t *__restrict__ out,
     q.T = fe_neg(fe_mul(xa, ya));
     const Fe na = fe_sel4(r, fe_sub(ya, xa), fe_add(ya, xa), fe_mul(q.T, D2), fe_small(2));
 
-    // the table k·(−A), k = 0..15: this thread's component of each entry
+    // the table k·(−A), k = 0..kTab−1: this thread's component of each entry
     const Fe ident = fe_small(r == 2 ? 0 : r == 3 ? 2 : 1);
 #pragma unroll
     for (int k = 0; k < 10; k++) {
@@ -469,18 +520,25 @@ ed25519_verify_kernel(const uint8_t *__restrict__ p, uint8_t *__restrict__ out,
         tab[(1 * 10 + k) * kThreads + t] = na.v[k];
     }
 #pragma unroll 1
-    for (int e = 2; e < 16; e++) {
+    for (int e = 2; e < kTab; e++) {
         q = pt_add_niels(r, q, na);
         const Fe c = fe_sel4(r, fe_add(q.Y, q.X), fe_sub(q.Y, q.X), fe_mul(q.T, D2),
                              fe_add(q.Z, q.Z));
 #pragma unroll
         for (int k = 0; k < 10; k++) tab[(e * 10 + k) * kThreads + t] = c.v[k];
     }
+    // a negative digit makes threads 0 and 1 read each other's slots
+    if constexpr (kSigned) __syncwarp();
 
-    // Straus: P = s·B + h·(−A), 4-bit unsigned windows from the top
+    // Straus: P = s·B + h·(−A), 4-bit windows from the top (unsigned
+    // nibbles, or signed digits recoded in place)
     uint64_t sw[4], hw[4];
     load_words(p, n, i, 64, sw);
     load_words(p, n, i, 96, hw);
+    if constexpr (kSigned) {
+        recode_signed(sw);
+        recode_signed(hw);
+    }
     Pt acc;  // the identity
     acc.X = fe_small(0);
     acc.Y = fe_small(1);
@@ -496,10 +554,28 @@ ed25519_verify_kernel(const uint8_t *__restrict__ p, uint8_t *__restrict__ out,
         const int s_nib = (int)((sw[win >> 4] >> sh) & 15);
         const int h_nib = (int)((hw[win >> 4] >> sh) & 15);
         Fe nb, nh;
+        if constexpr (kSigned) {
+            // digit d = nibble − 8: entry |d|, negated for d < 0 — y+x and
+            // y−x trade places (threads 0 and 1 read the partner's
+            // component) and thread 2 negates its 2d·t
+            const int s_d = s_nib - 8, h_d = h_nib - 8;
+            const bool s_neg = s_d < 0, h_neg = h_d < 0;
+            const int s_k = s_neg ? -s_d : s_d, h_k = h_neg ? -h_d : h_d;
+            const int rs = (s_neg && r < 2) ? r ^ 1 : r;
+            const int th = (h_neg && r < 2) ? t ^ 1 : t;
 #pragma unroll
-        for (int k = 0; k < 10; k++) {
-            nb.v[k] = base[(s_nib * 4 + r) * 10 + k];
-            nh.v[k] = tab[(h_nib * 10 + k) * kThreads + t];
+            for (int k = 0; k < 10; k++) {
+                nb.v[k] = base[(s_k * 4 + rs) * 10 + k];
+                nh.v[k] = tab[(h_k * 10 + k) * kThreads + th];
+            }
+            nb = fe_sel(s_neg && r == 2, fe_neg(nb), nb);
+            nh = fe_sel(h_neg && r == 2, fe_neg(nh), nh);
+        } else {
+#pragma unroll
+            for (int k = 0; k < 10; k++) {
+                nb.v[k] = base[(s_nib * 4 + r) * 10 + k];
+                nh.v[k] = tab[(h_nib * 10 + k) * kThreads + t];
+            }
         }
         acc = pt_add_niels(r, acc, nb);
         acc = pt_add_niels(r, acc, nh);
@@ -514,17 +590,60 @@ ed25519_verify_kernel(const uint8_t *__restrict__ p, uint8_t *__restrict__ out,
 
 }  // namespace
 
+template <bool kSigned>
+static int launch(const void *packed, void *out, int n, const void *consts, void *stream) {
+    if (n <= 0) return 0;
+    const long long threads = (long long)kGroup * n;
+    const int blocks = (int)((threads + kThreads - 1) / kThreads);
+    ed25519_verify_kernel<kSigned><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint8_t *)packed, (uint8_t *)out, n, (const int32_t *)consts);
+    return (int)cudaGetLastError();
+}
+
 // Launch over n lanes of the packed (128, n) chunk on `stream`: 4 threads
 // a lane, kThreads a block.  Returns cudaGetLastError() (0 on success).
 // Allocates nothing, does not sync.
 extern "C" int ed25519_verify_launch(const void *packed, void *out, int n,
                                      const void *consts, void *stream) {
-    if (n <= 0) return 0;
-    const long long threads = (long long)kGroup * n;
-    const int blocks = (int)((threads + kThreads - 1) / kThreads);
-    ed25519_verify_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t *)packed, (uint8_t *)out, n, (const int32_t *)consts);
-    return (int)cudaGetLastError();
+    return launch<false>(packed, out, n, consts, stream);
+}
+
+// The same over the signed-digit instance (STELLAR_TPU_SIGNED_WINDOWS).
+extern "C" int ed25519_verify_signed_launch(const void *packed, void *out, int n,
+                                            const void *consts, void *stream) {
+    return launch<true>(packed, out, n, consts, stream);
+}
+
+// Residency of one instance on the current device, from the runtime:
+// info = {registers a thread, static shared bytes a block, local bytes a
+// thread, resident blocks an SM (the occupancy calculator), blocks an SM
+// that shared memory alone allows, blocks an SM that registers alone
+// allow}.  Returns the first CUDA error, 0 on success.
+extern "C" int ed25519_residency(int signed_windows, int *info) {
+    const void *fn = signed_windows ? (const void *)ed25519_verify_kernel<true>
+                                    : (const void *)ed25519_verify_kernel<false>;
+    cudaFuncAttributes a;
+    cudaError_t err = cudaFuncGetAttributes(&a, fn);
+    int dev = 0, blocks = 0, smem_sm = 0, regs_sm = 0, reserved = 0;
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, 0);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&regs_sm, cudaDevAttrMaxRegistersPerMultiprocessor, dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+    if (err != cudaSuccess) return (int)err;
+    // registers are allocated a warp at a time, in units of 256
+    const int warp_regs = (a.numRegs * 32 + 255) / 256 * 256;
+    info[0] = a.numRegs;
+    info[1] = (int)a.sharedSizeBytes;
+    info[2] = (int)a.localSizeBytes;
+    info[3] = blocks;
+    info[4] = smem_sm / ((int)a.sharedSizeBytes + reserved);
+    info[5] = regs_sm / (warp_regs * (kThreads / 32));
+    return 0;
 }
 
 extern "C" int ed25519_const_ints(void) { return kConstInts; }

@@ -22,6 +22,7 @@ Verification semantics are bit-exact with libsodium
 
 from __future__ import annotations
 
+import hashlib
 import os
 import threading
 import time
@@ -46,6 +47,14 @@ _SQRT_M1_FE = fe.const_fe(SQRT_M1)
 
 WINDOWS = 64  # 4-bit windows over 256-bit scalars
 PIPELINE_DEPTH = 2  # max in-flight device chunks in BatchVerifier.verify
+
+# Signed-digit windows (the JAX package's ``ed25519_pallas._SIGNED_WIN``):
+# recode both scalars' radix-16 digits to [-8, 7] with a carry, so the
+# tables need only k = 0..8 and a select negates the entry for d < 0.  Read
+# at import; the verify wrappers read it at each call when no ``signed`` is
+# given.
+_SIGNED_WIN = os.environ.get("STELLAR_TPU_SIGNED_WINDOWS", "0") != "0"
+SIGNED_ENTRIES = 9  # table entries k = 0..8 of the signed windows
 
 
 # ---------------------------------------------------------------------------
@@ -201,25 +210,62 @@ def _select_base(nib):
 
 
 def _select_dyn(table, nib):
-    """table: tuple of 4 arrays (20, 16, N); nib (N,)."""
+    """table: tuple of 4 arrays (20, entries, N); nib (N,)."""
     idx = nib.long()[None, None, :].expand(fe.LIMBS, 1, nib.shape[0])
     return tuple(torch.gather(t, 1, idx)[:, 0] for t in table)
 
 
-def _build_a_table(neg_a):
-    """niels table of k*(-A) for k=0..15: tuple of 4 arrays (20, 16, N).
+def _negate_niels_where(n, neg):
+    """Niels entry n, negated on the lanes where ``neg`` (N,) holds:
+    -(x, y) = (-x, y) swaps y+x and y-x and negates 2d·t; 2z stays."""
+    ypx, ymx, t2d, z2 = n
+    m = neg[None]
+    return (torch.where(m, ymx, ypx), torch.where(m, ypx, ymx),
+            torch.where(m, fe.neg(t2d), t2d), z2)
 
-    Sequential adds, then the niels conversion vectorized across all 16
+
+def _select_base_signed(d):
+    """d (N,) in [-8, 7] -> niels of d·B: entry |d| of the base table,
+    negated where d < 0."""
+    return _negate_niels_where(_select_base(d.abs()), d < 0)
+
+
+def _select_dyn_signed(table, d):
+    """d (N,) in [-8, 7] -> niels of d·(-A) from the k = 0..8 table."""
+    return _negate_niels_where(_select_dyn(table, d.abs()), d < 0)
+
+
+def _recode_signed(nibs):
+    """(64, N) little-endian nibbles in [0, 16) -> digits in [-8, 7] of the
+    same scalar (the JAX kernel's loop, ``ed25519_pallas.py:138-145``):
+    d = nib + carry; carry = d >= 8; d -= carry << 4.  The carry out of
+    window 63 is dropped, so the digits sum to v - c64·2^256, where c64 is
+    1 iff v >= 2^256 - 0x88…88 = 0x77…78 (about 2^254.9): v itself for
+    every gated s and every h mod L, both < L < 2^253."""
+    out = torch.empty_like(nibs)
+    carry = torch.zeros_like(nibs[0])
+    for t in range(WINDOWS):
+        d = nibs[t] + carry
+        carry = (d >= 8).to(nibs.dtype)
+        out[t] = d - (carry << 4)
+    return out
+
+
+def _build_a_table(neg_a, entries: int = 16):
+    """niels table of k*(-A) for k=0..entries-1: tuple of 4 arrays
+    (20, entries, N).
+
+    Sequential adds, then the niels conversion vectorized across all the
     entries at once (fe ops are shape-polymorphic in the trailing dims)."""
     n = neg_a[0].shape[1]
     ident = point_identity(n, device=neg_a[0].device)
     mults = [ident]
     p = ident
-    for _ in range(15):
+    for _ in range(entries - 1):
         p = point_add(p, neg_a)
         mults.append(p)
     full = tuple(torch.stack([m[c] for m in mults], dim=1) for c in range(4))
-    return to_niels(full)  # each (20, 16, N)
+    return to_niels(full)  # each (20, entries, N)
 
 
 # ---------------------------------------------------------------------------
@@ -227,13 +273,16 @@ def _build_a_table(neg_a):
 # ---------------------------------------------------------------------------
 
 
-def verify_kernel(a_bytes, r_bytes, s_nibs, h_nibs):
+def verify_kernel(a_bytes, r_bytes, s_nibs, h_nibs, signed=False):
     """All-device batched check R' == R.
 
     a_bytes   (32,N) int32 — public key A bytes (little-endian, sign bit 255)
     r_bytes   (32,N) int32 — signature R bytes (to compare against)
     s_nibs    (64,N) int32 — s scalar nibbles, little-endian
     h_nibs    (64,N) int32 — h = SHA512(R‖A‖M) mod L nibbles, little-endian
+    signed    the signed-digit windows of ``verify_kernel_pallas(signed=
+              True)``: both scalars recoded to [-8, 7] (``_recode_signed``,
+              which drops the carry out of window 63), tables of k = 0..8
     returns   (N,) bool
     """
     a_sign = a_bytes[31] >> 7
@@ -241,7 +290,13 @@ def verify_kernel(a_bytes, r_bytes, s_nibs, h_nibs):
     a_y_limbs = fe.limbs_from_bytes(a_masked)
     a_pt, fail = decompress(a_y_limbs, a_sign)
     neg_a = point_negate(a_pt)
-    a_table = _build_a_table(neg_a)
+    if signed:
+        a_table = _build_a_table(neg_a, SIGNED_ENTRIES)
+        s_nibs, h_nibs = _recode_signed(s_nibs), _recode_signed(h_nibs)
+        sel_base, sel_dyn = _select_base_signed, _select_dyn_signed
+    else:
+        a_table = _build_a_table(neg_a)
+        sel_base, sel_dyn = _select_base, _select_dyn
 
     acc = point_identity(a_bytes.shape[1], device=a_bytes.device)
     for i in range(WINDOWS):
@@ -250,9 +305,9 @@ def verify_kernel(a_bytes, r_bytes, s_nibs, h_nibs):
             # only the last double feeds an addition, which is the sole
             # consumer of T — the first three skip the E·H multiply
             acc = point_double(acc, need_t=(k == 3))
-        acc = point_add_niels(acc, _select_base(s_nibs[t]))
+        acc = point_add_niels(acc, sel_base(s_nibs[t]))
         # the next consumer is the following window's doubling: no T needed
-        acc = point_add_niels(acc, _select_dyn(a_table, h_nibs[t]), need_t=False)
+        acc = point_add_niels(acc, sel_dyn(a_table, h_nibs[t]), need_t=False)
     enc = compress(acc)
     match = torch.all(enc == r_bytes, dim=0)
     return match & ~fail
@@ -270,18 +325,20 @@ plain_calls = 0
 _plain_lock = threading.Lock()
 
 
-def _verify_packed(p):
+def _verify_packed(p, signed=None):
     """verify_kernel over the packed (128, N) uint8 staging layout
-    (rows 0:32 A, 32:64 R, 64:96 s, 96:128 h) -> (N,) bool."""
+    (rows 0:32 A, 32:64 R, 64:96 s, 96:128 h) -> (N,) bool.  ``signed``
+    None reads ``_SIGNED_WIN``."""
     global plain_calls
     with _plain_lock:
         plain_calls += 1
     a = p[0:32].to(torch.int32)
     r = p[32:64].to(torch.int32)
-    return verify_kernel(a, r, _nibbles(p[64:96]), _nibbles(p[96:128]))
+    return verify_kernel(a, r, _nibbles(p[64:96]), _nibbles(p[96:128]),
+                         signed=_SIGNED_WIN if signed is None else signed)
 
 
-def _verify_packed_device_hash(p):
+def _verify_packed_device_hash(p, signed=None):
     """The device-hash pair over the packed (160, N) uint8 layout
     (``ops/sha512.py``): h = SHA-512(R‖A‖M) mod L from the raw rows (flag=0
     lanes keep their host h), then verify_kernel -> (N,) bool."""
@@ -291,7 +348,8 @@ def _verify_packed_device_hash(p):
     h = sha512.h_rows_from_packed(p)
     a = p[0:32].to(torch.int32)
     r = p[32:64].to(torch.int32)
-    return verify_kernel(a, r, _nibbles(p[64:96]), _nibbles(h))
+    return verify_kernel(a, r, _nibbles(p[64:96]), _nibbles(h),
+                         signed=_SIGNED_WIN if signed is None else signed)
 
 
 # ---------------------------------------------------------------------------
@@ -377,6 +435,18 @@ class BatchVerifier:
     live lane has a single-block message (flag 1).  Verdicts are the same
     either way.
 
+    The other knobs read the environment as the JAX package's verifier
+    does when their argument is None: ``native_hash`` (default
+    ``STELLAR_TPU_NATIVE_SIGHASH != "0"``) picks the C host stage, whose
+    failed build raises; False pins the Python stage (``_stage_py`` /
+    ``_stage_py_raw``, the same bytes).  ``STELLAR_TPU_SIGHASH_THREADS`` is
+    the C stage's thread count (junk reads 0, auto).  ``streams``
+    (``STELLAR_TPU_VERIFY_STREAMS``, default 1) and ``host_assist``
+    (``STELLAR_TPU_HOST_ASSIST``, default 0, junk 0, clamped to [0, 0.9]);
+    a host assist above 0 needs libsodium and raises ValueError where it
+    does not load.  ``STELLAR_TPU_SIGNED_WINDOWS`` (``_SIGNED_WIN``) picks
+    the signed-digit verify kernel at each launch.
+
     ``mesh`` (``parallel/mesh.py``) shards every chunk over its devices, as
     the JAX package's verifier does: a chunk of n lanes takes a bucket of
     ``_bucket(n)`` lanes (a multiple of the shard count k, which
@@ -395,8 +465,9 @@ class BatchVerifier:
         max_batch: int = 4096,
         mesh=None,
         device=None,
-        streams: int = 1,
-        host_assist: float = 0.0,
+        streams: Optional[int] = None,
+        host_assist: Optional[float] = None,
+        native_hash: Optional[bool] = None,
         device_hash: Optional[bool] = None,
         tracer=None,
     ):
@@ -434,17 +505,44 @@ class BatchVerifier:
             if self.device_hash:
                 sha512_cuda.load_library()
         # Host stage: the native C extension (gate + batch SHA-512 mod L +
-        # packed staging with the GIL released); a failed build raises
-        from .. import native as _native
+        # packed staging with the GIL released); a failed build raises.
+        # native_hash=False (or STELLAR_TPU_NATIVE_SIGHASH=0) pins the
+        # Python stage, as in the JAX package.
+        if native_hash is None:
+            native_hash = os.environ.get("STELLAR_TPU_NATIVE_SIGHASH", "1") != "0"
+        self._sighash = None
+        if native_hash:
+            from .. import native as _native
 
-        self._sighash = _native.load_sighash()
+            self._sighash = _native.load_sighash()
+        # the C stage's threads; 0 = auto (it fans out over its pool for
+        # large chunks)
+        try:
+            self._hash_threads = int(os.environ.get("STELLAR_TPU_SIGHASH_THREADS", "0") or 0)
+        except ValueError:
+            self._hash_threads = 0
         self._pool = _StagingPool(
             self.max_batch // self._granule, self._rows, pin=self.device.type == "cuda"
         )
+        if streams is None:
+            streams = int(os.environ.get("STELLAR_TPU_VERIFY_STREAMS", "1"))
+        if host_assist is None:
+            try:
+                host_assist = float(os.environ.get("STELLAR_TPU_HOST_ASSIST", "0") or 0.0)
+            except ValueError:
+                host_assist = 0.0
         # Fraction of each large batch peeled off to a concurrent libsodium
         # loop while device chunks upload/execute; results are identical by
         # construction.  0 disables.
         self.host_assist = min(0.9, max(0.0, host_assist))
+        if self.host_assist > 0.0:
+            from ..crypto import sodium
+
+            if not sodium.available():
+                raise ValueError(
+                    f"host_assist={self.host_assist} (STELLAR_TPU_HOST_ASSIST) verifies "
+                    "on the host with libsodium, which does not load here"
+                )
         # dispatch streams: stager threads that stage+upload+launch chunks
         # concurrently, each on its own CUDA stream (one a shard)
         self.streams = max(1, streams)
@@ -699,10 +797,78 @@ class BatchVerifier:
         return staged
 
     def _stage_into(self, items, start, n, packed, okbuf) -> int:
-        """One C host-stage pass (GIL released) into a (rows, n) pooled
-        view; returns the gate's rejects."""
+        """One host-stage pass into a (rows, n) pooled view, routed by
+        layout: the C stage (GIL released) unless ``native_hash`` pinned
+        the Python one; returns the gate's rejects."""
+        if self._sighash is None:
+            stage = self._stage_py_raw if self.device_hash else self._stage_py
+            return stage(items, start, n, packed.numpy(), okbuf)
         stage = self._sighash.stage_raw if self.device_hash else self._sighash.stage
-        return stage(items, start, n, packed.numpy(), okbuf, _BLACKLIST, 0)
+        return stage(items, start, n, packed.numpy(), okbuf, _BLACKLIST, self._hash_threads)
+
+    @staticmethod
+    def _gate_chunk(items, start, n, packed, okbuf, keep_rejected):
+        """The Python stage's common part: zero the (rows, n) view, run the
+        strict gate over the well-formed triples, and write A, R and s of
+        each lane that passes — and, with ``keep_rejected``, of each
+        well-formed lane that does not, as ``sighash.stage`` does.  Returns
+        the (lane, pk, msg, sig) of the lanes that pass; ``okbuf`` holds
+        the verdicts."""
+        chunk = [items[start + j] for j in range(n)]
+        ok = np.zeros(n, dtype=bool)
+        well = [j for j, it in enumerate(chunk) if len(it[-3]) == 32 and len(it[-1]) == 64]
+        packed[:, :n] = 0
+        passed = []
+        if well:
+            pk_arr = np.frombuffer(b"".join(chunk[j][-3] for j in well), dtype=np.uint8).reshape(-1, 32)
+            sig_arr = np.frombuffer(b"".join(chunk[j][-1] for j in well), dtype=np.uint8).reshape(-1, 64)
+            gate = ref.strict_input_ok_batch(pk_arr, sig_arr)
+            for k, j in enumerate(well):
+                if not (gate[k] or keep_rejected):
+                    continue
+                packed[0:32, j] = pk_arr[k]
+                packed[32:64, j] = sig_arr[k, :32]
+                packed[64:96, j] = sig_arr[k, 32:]
+                if gate[k]:
+                    ok[j] = True
+                    passed.append((j, *chunk[j][-3:]))
+        okbuf[:n] = ok
+        return passed
+
+    @staticmethod
+    def _h_bytes(pk, msg, sig) -> np.ndarray:
+        h = int.from_bytes(hashlib.sha512(sig[:32] + pk + msg).digest(), "little") % L
+        return np.frombuffer(h.to_bytes(32, "little"), dtype=np.uint8)
+
+    @classmethod
+    def _stage_py(cls, items, start, n, packed, okbuf) -> int:
+        """Pure-Python host stage (hashlib + the vectorized numpy gate)
+        filling the (128, n) layout byte for byte as ``sighash.stage``
+        does: the JAX package's ``_stage_py``, except that a gate-rejected
+        lane keeps its A, R and s there as in the C stage (its h is 0, and
+        the gate masks its verdict)."""
+        passed = cls._gate_chunk(items, start, n, packed, okbuf, keep_rejected=True)
+        for j, pk, msg, sig in passed:
+            packed[96:128, j] = cls._h_bytes(pk, msg, sig)
+        return n - len(passed)
+
+    @classmethod
+    def _stage_py_raw(cls, items, start, n, packed, okbuf) -> int:
+        """Pure-Python device-hash staging filling the (160, n) raw layout
+        as ``sighash.stage_raw`` does: a single-block message uploads raw
+        with its length and flag 1, a longer one is hashed here (hashlib)
+        with flag 0 (the JAX package's ``_stage_py_raw``); a gate-rejected
+        lane stays all zero."""
+        passed = cls._gate_chunk(items, start, n, packed, okbuf, keep_rejected=False)
+        for j, pk, msg, sig in passed:
+            if len(msg) <= sha512.MAX_DEVICE_MSG:
+                if msg:
+                    packed[96 : 96 + len(msg), j] = np.frombuffer(msg, dtype=np.uint8)
+                packed[sha512.ROW_MLEN, j] = len(msg)
+                packed[sha512.ROW_FLAG, j] = 1
+            else:
+                packed[96:128, j] = cls._h_bytes(pk, msg, sig)
+        return n - len(passed)
 
     def _stage_shards(self, items, start, n, rows, fill) -> Tuple[_Staged, int]:
         """Staging -> (the staged chunk, the gate's rejects): each shard
@@ -814,7 +980,7 @@ class BatchVerifier:
             "items": self.n_items,
             "gate_rejects": self.n_gate_rejects,
             "host_assist_items": self.n_host_assist_items,
-            "native_host_stage": True,
+            "native_host_stage": self._sighash is not None,
             "device_hash": self.device_hash,
             "torsion_items": self.n_torsion_items,
             "verify_seconds": self.verify_seconds,

@@ -7,10 +7,14 @@ PyTorch headers, so the build takes seconds.  The build runs at first use,
 from the sources in the repository only, into the gitignored build
 directory, under a name keyed by a hash of the source and the flags.
 
-``verify_packed(p)`` on a CPU tensor runs the plain PyTorch version
-(``ops/ed25519.py::_verify_packed``); on a CUDA tensor it launches the
-kernel or raises.  ``launches`` counts the kernel launches.  The kernel runs
-each lane on a group of 4 threads (``geometry()``).
+``verify_packed(p, signed=None)`` on a CPU tensor runs the plain PyTorch
+version (``ops/ed25519.py::_verify_packed``); on a CUDA tensor it launches
+the kernel or raises.  ``signed`` picks the signed-digit instance of the
+kernel (``verify_kernel_pallas(signed=True)``); None reads the module
+constant ``ops/ed25519.py::_SIGNED_WIN`` (``STELLAR_TPU_SIGNED_WINDOWS``)
+at the call.  ``launches`` counts the unsigned instance's launches,
+``signed_launches`` the signed one's.  The kernel runs each lane on a group
+of 4 threads (``geometry()``).
 """
 
 from __future__ import annotations
@@ -31,8 +35,10 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(os.path.dirname(_HERE), "csrc", "ed25519_verify.cu")
 _STEM = "libed25519_verify"
 
-# kernel launches since import (or since the caller last reset it to 0)
+# kernel launches since import (or since the caller last reset it to 0),
+# of the unsigned and the signed instance
 launches = 0
+signed_launches = 0
 _count_lock = threading.Lock()
 _lib_lock = threading.Lock()
 _lib = None
@@ -52,11 +58,14 @@ def load_library() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         lib = ctypes.CDLL(native.build_cuda_library(SOURCE, _STEM))
-        lib.ed25519_verify_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.ed25519_verify_launch.restype = ctypes.c_int
+        for fn in (lib.ed25519_verify_launch, lib.ed25519_verify_signed_launch):
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
+        lib.ed25519_residency.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.ed25519_residency.restype = ctypes.c_int
         for fn in (lib.ed25519_const_ints, lib.ed25519_threads_per_lane, lib.ed25519_block_threads):
             fn.argtypes = []
             fn.restype = ctypes.c_int
@@ -70,6 +79,22 @@ def geometry() -> tuple:
     """(threads a lane, threads a block) of the built kernel's launch."""
     lib = load_library()
     return lib.ed25519_threads_per_lane(), lib.ed25519_block_threads()
+
+
+def residency(signed: bool, device=None) -> dict:
+    """One instance's residency on ``device`` (default: the current card),
+    from the CUDA runtime: registers a thread, static shared memory and
+    local memory, resident blocks an SM, and the blocks an SM that shared
+    memory alone and registers alone allow."""
+    lib = load_library()
+    info = np.zeros(6, dtype=np.int32)
+    with launch_device(torch.device("cuda") if device is None else torch.device(device)):
+        err = lib.ed25519_residency(int(signed), info.ctypes.data)
+    if err != 0:
+        raise RuntimeError(f"ed25519_residency: {lib.ed25519_error_string(err).decode()} ({err})")
+    keys = ("registers", "shared_bytes", "local_bytes", "blocks_per_sm",
+            "blocks_by_shared", "blocks_by_registers")
+    return dict(zip(keys, info.tolist()))
 
 
 def _limbs25(v: int) -> list:
@@ -111,15 +136,17 @@ def prepare(device) -> None:
         _device_constants(torch.device(device))
 
 
-def verify_packed(p: torch.Tensor) -> torch.Tensor:
+def verify_packed(p: torch.Tensor, signed=None) -> torch.Tensor:
     """Verdicts of the packed (128, N) uint8 chunk -> (N,) bool.
 
-    CPU tensor: the plain PyTorch version.  CUDA tensor: the kernel, on
-    the tensor's device and that device's current stream, or an
-    exception."""
-    global launches
+    CPU tensor: the plain PyTorch version.  CUDA tensor: the kernel's
+    instance that ``signed`` names (None: ``ed._SIGNED_WIN``), on the
+    tensor's device and that device's current stream, or an exception."""
+    global launches, signed_launches
+    if signed is None:
+        signed = ed._SIGNED_WIN
     if p.device.type == "cpu":
-        return ed._verify_packed(p)
+        return ed._verify_packed(p, signed=signed)
     if p.device.type != "cuda":
         raise ValueError(f"verify_packed: unsupported device {p.device}")
     if p.dtype != torch.uint8 or p.dim() != 2 or p.shape[0] != ed.ROWS:
@@ -137,16 +164,18 @@ def verify_packed(p: torch.Tensor) -> torch.Tensor:
     consts = _device_constants(p.device)
     if consts.numel() != lib.ed25519_const_ints():
         raise RuntimeError("kernel constant block size mismatch")
+    launch = lib.ed25519_verify_signed_launch if signed else lib.ed25519_verify_launch
     with launch_device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
-        err = lib.ed25519_verify_launch(
-            p.data_ptr(), out.data_ptr(), n, consts.data_ptr(), stream
-        )
+        err = launch(p.data_ptr(), out.data_ptr(), n, consts.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(
-            f"ed25519 verify kernel launch failed: "
+            f"ed25519 verify kernel launch failed{' (signed windows)' if signed else ''}: "
             f"{lib.ed25519_error_string(err).decode()} ({err})"
         )
     with _count_lock:
-        launches += 1
+        if signed:
+            signed_launches += 1
+        else:
+            launches += 1
     return out.view(torch.bool)

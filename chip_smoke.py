@@ -90,9 +90,11 @@ phase's failure is caught while the run carries on):
               buffer of 10^6 records (~108 MB, the 10^6-account rung of
               STATE_LADDER_r22.json): ``hash_frames`` over the whole buffer
               and ``BucketHasher`` frame by frame, each through the device,
-              native and hashlib backends — all six hashes equal; the
-              SHA-256 kernel launched and its plain version did not run; MB/s
-              per backend and the device backend's stage spans;
+              native and hashlib backends — all six hashes equal; both
+              SHA-256 kernels launched in each of the two device runs (the
+              lane kernel on the bucket's two-block class, the pair on the
+              narrow classes) and the plain version did not run; launches
+              by kernel, MB/s per backend and the device backend's spans;
 9. node close — ``node_close``: BASELINE.md's 5000-tx single-signer ledger
               through a standalone validator (``Application`` →
               ``TxSetFrame.check_valid`` → ``LedgerManager.close_ledger``,
@@ -238,6 +240,13 @@ SPILL_FRAMES = 8  # 5004-byte frames: 79 SHA blocks, past DEVICE_MAX_BLOCKS
 SPILL_BODY = 5000
 # the padding-boundary message lengths of the SHA-256 kernel check
 SHA256_BOUNDARY = (0, 55, 56, 63, 64, 65, 119, 120)
+# blocks a lane of the SHA-256 kernel's one-warp chain shapes (chain_k)
+SHA256_CHAINS = (2, 4, 5)
+# the names some SHA-256 kernel shapes had in earlier runs
+SHA256_OLD_NAMES = {"bucket_class2": "class_2_blocks"}
+# the SHA-256 source's two kernels (ops/sha256_cuda.VARIANTS), as the
+# kernels line names them
+SHA256_KERNELS = {"lane": "sha256_frames", "pair": "sha256_frames_pair"}
 # node_close: BASELINE.md's 5000-tx single-signer ledger (bench.py's shape):
 # 5001 accounts, 100 creates a tx and 2000 a ledger, then timed rounds of
 # 5000 payments and one untimed round; the genesis base fee
@@ -748,10 +757,21 @@ def phase_kernel_sha512(rng, ledger_items):
 
 
 def sha256_shapes(frames, frame_len):
-    """The bucket path's two kernel shapes, as (name, messages, max_blocks):
-    the frames of the first 4 MB BucketHasher flush that fit in 4 blocks,
-    and the two-block class of the whole buffer — each with the padding-
-    boundary messages that fit."""
+    """The bucket path's SHA-256 kernel launches, as (name, messages,
+    max_blocks), each cut by ``hashplane.size_classes`` as the device
+    backend cuts it:
+
+    - ``flush_class2/4/8``: the three launches of the first 4 MB
+      ``BucketHasher`` flush;
+    - ``bucket_class2/4/8``: the three launches of ``hash_frames`` over the
+      whole 10^6-record bucket (``bucket_class2`` was ``class_2_blocks``
+      before, with the boundary messages among its lanes);
+    - ``flush_4MB``: every frame of the first flush that fits in 4 blocks,
+      plus the padding-boundary messages, in one ``max_blocks=4`` launch —
+      a launch the node never makes, kept so that the figures compare with
+      the earlier ones;
+    - ``chain_k`` (k = 2, 4, 5): 32 frames of k blocks, one warp, in their
+      class's shape: the time of one lane's serial chain."""
     import numpy as np
 
     from stellar_tpu_torch.bucket import hashplane as hp
@@ -761,12 +781,16 @@ def sha256_shapes(frames, frame_len):
     boundary = [rng.randbytes(n) for n in SHA256_BOUNDARY]
     flush = int(np.searchsorted(np.cumsum(frame_len), hp._FLUSH_BYTES)) + 1
     nblocks = (frame_len + 8) // 64 + 1
+    shapes = []
+    for tag, nb in (("flush", nblocks[:flush]), ("bucket", nblocks)):
+        for cap, idx in hp.size_classes(nb):
+            shapes.append((f"{tag}_class{cap}", [frames[i] for i in idx], cap))
     fit4 = [frames[i] for i in np.flatnonzero(nblocks[:flush] <= 4)]
-    two = [frames[i] for i in np.flatnonzero(nblocks == 2)]
-    return [
-        ("flush_4MB", fit4 + boundary, 4),
-        ("class_2_blocks", two + [m for m in boundary if t256.blocks_for(len(m)) <= 2], 2),
-    ]
+    shapes.append(("flush_4MB", fit4 + boundary, 4))
+    for k in SHA256_CHAINS:
+        idx = np.flatnonzero(nblocks == k)[:32]
+        shapes.append((f"chain_{k}", [frames[i] for i in idx], 1 << (k - 1).bit_length()))
+    return shapes
 
 
 def pack_frames_loop(items, max_blocks):
@@ -786,58 +810,78 @@ def pack_frames_loop(items, max_blocks):
     return packed, counts
 
 
-def phase_kernel_sha256(frames, frame_len):
+def sha256_row(c256, t256, name, msgs, max_blocks):
+    """One SHA-256 kernel shape: the kernel of the wrapper's rule held
+    against the plain version on the card (every lane) and hashlib (a
+    sample, the boundary messages among it), then timed beside its bound."""
     import torch
 
+    t0 = time.perf_counter()
+    packed, counts = t256.pack_frames(msgs, max_blocks)
+    pack_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loop_packed, loop_counts = pack_frames_loop(msgs, max_blocks)
+    pack_loop_s = time.perf_counter() - t0
+    assert (loop_packed == packed).all() and (loop_counts == counts).all(), name
+    del loop_packed
+    p, nb = torch.from_numpy(packed).cuda(), torch.from_numpy(counts).cuda()
+    got = c256.digest_rows(p, nb)
+    torch.cuda.synchronize()
+    plain = t256.sha256_rows_from_packed(p, nb).to(torch.uint8)
+    mismatches = int((got != plain).any(dim=0).sum())
+    max_abs_err = int((got.to(torch.int32) - plain.to(torch.int32)).abs().max())
+    assert mismatches == 0, f"sha256_frames ({name}) disagrees on {mismatches} lanes"
+    host = got.t().contiguous().cpu().numpy()
+    n = len(msgs)
+    # the last lanes (flush_4MB's boundary messages) and a seeded sample
+    check = set(range(max(0, n - len(SHA256_BOUNDARY)), n))
+    check |= set(random.Random(SEED).sample(range(n), min(n, 1000)))
+    for j in check:
+        assert host[j].tobytes() == hashlib.sha256(msgs[j]).digest(), f"{name} lane {j}"
+    ms = graph_ms(lambda: c256.digest_rows(p, nb))
+    call_ms = cuda_ms(lambda: c256.digest_rows(p, nb), 11)
+    plain_ms = cuda_ms(lambda: t256.sha256_rows_from_packed(p, nb), 2)
+    blocks = int(counts.sum())
+    ops_s = (blocks * SHA256_OPS_PER_BLOCK + n * SHA256_OPS_PER_LANE) / H100_IMAD_PER_S
+    bytes_s = (64 * blocks + 36 * n) / H100_BYTES_PER_S
+    row = {
+        "shape": name, "kernel": c256.variant(n, max_blocks), "lanes": n, "max_blocks": max_blocks,
+        "blocks": blocks, "pack_s": pack_s, "pack_loop_s": pack_loop_s, "mismatches": mismatches,
+        "hashlib_checked": len(check), "max_abs_err": max_abs_err, "ms": ms, "call_ms": call_ms,
+        "plain_ms": plain_ms, "bound_ms": 1e3 * max(ops_s, bytes_s),
+        "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+    }
+    if name in SHA256_OLD_NAMES:
+        row["earlier_name"] = SHA256_OLD_NAMES[name]
+    return row
+
+
+def phase_kernel_sha256(frames, frame_len):
+    """Both SHA-256 kernels at the bucket path's launches (``sha256_shapes``);
+    returns the kernels line's row of each: the lane kernel at
+    ``bucket_class2``, the pair at ``flush_class4``."""
     from stellar_tpu_torch.ops import sha256 as t256
     from stellar_tpu_torch.ops import sha256_cuda as c256
 
-    shapes = []
+    shapes = {}
     for name, msgs, max_blocks in sha256_shapes(frames, frame_len):
-        t0 = time.perf_counter()
-        packed, counts = t256.pack_frames(msgs, max_blocks)
-        pack_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        loop_packed, loop_counts = pack_frames_loop(msgs, max_blocks)
-        pack_loop_s = time.perf_counter() - t0
-        assert (loop_packed == packed).all() and (loop_counts == counts).all(), name
-        del loop_packed
-        p, nb = torch.from_numpy(packed).cuda(), torch.from_numpy(counts).cuda()
-        got = c256.digest_rows(p, nb)
-        torch.cuda.synchronize()
-        plain = t256.sha256_rows_from_packed(p, nb).to(torch.uint8)
-        mismatches = int((got != plain).any(dim=0).sum())
-        max_abs_err = int((got.to(torch.int32) - plain.to(torch.int32)).abs().max())
-        assert mismatches == 0, f"sha256_frames ({name}) disagrees on {mismatches} lanes"
-        host = got.t().contiguous().cpu().numpy()
-        n = len(msgs)
-        check = list(range(n - len(SHA256_BOUNDARY), n)) + random.Random(SEED).sample(range(n), 1000)
-        for j in check:
-            assert host[j].tobytes() == hashlib.sha256(msgs[j]).digest(), f"{name} lane {j}"
-        c256.digest_rows(p, nb)  # warm-up
-        ms = graph_ms(lambda: c256.digest_rows(p, nb))
-        call_ms = cuda_ms(lambda: c256.digest_rows(p, nb), 11)
-        plain_ms = cuda_ms(lambda: t256.sha256_rows_from_packed(p, nb), 2)
-        blocks = int(counts.sum())
-        ops_s = (blocks * SHA256_OPS_PER_BLOCK + n * SHA256_OPS_PER_LANE) / H100_IMAD_PER_S
-        bytes_s = (64 * blocks + 36 * n) / H100_BYTES_PER_S
-        shape = {
-            "shape": name, "lanes": n, "max_blocks": max_blocks, "blocks": blocks,
-            "pack_s": pack_s, "pack_loop_s": pack_loop_s, "mismatches": mismatches, "max_abs_err": max_abs_err,
-            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": 1e3 * max(ops_s, bytes_s),
-            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
-        }
+        shape = sha256_row(c256, t256, name, msgs, max_blocks)
         emit({"phase": "kernels", "name": "sha256_frames", **shape})
-        shapes.append(shape)
-    main = shapes[-1]  # the whole two-block class of the 10^6-record bucket
-    return {
-        "name": "sha256_frames",
-        "route": "cuda",
-        "source": "stellar_tpu_torch/csrc/sha256_frames.cu",
-        "replaces": "stellar_tpu/ops/sha256.py:183",
-        **{k: main[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")},
-        "library_ms": None,
-    }
+        shapes[name] = shape
+    rows = []
+    for kernel, main in (("lane", "bucket_class2"), ("pair", "flush_class4")):
+        assert shapes[main]["kernel"] == kernel, (main, shapes[main]["kernel"])
+        rows.append({
+            "name": SHA256_KERNELS[kernel],
+            "route": "cuda",
+            "source": "stellar_tpu_torch/csrc/sha256_frames.cu",
+            "replaces": "stellar_tpu/ops/sha256.py:183",
+            "shape": main,
+            **{k: shapes[main][k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
+                                             "bound_by")},
+            "library_ms": None,
+        })
+    return rows
 
 
 # -- phase 4: the main path ---------------------------------------------------
@@ -1273,8 +1317,9 @@ def bucket_buffer(seed):
 def phase_bucket(buf, frames):
     """``hash_frames`` and ``BucketHasher`` through the device, native and
     hashlib backends, resolved as a node resolves them (the config knob,
-    the no-native environment variable).  Returns the SHA-256 kernel's
-    launches over the whole bucket."""
+    the no-native environment variable).  Returns the SHA-256 kernels'
+    launches on the device backend (``hash_frames`` and ``BucketHasher``),
+    by kernel."""
     from stellar_tpu_torch.bucket import hashplane as hp
     from stellar_tpu_torch.ops import sha256 as t256
     from stellar_tpu_torch.ops import sha256_cuda as c256
@@ -1295,32 +1340,38 @@ def phase_bucket(buf, frames):
         spans = SpanSums()
         if knob:
             backend.tracer = spans
-        c256.launches = 0
+        c256.launches = c256.lane_launches = c256.pair_launches = 0
         t256.plain_calls = 0
         t0 = time.perf_counter()
         whole = hp.hash_frames(buf, cfg)
         whole_s = time.perf_counter() - t0
-        whole_launches, whole_spans = c256.launches, spans.take_ms()
+        whole_launches = {"lane": c256.lane_launches, "pair": c256.pair_launches}
+        whole_spans = spans.take_ms()
         t0 = time.perf_counter()
         hasher = hp.BucketHasher(cfg)
         for fr in frames:
             hasher.add(fr)
         streamed = (hasher.finish(), hasher.count)
         streamed_s = time.perf_counter() - t0
-        launches, plain_calls = c256.launches, t256.plain_calls
+        launches = {"lane": c256.lane_launches, "pair": c256.pair_launches}
+        plain_calls = t256.plain_calls
+        streamed_launches = {k: launches[k] - whole_launches[k] for k in launches}
         line = {
             "phase": "bucket_hash", "backend": backend.name, "records": whole[1],
             "mb": mb, "hash": whole[0].hex(),
             "hash_frames_s": whole_s, "hash_frames_mb_per_s": mb / whole_s,
             "bucket_hasher_s": streamed_s, "bucket_hasher_mb_per_s": mb / streamed_s,
-            "launches": {"hash_frames": whole_launches, "bucket_hasher": launches - whole_launches},
+            "launches": {"hash_frames": whole_launches, "bucket_hasher": streamed_launches},
             "plain_calls": plain_calls,
         }
         if knob:
-            assert whole_launches > 0 and launches > whole_launches, "the SHA-256 kernel never launched"
+            assert sum(launches.values()) == c256.launches, (launches, c256.launches)
+            # the whole bucket's widest class runs the lane kernel, every
+            # flush's narrow classes the pair
+            assert all(whole_launches.values()) and all(streamed_launches.values()), line["launches"]
             assert plain_calls == 0, f"the plain SHA-256 ran {plain_calls} times"
             line["span_ms"] = {"hash_frames": whole_spans, "bucket_hasher": spans.take_ms()}
-            device_launches = whole_launches
+            device_launches = launches
         emit(line)
         hashes[name] = (whole, streamed)
     os.environ.pop("STELLAR_TPU_NO_NATIVE_HASH", None)
@@ -1440,14 +1491,17 @@ def _node_counts(reset=False):
     from stellar_tpu_torch.ops import sha512_cuda as sc
 
     if reset:
-        ec.launches = ec.signed_launches = sc.launches = c256.launches = 0
+        ec.launches = ec.signed_launches = sc.launches = 0
+        c256.launches = c256.lane_launches = c256.pair_launches = 0
         ed.plain_calls = tsha.plain_calls = t256.plain_calls = 0
         keys.reset_stats()
         keys.PubKeyUtils.clear_verify_sig_cache()
         return None
     return {
         "launches": {"ed25519_verify": ec.launches, "ed25519_verify_signed": ec.signed_launches,
-                     "sha512_h": sc.launches, "sha256_frames": c256.launches},
+                     "sha512_h": sc.launches, "sha256_frames": c256.launches,
+                     "sha256_frames_lane": c256.lane_launches,
+                     "sha256_frames_pair": c256.pair_launches},
         "plain_calls": {"ed25519": ed.plain_calls, "sha512": tsha.plain_calls,
                         "sha256": t256.plain_calls},
         "eager_ref_verifies": keys.stats()["eager_ref_verifies"],
@@ -1775,7 +1829,8 @@ def phase_node_consensus(tmp):
     assert pair["cpu"]["counts"]["plain_calls"]["ed25519"] > 0
     emit({"phase": "node_consensus", "pair_hashes_equal": n})
     return {"ed25519_verify": c["launches"]["ed25519_verify"],
-            "sha256_frames": c["launches"]["sha256_frames"]}
+            "sha256_frames": c["launches"]["sha256_frames_lane"],
+            "sha256_frames_pair": c["launches"]["sha256_frames_pair"]}
 
 
 # -- phase 11: the chaos scenario on the card --------------------------------
@@ -1984,7 +2039,7 @@ def main() -> int:
             b1_row,
             phase_kernel_signed(b1_packed),
             phase_kernel_sha512(rng, ledger1[0]),
-            phase_kernel_sha256(frames, frame_len),
+            *phase_kernel_sha256(frames, frame_len),
         ]
         del b1_packed
 
@@ -2035,7 +2090,8 @@ def main() -> int:
     rows[0]["launches"] = launches["ed25519_verify"]
     rows[1]["launches"] = close_launches["ed25519_verify_signed"]
     rows[2]["launches"] = dh_launches["sha512_h"]
-    rows[3]["launches"] = bucket_launches
+    rows[3]["launches"] = bucket_launches["lane"]
+    rows[4]["launches"] = bucket_launches["pair"]
     # each path's own count, set to 0 just before it and read just after
     rows[0]["launches_by_path"] = {"main_path": launches["ed25519_verify"],
                                    "mesh": mesh_launches["ed25519_verify"],
@@ -2047,8 +2103,9 @@ def main() -> int:
     rows[2]["launches_by_path"] = {"main_path_device_hash": dh_launches["sha512_h"],
                                    "mesh": mesh_launches["sha512_h"],
                                    "node_close": close_launches["sha512_h"]}
-    rows[3]["launches_by_path"] = {"bucket_hash": bucket_launches,
-                                   "node_consensus": consensus_launches["sha256_frames"]}
+    for row, kernel in ((rows[3], "lane"), (rows[4], "pair")):
+        row["launches_by_path"] = {"bucket_hash": bucket_launches[kernel],
+                                   "node_consensus": consensus_launches[SHA256_KERNELS[kernel]]}
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
             "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{**{k: row[k] for k in keys}, "launch_floor_ms": floor_ms}

@@ -2,12 +2,13 @@
 """kernel_ab.py — time this checkout's build of a kernel against another
 build of its source on the same lanes, on one card.
 
-    python3 kernel_ab.py BASELINE.cu [--kernel ed25519_verify|sha512_h] [--reps 5]
+    python3 kernel_ab.py BASELINE.cu [--kernel ed25519_verify|sha512_h|sha256_frames] [--reps 5]
 
 BASELINE.cu must export the same C entry point as every version of the
 port's source of that kernel: ``ed25519_verify_launch`` and
 ``ed25519_const_ints`` with the same constant block for ``ed25519_verify``
-(the default), ``sha512_h_launch`` for ``sha512_h``.  It is built with the
+(the default), ``sha512_h_launch`` for ``sha512_h``,
+``sha256_frames_launch`` for ``sha256_frames``.  It is built with the
 port's nvcc flags into a temporary directory; this checkout's kernel is
 built as the port builds it.  The lanes are those of ``chip_smoke.py``'s
 kernels phase:
@@ -16,7 +17,10 @@ kernels phase:
   ledger's tail chunk) and first 300 (an SCP flush), and the 4096 eight
   times over (32768);
 - ``sha512_h``: 4096 device-hash lanes (``chip_smoke.sha512_lanes``), their
-  first 904, and the 4096 eight times over (32768).
+  first 904, and the 4096 eight times over (32768);
+- ``sha256_frames``: every shape of ``chip_smoke.sha256_shapes`` on the
+  seeded 10^6-record bucket — the launches of the first 4 MB flush and of
+  the whole bucket, ``flush_4MB`` and the one-warp chains ``chain_k``.
 
 On each shape both kernels' results must equal the plain version's; then
 each is timed by ``chip_smoke.graph_ms`` (launches captured in a CUDA graph,
@@ -30,7 +34,14 @@ this checkout beside the change-over-baseline speedup.  Prints one JSON line
 per shape, the ptxas report of both builds, and the nvidia-smi line.  For ``sha512_h`` it
 also prints, per shape, the cycle stamps of block 0's two warps at the
 kernel's phase boundaries (this checkout's source built with
-``-DSHA512_H_STAMPS``; the phases are named in ``STAMPS``).
+``-DSHA512_H_STAMPS``; the phases are named in ``STAMPS``).  For
+``sha256_frames`` each line names the kernel that this checkout's rule
+picks (``sha256_frames_variant``), and where this checkout exports
+``sha256_frames_launch_as`` a sweep follows: both of its kernels, forced,
+on the first n lanes of each bucket class at the widths of
+``SHA256_SWEEP`` (and of two made-up classes, 1 and 16 blocks; turns
+lane, pair, pair, lane), each line with the
+rule's pick and whether that pick is the faster kernel there.
 """
 
 from __future__ import annotations
@@ -49,6 +60,27 @@ import tempfile
 from concurrent.futures import ProcessPoolExecutor
 
 import chip_smoke
+
+# the sha256_frames sweep: lane widths of each bucket class (max_blocks),
+# from one warp to the whole class; the flush's class widths among them
+SHA256_SWEEP = {
+    2: (32, 1024, 4096, 8192, 16384, 20480, 24576, 28672, 33523, 36864, 45056, 53248, 65536,
+        131072, 262144, 524288, 859934),
+    4: (32, 1024, 5042, 16384, 20480, 24576, 28672, 32768, 38573, 45056, 49152, 53248, 57344,
+        61440, 65536, 73728, 130129),
+    8: (32, 360, 1024, 4096, 9929, 32768, 40960, 49152, 57344, 65536, 98304, 131072),
+    # no bucket class of the smoke's bucket: frames cut to 40 bytes (one
+    # block) and runs of 8 frames joined (10-16 blocks)
+    1: (32, 4096, 16384, 24576, 32768, 40960, 65536),
+    16: (32, 1024, 4096, 16384, 24576, 32768, 40960, 65536, 98304, 114688, 131072),
+}
+SHA256_VARIANTS = ("lane", "pair")
+# csrc/sha256_frames.cu's stamp slots, and the shapes stamped: the lane
+# kernel stamps 1 + 2b (block b's words merged) and 2 + 2b (compressed);
+# the pair 1 (prologue done), 2 (first barrier passed), 3 + 2s (stage s's
+# work done), 4 + 2s (its barrier passed); both 47 at the end
+SHA256_STAMPS = 48
+SHA256_STAMPED = ("chain_2", "chain_4", "chain_5", "flush_class8", "flush_class4", "flush_class2")
 
 # csrc/sha512_h.cu's STAMP(k) points, in k order
 STAMPS = ("start", "tile_loaded", "w0_15_written", "first_barrier",
@@ -152,10 +184,139 @@ def sha512_stamps(out_dir, shapes):
     return out
 
 
+def sha256_stamps(shapes):
+    """Block 0's cycle stamps of each of this checkout's SHA-256 kernels,
+    forced, on each shape (the source built with -DSHA256_FRAMES_STAMPS):
+    one JSON line a shape and kernel, with the SM clock that the stamps and
+    the global timer give."""
+    import numpy as np
+    import torch
+
+    from stellar_tpu_torch.ops import sha256_cuda as c256
+
+    with tempfile.TemporaryDirectory() as tmp:
+        lib, _ = build(c256.SOURCE, tmp, "sha256_frames_stamps", ["-DSHA256_FRAMES_STAMPS"])
+        lib.sha256_frames_launch_as.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.sha256_frames_stamps.argtypes = [ctypes.c_void_p]
+        for name, (p, nb) in shapes.items():
+            n = p.shape[1]
+            out = torch.empty((32, n), dtype=torch.uint8, device=p.device)
+            for k, kernel in enumerate(SHA256_VARIANTS):
+                stamps = np.zeros(2 * SHA256_STAMPS + 2, dtype=np.int64)
+                for _ in range(2):  # the second launch's stamps, the code warm
+                    assert lib.sha256_frames_launch_as(p.data_ptr(), nb.data_ptr(), out.data_ptr(), n,
+                                                       p.shape[0] // 64, k,
+                                                       torch.cuda.current_stream().cuda_stream) == 0
+                    assert lib.sha256_frames_stamps(stamps.ctypes.data) == 0
+                cyc = stamps[:-2].reshape(2, SHA256_STAMPS)
+                t0 = cyc[cyc > 0].min()
+                ns = int(stamps[-1] - stamps[-2])
+                warps = {w: {k2: int(v - t0) for k2, v in enumerate(cyc[w]) if v} for w in range(2)}
+                print(json.dumps({"kernel": "sha256_frames", "stamps": kernel, "shape": name,
+                                  "block0_ns": ns, "ghz": (cyc[0, -1] - cyc[0, 0]) / ns if ns else None,
+                                  "warps": warps}), flush=True)
+
+
+def sha256_ab(base, reps):
+    """The sha256_frames A/B (module docstring): one JSON line a shape,
+    then the sweep where this checkout has two kernels."""
+    import numpy as np
+    import torch
+
+    from stellar_tpu_torch.bucket import hashplane as hp
+    from stellar_tpu_torch.ops import sha256 as t256
+    from stellar_tpu_torch.ops import sha256_cuda as c256
+
+    base.sha256_frames_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    base.sha256_frames_launch.restype = ctypes.c_int
+    lib = c256.load_library()
+    sweep = hasattr(lib, "sha256_frames_launch_as")
+
+    def launcher(launch, *extra):
+        def run(p, nb):
+            out = torch.empty((32, p.shape[1]), dtype=torch.uint8, device=p.device)
+            err = launch(p.data_ptr(), nb.data_ptr(), out.data_ptr(), p.shape[1], p.shape[0] // 64,
+                         *extra, torch.cuda.current_stream().cuda_stream)
+            assert err == 0, f"launch failed ({err})"
+            return out
+        return run
+
+    def turns(sides, p, nb):
+        order = list(sides) + list(sides)[::-1]
+        t = [chip_smoke.graph_ms(lambda: fn(p, nb), reps=reps) for fn in order]
+        return [[t[k], t[-1 - k]] for k in range(len(sides))]
+
+    def mismatches(sides, p, nb, plain):
+        bad = {}
+        for side, fn in sides.items():
+            got = fn(p, nb)
+            torch.cuda.synchronize()
+            bad[side] = int((got != plain).any(dim=0).sum())
+        return bad
+
+    run_base = launcher(base.sha256_frames_launch)
+    stamped = {}
+    buf, frame_len = chip_smoke.bucket_buffer(chip_smoke.SEED)
+    frames = hp.split_frames(buf)
+    del buf
+    classes = {}
+    for name, msgs, max_blocks in chip_smoke.sha256_shapes(frames, frame_len):
+        packed, counts = t256.pack_frames(msgs, max_blocks)
+        p, nb = torch.from_numpy(packed).cuda(), torch.from_numpy(counts).cuda()
+        if name.startswith("bucket_class"):
+            classes[max_blocks] = (p, nb)
+        if name in SHA256_STAMPED:
+            stamped[name] = (p, nb)
+        plain = t256.sha256_rows_from_packed(p, nb).to(torch.uint8)
+        sides = {"baseline": run_base, "change": c256.digest_rows}
+        bad = mismatches(sides, p, nb, plain)
+        host = sides["change"](p, nb).t().contiguous().cpu().numpy()
+        for j in random.Random(chip_smoke.SEED).sample(range(len(msgs)), min(len(msgs), 1000)):
+            assert host[j].tobytes() == hashlib.sha256(msgs[j]).digest(), (name, j)
+        assert not any(bad.values()), (name, bad)
+        (b_ms, c_ms) = turns(sides.values(), p, nb)
+        line = {"kernel": "sha256_frames", "shape": name, "lanes": len(msgs), "max_blocks": max_blocks,
+                "blocks": int(counts.sum()), "mismatches": bad, "baseline_ms": b_ms, "change_ms": c_ms,
+                "speedup": sum(b_ms) / sum(c_ms)}
+        if sweep:
+            line["change_kernel"] = c256.variant(len(msgs), max_blocks)
+        print(json.dumps(line), flush=True)
+        del p, nb, plain
+    if not sweep:
+        return
+    sha256_stamps(stamped)
+    joined = (b"".join(frames[k:k + 8]) for k in range(0, len(frames), 8))
+    synthetic = {1: [f[:40] for f in frames[:65536]],
+                 16: [m for m in joined if t256.blocks_for(len(m)) <= 16][:131072]}
+    for max_blocks, msgs in synthetic.items():
+        packed, counts = t256.pack_frames(msgs, max_blocks)
+        classes[max_blocks] = (torch.from_numpy(packed).cuda(), torch.from_numpy(counts).cuda())
+    launch_as = lib.sha256_frames_launch_as
+    forced = {v: launcher(launch_as, k) for k, v in enumerate(SHA256_VARIANTS)}
+    for max_blocks, widths in SHA256_SWEEP.items():
+        cp, cnb = classes[max_blocks]
+        plain_all = t256.sha256_rows_from_packed(cp, cnb).to(torch.uint8)
+        for n in widths:
+            reps_n = -(-n // cp.shape[1])
+            p = cp.repeat(1, reps_n)[:, :n].contiguous()
+            nb = cnb.repeat(reps_n)[:n].contiguous()
+            plain = plain_all.repeat(1, reps_n)[:, :n]
+            bad = mismatches(forced, p, nb, plain)
+            assert not any(bad.values()), (max_blocks, n, bad)
+            ms = dict(zip(forced, turns(forced.values(), p, nb)))
+            pick = c256.variant(n, max_blocks)
+            faster = min(ms, key=lambda v: sum(ms[v]))
+            print(json.dumps({"kernel": "sha256_frames", "sweep": True, "max_blocks": max_blocks,
+                              "lanes": n, "mismatches": bad, **{f"{v}_ms": ms[v] for v in ms},
+                              "pair_over_lane": sum(ms["pair"]) / sum(ms["lane"]),
+                              "rule_picks": pick, "faster": faster}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("baseline")
-    ap.add_argument("--kernel", choices=("ed25519_verify", "sha512_h"), default="ed25519_verify")
+    ap.add_argument("--kernel", choices=("ed25519_verify", "sha512_h", "sha256_frames"),
+                    default="ed25519_verify")
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
 
@@ -164,12 +325,19 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: CUDA is not available", file=sys.stderr)
         return 2
-    from stellar_tpu_torch.ops import ed25519_cuda, sha512_cuda
+    from stellar_tpu_torch.ops import ed25519_cuda, sha256_cuda, sha512_cuda
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+    if args.kernel == "sha256_frames":
+        with tempfile.TemporaryDirectory() as tmp:
+            base, base_ptxas = build(args.baseline, tmp, "sha256_frames_baseline")
+            sha256_ab(base, args.reps)
+        print(json.dumps({"ptxas": {"baseline": base_ptxas, "change": ptxas_of(sha256_cuda)}}))
+        print(smi)
+        return 0
     rng = random.Random(chip_smoke.SEED)
     with ProcessPoolExecutor(max_workers=os.cpu_count() or 1, mp_context=mp.get_context("spawn")) as pool:
         fx = chip_smoke.Fixtures(pool)

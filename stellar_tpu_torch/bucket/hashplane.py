@@ -77,6 +77,23 @@ def split_frames(buf) -> List[bytes]:
     return frames
 
 
+def size_classes(nblocks) -> List[Tuple[int, np.ndarray]]:
+    """The device backend's launches over frames of ``nblocks`` SHA-256
+    blocks each: ``(cap, idx)`` for every power-of-two class present, in
+    ascending ``cap`` — the indices of the frames with ``nblocks`` in
+    (cap/2, cap], hashed by one launch of ``max_blocks=cap``.  Frames past
+    DEVICE_MAX_BLOCKS are in no class: they spill to hashlib."""
+    nblocks = np.asarray(nblocks)
+    out = []
+    cap = 1
+    while cap <= DEVICE_MAX_BLOCKS:
+        idx = np.flatnonzero((nblocks <= cap) & (nblocks > cap // 2))
+        if len(idx):
+            out.append((cap, idx))
+        cap *= 2
+    return out
+
+
 def combine(digests) -> bytes:
     """The ordered digest combine — the only sequential stage."""
     comb = hashlib.sha256()
@@ -145,10 +162,10 @@ class NativeBackend(BucketHashBackend):
 
 class DeviceBackend(BucketHashBackend):
     """The batched multi-block SHA-256 kernel (``ops/sha256_cuda.py``).
-    Frames are size-classed into power-of-two ``max_blocks`` shapes (one
-    launch per class present); frames past DEVICE_MAX_BLOCKS spill to
-    hashlib (bucket entries are a few hundred bytes, so that class is
-    nearly empty).
+    Frames are size-classed into power-of-two ``max_blocks`` shapes
+    (``size_classes``: one launch per class present); frames past
+    DEVICE_MAX_BLOCKS spill to hashlib (bucket entries are a few hundred
+    bytes, so that class is nearly empty).
 
     ``device="cuda"`` (the default) runs the kernel and builds it here;
     ``device="cpu"`` runs its plain PyTorch version.  ``tracer`` receives
@@ -176,23 +193,17 @@ class DeviceBackend(BucketHashBackend):
         nblocks = (lengths + 8) // 64 + 1
         for i in np.flatnonzero(nblocks > DEVICE_MAX_BLOCKS):
             out[i] = hashlib.sha256(frames[i]).digest()
-        cap = 1
-        while cap <= DEVICE_MAX_BLOCKS:
-            idx = np.flatnonzero((nblocks <= cap) & (nblocks > cap // 2))
-            if len(idx):
-                with self.tracer.span("bucket.pack", frames=len(idx), max_blocks=cap):
-                    packed, counts = sha256.pack_frames(
-                        [frames[i] for i in idx], max_blocks=cap
-                    )
-                with self.tracer.span("bucket.h2d", bytes=packed.nbytes):
-                    p = torch.from_numpy(packed).to(self.device)
-                    nb = torch.from_numpy(counts).to(self.device)
-                with self.tracer.span("bucket.kernel", frames=len(idx)):
-                    rows = sha256_cuda.digest_rows(p, nb).cpu()
-                blob = rows.t().contiguous().numpy().tobytes()
-                for j, i in enumerate(idx):
-                    out[i] = blob[32 * j : 32 * j + 32]
-            cap *= 2
+        for cap, idx in size_classes(nblocks):
+            with self.tracer.span("bucket.pack", frames=len(idx), max_blocks=cap):
+                packed, counts = sha256.pack_frames([frames[i] for i in idx], max_blocks=cap)
+            with self.tracer.span("bucket.h2d", bytes=packed.nbytes):
+                p = torch.from_numpy(packed).to(self.device)
+                nb = torch.from_numpy(counts).to(self.device)
+            with self.tracer.span("bucket.kernel", frames=len(idx)):
+                rows = sha256_cuda.digest_rows(p, nb).cpu()
+            blob = rows.t().contiguous().numpy().tobytes()
+            for j, i in enumerate(idx):
+                out[i] = blob[32 * j : 32 * j + 32]
         return out  # type: ignore[return-value]
 
 

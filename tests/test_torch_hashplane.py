@@ -16,6 +16,7 @@ from __future__ import annotations
 import hashlib
 import struct
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -134,6 +135,29 @@ class TestBackendsAgainstJax:
         assert tracer.names.count("bucket.kernel") == 4
         assert {"bucket.split", "bucket.pack", "bucket.h2d", "bucket.combine"} <= set(tracer.names)
         assert dev.name == "device-cpu"
+
+    @pytest.mark.parametrize("seed", [0, 1, 2])
+    def test_size_classes_reproduce_the_jax_cut_and_digests(self, seed):
+        # the JAX device backend's cut: each frame's class is the least
+        # power of two >= its block count; past DEVICE_MAX_BLOCKS, hashlib
+        rng = np.random.default_rng(seed)
+        nblocks = rng.integers(1, 2 * hp.DEVICE_MAX_BLOCKS, 400)
+        want = {}
+        for i, nb in enumerate(nblocks):
+            if nb <= hp.DEVICE_MAX_BLOCKS:
+                want.setdefault(1 << (int(nb) - 1).bit_length(), []).append(i)
+        got = hp.size_classes(nblocks)
+        assert [cap for cap, _ in got] == sorted(want)
+        assert all(idx.tolist() == want[cap] for cap, idx in got)
+        assert hp.size_classes(np.zeros(0, dtype=np.int64)) == []
+        # the device backend hashes by that cut, one plain run a class
+        bodies = [bytes([i % 251]) * int(64 * (nb % 9) + 52) for i, nb in enumerate(nblocks[:40])]
+        frames = [frame(b) for b in bodies]
+        dev = hp.DeviceBackend(device="cpu")
+        calls = tsha.plain_calls
+        assert dev.digests(frames) == [hashlib.sha256(f).digest() for f in frames]
+        lengths = np.array([len(f) for f in frames])
+        assert tsha.plain_calls == calls + len(hp.size_classes((lengths + 8) // 64 + 1))
 
 
 class _SpanNames:

@@ -18,8 +18,9 @@ Two preludes:
   ``__syncthreads_or``) is a ``std::barrier`` over the block, ``__syncwarp``
   one over the launch's width-wide group (launch with width 32 for warp
   code), and ``__shfl_sync`` an exchange through a double buffer behind a
-  barrier of the shuffle's width-wide group (C++20, ``-pthread``).  Every
-  thread of a group must reach every shuffle, as on the card.
+  barrier of the shuffle's width-wide group (C++20, ``-pthread``), and
+  ``__reduce_max_sync`` the same exchange read whole.  Every thread of a
+  group must reach every shuffle, as on the card.
 
 Both preludes define ``__byte_perm``.
 """
@@ -60,6 +61,8 @@ static inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
 PRELUDE = _QUALIFIERS + r"""
 #define __syncthreads()
 static Dim3 threadIdx = {0, 0, 0}, blockIdx = {0, 0, 0}, blockDim = {1, 1, 1};
+// a group of one thread
+static inline unsigned __reduce_max_sync(unsigned, unsigned v) { return v; }
 """
 
 BLOCK_PRELUDE = _QUALIFIERS + r"""
@@ -110,6 +113,17 @@ static inline T __shfl_sync(unsigned, T v, int src, int width) {
     buf[t] = (int32_t)v;
     host_group_barrier[base]->arrive_and_wait();
     return (T)buf[base + src % width];
+}
+
+// The maximum of the group's values, through the shuffle's buffers.
+static inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+    const int t = threadIdx.x, base = t - t % host_group_width;
+    int32_t *buf = host_shfl_buf[host_shfl_phase++ & 1];
+    buf[t] = (int32_t)v;
+    host_group_barrier[base]->arrive_and_wait();
+    unsigned m = 0;
+    for (int k = 0; k < host_group_width; k++) m = std::max(m, (unsigned)buf[base + k]);
+    return m;
 }
 
 // Run `body` as `blocks` blocks of `threads` CUDA threads, one block after

@@ -19,22 +19,30 @@ phase's failure is caught while the run carries on):
               included; ``launch_floor_ms`` is an empty kernel timed as
               ``ms`` is.  Shapes:
               - ed25519_verify: 4096 packed lanes of mixed valid/invalid/
-                raw classes, both verdict classes present; then the first
-                904 lanes (a 5000-tx ledger's tail chunk) and the first 300
-                (an SCP flush), each held against the slice of the 4096-
-                lane plain verdicts, and the 4096 lanes 8 times over
+                raw classes, both verdict classes present; then the first n
+                lanes for n in NODE_WIDTHS (1, 3, 16, 64: the widths the
+                node's consensus and flood launches have) and TAIL_LANES
+                (904, a 5000-tx ledger's tail chunk; 300, an SCP flush),
+                each held against the slice of the 4096-lane plain verdicts
+                and timed beside the bound of n verifies and the launch
+                floor (``widths``), and the 4096 lanes 8 times over
                 (32768); the row names the kernel's threads per signature
                 and block size;
-              - ed25519_verify_signed: the kernel's signed-digit instance
-                (``STELLAR_TPU_SIGNED_WINDOWS``) on the same lanes, the same
-                tails and the same wide shape, held against the signed plain
-                version, and on 64 raw-carry lanes (valid signatures whose s
-                or h is raised by a multiple of L past 0x77…78: the unsigned
-                instance accepts them, the signed one drops the window-63
-                carry and rejects them, as the JAX kernel does); both
-                instances graph-timed in turns on the same lanes at 4096 and
-                32768, and each one's registers, shared memory and resident
-                blocks an SM from the CUDA runtime;
+              - ed25519_verify_signed and ed25519_verify_signed_pair: the
+                signed-digit windows' two kernels
+                (``STELLAR_TPU_SIGNED_WINDOWS``; the wide variant, the
+                signed instance of the unsigned kernel's template, and the
+                pair, a chain warp and a comb warp for narrow launches,
+                picked by ``ed25519_cuda.signed_variant``), each forced on
+                the same lanes, widths and wide shape, held against the
+                signed plain version, and on 64 raw-carry lanes (valid
+                signatures whose s or h is raised by a multiple of L past
+                0x77…78: the unsigned kernel accepts them, both signed ones
+                drop the window-63 carry and reject them, as the JAX kernel
+                does); the three kernels graph-timed in turns on the same
+                lanes at 4096 and 32768, and each one's registers, shared
+                memory and resident blocks an SM from the CUDA runtime; the
+                wide variant's row at 4096 lanes, the pair's at one;
               - sha512_h: 4096 device-hash lanes (every single-block
                 message length 0-47, host-hashed longer messages, gate-
                 rejected inert lanes), into a new tensor and in place; an
@@ -119,8 +127,10 @@ phase's failure is caught while the run carries on):
               ``card_signed`` runs the card leg with the signed-digit
               windows (the module constant ``ops/ed25519.py::_SIGNED_WIN``
               set for the leg and restored after it): header hashes equal
-              to the card leg's, every verify launch a signed one, no plain
-              call, 0 stalls;
+              to the card leg's, every verify launch a signed one of the
+              kernel ``signed_variant`` picks, no plain call, 0 stalls.
+              Every leg's line has its ``launch_widths`` (lanes: calls of
+              the verify wrapper);
 10. node consensus — ``node_consensus``: three validators (threshold 2, all
               running) over the loopback overlay, all on the card, under a
               seeded 300-account, 1000-payment ``LoadGenerator`` load, the
@@ -129,7 +139,13 @@ phase's failure is caught while the run carries on):
               launches > 0, no stall.  Every verify kernel launch of that
               run keeps its input chunk and verdicts, and afterwards the
               plain version verifies all of them again on the card: zero
-              mismatches.  Then the same seeded run at 10 accounts and 40
+              mismatches; the launches' ``launch_widths``.  Then
+              ``card_signed``: the same load with the signed-digit windows
+              (``_SIGNED_WIN`` set for the run and its check): hash for hash
+              with the card run, no unsigned launch, pair launches > 0 (the
+              kernel of ``signed_variant`` at each width), 0 stalls, and
+              every launch equal to the signed plain version.  Then the
+              same seeded run at 10 accounts and 40
               payments on the card and on the plain versions on the CPU,
               hash for hash (the plain version costs about a second a call
               on the CPU whatever the batch, and the full load makes ~1350
@@ -143,7 +159,8 @@ phase's failure is caught while the run carries on):
               unpolluted), device dispatches under the ``overlay`` caller
               (``device_dispatches`` in the backends' stats), no plain
               call, no stall, and every launch's verdicts held against the
-              plain version on the card afterwards;
+              plain version on the card afterwards; the launches'
+              ``launch_widths``;
 12. fuzz    — ``--genfuzz`` then ``--fuzz`` through ``python -m
               stellar_tpu_torch.main.cli`` (its node pair on the card):
               both exit 0.
@@ -188,6 +205,10 @@ GRAPH_LAUNCHES = 50  # kernel launches captured in one CUDA graph to time a kern
 # the verify kernel's ragged chunks: a 5000-tx ledger's tail (5000 - 4096)
 # and a 300-envelope SCP flush
 TAIL_LANES = (904, 300)
+# the widths the node's busiest paths launch the verify kernel at
+# (node_consensus ~1 lane a launch, scenario_flood ~2.6: their
+# launch_widths), timed beside the chunk widths
+NODE_WIDTHS = (1, 3, 16, 64)
 # bound of the verify kernel (csrc/ed25519_verify.cu header note): field
 # squarings and multiplications per lane of the JAX kernel's algorithm (64
 # windows, the table of k·(-A), decompress, compress) — the same work
@@ -502,7 +523,33 @@ def launch_floor_ms():
     return graph_ms(lambda: sc.launch_noop(torch.device("cuda")))
 
 
-def phase_kernels(rng, ledger_items):
+def verify_bound(lanes, signed):
+    """(bound ms, what bounds it) of ``lanes`` verifies: the JAX kernel's
+    integer multiply-adds over the card's INT32 rate, or each lane's 128
+    packed bytes read and verdict written over its memory rate."""
+    muls = FIELD_MULS_PER_VERIFY_SIGNED if signed else FIELD_MULS_PER_VERIFY
+    imads = muls * IMAD_PER_FIELD_MUL + FIELD_SQRS_PER_VERIFY * IMAD_PER_FIELD_SQR
+    ops_s = lanes * imads / H100_IMAD_PER_S
+    bytes_s = lanes * (128 + 1) / H100_BYTES_PER_S
+    return 1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
+
+
+def verify_widths(fn, packed, plain, signed, floor_ms, widths=NODE_WIDTHS + TAIL_LANES):
+    """``fn`` on the first n lanes of ``packed`` for each n of ``widths``:
+    held against the first n plain verdicts, graph-timed, beside the bound
+    of n verifies and the launch floor."""
+    out = {}
+    for n in widths:
+        part = packed[:, :n].contiguous()
+        bad = int((fn(part) != plain[:n]).sum())
+        assert bad == 0, f"kernel disagrees with the plain version on {bad} of the first {n} lanes"
+        out[n] = {"mismatches": bad, "accepts": int(plain[:n].sum()),
+                  "ms": graph_ms(lambda: fn(part)), "call_ms": cuda_ms(lambda: fn(part), 7),
+                  "bound_ms": verify_bound(n, signed)[0], "launch_floor_ms": floor_ms}
+    return out
+
+
+def phase_kernels(rng, ledger_items, floor_ms):
     import torch
 
     from stellar_tpu_torch.ops import ed25519 as ed
@@ -522,13 +569,7 @@ def phase_kernels(rng, ledger_items):
     ms = graph_ms(lambda: ec.verify_packed(packed))
     call_ms = cuda_ms(lambda: ec.verify_packed(packed), 7)
     plain_ms = cuda_ms(lambda: ed._verify_packed(packed), 3)
-    tails = {}
-    for n in TAIL_LANES:
-        part = packed[:, :n].contiguous()
-        bad = int((ec.verify_packed(part) != plain[:n]).sum())
-        assert bad == 0, f"kernel disagrees with the plain version on {bad} of the first {n} lanes"
-        tails[n] = {"mismatches": bad, "ms": graph_ms(lambda: ec.verify_packed(part)),
-                    "call_ms": cuda_ms(lambda: ec.verify_packed(part), 7)}
+    widths = verify_widths(ec.verify_packed, packed, plain, False, floor_ms)
     # the same lanes 8 times over: 4096 lanes fill one warp per scheduler at
     # most; the wide shape shows how the time grows past that
     wide = packed.repeat(1, WIDE_FACTOR).contiguous()
@@ -537,10 +578,7 @@ def phase_kernels(rng, ledger_items):
     wide_ms = graph_ms(lambda: ec.verify_packed(wide), reps=3)
     wide_call_ms = cuda_ms(lambda: ec.verify_packed(wide), 5)
     threads_per_lane, block_threads = ec.geometry()
-    imads = FIELD_MULS_PER_VERIFY * IMAD_PER_FIELD_MUL + FIELD_SQRS_PER_VERIFY * IMAD_PER_FIELD_SQR
-    ops_s = LANES * imads / H100_IMAD_PER_S
-    bytes_s = (packed.numel() + LANES) / H100_BYTES_PER_S
-    bound_ms = 1e3 * max(ops_s, bytes_s)
+    bound_ms, bound_by = verify_bound(LANES, False)
     row = {
         "name": "ed25519_verify",
         "route": "cuda",
@@ -554,13 +592,14 @@ def phase_kernels(rng, ledger_items):
         "call_ms": call_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+        "bound_by": bound_by,
         "library_ms": None,
         "threads_per_lane": threads_per_lane,
         "block_threads": block_threads,
     }
-    emit({"phase": "kernels", **row, "tails": tails, "wide_lanes": wide.shape[1],
-          "wide_mismatches": wide_bad, "wide_ms": wide_ms, "wide_call_ms": wide_call_ms})
+    emit({"phase": "kernels", **row, "widths": widths, "wide_lanes": wide.shape[1],
+          "wide_mismatches": wide_bad, "wide_ms": wide_ms, "wide_call_ms": wide_call_ms,
+          "wide_bound_ms": verify_bound(wide.shape[1], False)[0], "launch_floor_ms": floor_ms})
     return row, packed
 
 
@@ -587,77 +626,86 @@ def raw_carry_lanes(packed, accepted, n=RAW_CARRY_LANES):
     return src
 
 
-def phase_kernel_signed(packed):
-    """``ed25519_verify_signed``: the signed-digit instance against the
-    signed plain version on the kernel phase's lanes, tails, wide shape and
-    raw-carry lanes; both instances graph-timed in turns."""
+def phase_kernel_signed(packed, floor_ms):
+    """The signed-digit windows' two kernels, ``ed25519_verify_signed`` (the
+    wide variant) and ``ed25519_verify_signed_pair`` (the pair), each forced
+    and held against the signed plain version on the kernel phase's lanes,
+    every width of ``verify_widths``, the wide shape and the raw-carry
+    lanes; both with the unsigned kernel graph-timed in turns at 4096 and
+    32768 lanes.  Returns the kernels line's rows: the wide variant at 4096
+    lanes, the pair at one lane (the node's usual launch, NODE_WIDTHS[0])."""
     import torch
 
     from stellar_tpu_torch.ops import ed25519 as ed
     from stellar_tpu_torch.ops import ed25519_cuda as ec
 
-    def signed(p):
-        return ec.verify_packed(p, signed=True)
-
     def unsigned(p):
         return ec.verify_packed(p, signed=False)
 
-    got = signed(packed)
-    torch.cuda.synchronize()
+    kernels = {v: (lambda p, v=v: ec.verify_packed(p, signed=True, variant=v))
+               for v in ec.SIGNED_VARIANTS}
     plain = ed._verify_packed(packed, signed=True)
     torch.cuda.synchronize()
-    mismatches = int((got != plain).sum())
-    max_abs_err = int((got.to(torch.int32) - plain.to(torch.int32)).abs().max())
-    assert mismatches == 0, f"signed kernel disagrees with the signed plain version on {mismatches} lanes"
     # the valid-signature class (s < L, h mod L): the unsigned verdicts too
     accepted = unsigned(packed)
-    assert torch.equal(got[0::8], accepted[0::8]), "the instances part on valid lanes"
     raw = torch.from_numpy(raw_carry_lanes(packed, accepted.cpu().tolist())).cuda()
     raw_plain = ed._verify_packed(raw, signed=True)
-    raw_bad = int((signed(raw) != raw_plain).sum())
-    assert raw_bad == 0, f"signed kernel disagrees on {raw_bad} raw-carry lanes"
     assert not raw_plain.any() and unsigned(raw).all(), "the raw-carry lanes do not part the instances"
-    tails = {}
-    for n in TAIL_LANES:
-        part = packed[:, :n].contiguous()
-        bad = int((signed(part) != plain[:n]).sum())
-        assert bad == 0, f"signed kernel disagrees with the signed plain version on {bad} of the first {n} lanes"
-        tails[n] = {"mismatches": bad, "ms": graph_ms(lambda: signed(part)),
-                    "call_ms": cuda_ms(lambda: signed(part), 7)}
     wide = packed.repeat(1, WIDE_FACTOR).contiguous()
-    wide_bad = int((signed(wide) != plain.repeat(WIDE_FACTOR)).sum())
-    assert wide_bad == 0, f"signed kernel disagrees with the signed plain version on {wide_bad} wide lanes"
-    # both instances on the same lanes, in turns: unsigned, signed, signed, unsigned
+    checks = {}
+    for v, fn in kernels.items():
+        got = fn(packed)
+        torch.cuda.synchronize()
+        bad = int((got != plain).sum())
+        assert bad == 0, f"signed {v} kernel disagrees with the signed plain version on {bad} lanes"
+        assert torch.equal(got[0::8], accepted[0::8]), f"signed {v} and unsigned part on valid lanes"
+        raw_bad = int((fn(raw) != raw_plain).sum())
+        assert raw_bad == 0, f"signed {v} kernel disagrees on {raw_bad} raw-carry lanes"
+        wide_bad = int((fn(wide) != plain.repeat(WIDE_FACTOR)).sum())
+        assert wide_bad == 0, f"signed {v} kernel disagrees on {wide_bad} wide lanes"
+        checks[v] = {"mismatches": bad, "max_abs_err": int((got.int() - plain.int()).abs().max()),
+                     "raw_carry_mismatches": raw_bad, "wide_mismatches": wide_bad,
+                     "widths": verify_widths(fn, packed, plain, True, floor_ms)}
+    # the three kernels on the same lanes, in turns: unsigned, wide, pair, pair, wide, unsigned
     turns = {}
     for p, reps in ((packed, 5), (wide, 3)):
-        ms = [graph_ms(lambda: fn(p), reps=reps) for fn in (unsigned, signed, signed, unsigned)]
-        turns[p.shape[1]] = {"unsigned_ms": [ms[0], ms[3]], "signed_ms": [ms[1], ms[2]],
-                             "signed_over_unsigned": (ms[1] + ms[2]) / (ms[0] + ms[3])}
-    call_ms = cuda_ms(lambda: signed(packed), 7)
-    plain_ms = cuda_ms(lambda: ed._verify_packed(packed, signed=True), 3)
-    imads = FIELD_MULS_PER_VERIFY_SIGNED * IMAD_PER_FIELD_MUL + FIELD_SQRS_PER_VERIFY * IMAD_PER_FIELD_SQR
-    ops_s = LANES * imads / H100_IMAD_PER_S
-    bytes_s = (packed.numel() + LANES) / H100_BYTES_PER_S
-    row = {
-        "name": "ed25519_verify_signed",
-        "route": "cuda",
-        "source": "stellar_tpu_torch/csrc/ed25519_verify.cu",
-        "replaces": "stellar_tpu/ops/ed25519_pallas.py:171",
-        "lanes": LANES,
-        "mismatches": mismatches,
-        "max_abs_err": max_abs_err,
-        "ms": statistics.median(turns[LANES]["signed_ms"]),
-        "call_ms": call_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": 1e3 * max(ops_s, bytes_s),
-        "bound_by": "operations" if ops_s >= bytes_s else "bytes",
-        "library_ms": None,
-    }
-    emit({"phase": "kernels", **row, "signed": True, "raw_carry_lanes": int(raw.shape[1]),
-          "raw_carry_mismatches": raw_bad, "tails": tails, "wide_lanes": wide.shape[1],
-          "wide_mismatches": wide_bad, "turns": turns,
-          "residency": {"unsigned": ec.residency(False), "signed": ec.residency(True)}})
-    return row
+        order = [unsigned, kernels["wide"], kernels["pair"]]
+        order += order[::-1]
+        ms = [graph_ms(lambda: fn(p), reps=reps) for fn in order]
+        turns[p.shape[1]] = {"unsigned_ms": [ms[0], ms[5]], "wide_ms": [ms[1], ms[4]],
+                             "pair_ms": [ms[2], ms[3]],
+                             "wide_over_unsigned": (ms[1] + ms[4]) / (ms[0] + ms[5]),
+                             "pair_over_wide": (ms[2] + ms[3]) / (ms[1] + ms[4]),
+                             "bound_ms": {"unsigned": verify_bound(p.shape[1], False)[0],
+                                          "signed": verify_bound(p.shape[1], True)[0]},
+                             "launch_floor_ms": floor_ms}
+    emit({"phase": "kernels", "name": "ed25519_verify_signed", "signed": True,
+          "raw_carry_lanes": int(raw.shape[1]), "wide_lanes": wide.shape[1], "variants": checks,
+          "rule": {n: ec.signed_variant(n) for n in (*NODE_WIDTHS, *TAIL_LANES, LANES)},
+          "turns": turns,
+          "residency": {"unsigned": ec.residency(False), **ec.residency(True)}})
+    rows = []
+    for v, name, n in (("wide", "ed25519_verify_signed", LANES),
+                       ("pair", "ed25519_verify_signed_pair", NODE_WIDTHS[0])):
+        part = packed[:, :n].contiguous()
+        bound_ms, bound_by = verify_bound(n, True)
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "stellar_tpu_torch/csrc/ed25519_verify.cu",
+            "replaces": "stellar_tpu/ops/ed25519_pallas.py:171",
+            "lanes": n,
+            "max_abs_err": checks[v]["max_abs_err"],
+            "ms": (statistics.median(turns[LANES][f"{v}_ms"]) if n == LANES
+                   else checks[v]["widths"][n]["ms"]),
+            "call_ms": cuda_ms(lambda: kernels[v](part), 7),
+            "plain_ms": cuda_ms(lambda: ed._verify_packed(part, signed=True), 3),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
+        })
+        emit({"phase": "kernels", **rows[-1], "variant": v})
+    return rows
 
 
 def sha512_lanes(rng, ledger_items, n=LANES):
@@ -957,7 +1005,7 @@ def phase_main(fx, rng, loads, device_hash=False):
     backend = make_backend("gpu", cache=VerifySigCache(), tracer=tracer, device_hash=device_hash)
     phase = "main_path_device_hash" if device_hash else "main_path"
     results = []
-    ec.launches = ec.signed_launches = sc.launches = 0
+    ec.launches = ec.signed_launches = ec.signed_pair_launches = sc.launches = 0
     ed.plain_calls = tsha.plain_calls = 0
     for name, caller, items, want, run in loads(backend):
         before = (ec.launches, sc.launches)
@@ -991,7 +1039,8 @@ def phase_main(fx, rng, loads, device_hash=False):
     else:
         assert launches["sha512_h"] == 0, "the host-hash path launched the SHA-512 kernel"
     assert plain_calls == {"ed25519": 0, "sha512": 0}, f"plain versions ran on the main path: {plain_calls}"
-    assert ec.signed_launches == 0, "the main path launched the signed instance with the knob off"
+    assert ec.signed_launches == ec.signed_pair_launches == 0, \
+        "the main path launched a signed kernel with the knob off"
     assert stats["device_hash"] is device_hash, stats["device_hash"]
     for key in ("cpu_cutover_items", "host_assist_items"):
         assert stats[key] == 0, f"{key} = {stats[key]}: items left the device"
@@ -1491,7 +1540,7 @@ def _node_counts(reset=False):
     from stellar_tpu_torch.ops import sha512_cuda as sc
 
     if reset:
-        ec.launches = ec.signed_launches = sc.launches = 0
+        ec.launches = ec.signed_launches = ec.signed_pair_launches = sc.launches = 0
         c256.launches = c256.lane_launches = c256.pair_launches = 0
         ed.plain_calls = tsha.plain_calls = t256.plain_calls = 0
         keys.reset_stats()
@@ -1499,6 +1548,7 @@ def _node_counts(reset=False):
         return None
     return {
         "launches": {"ed25519_verify": ec.launches, "ed25519_verify_signed": ec.signed_launches,
+                     "ed25519_verify_signed_pair": ec.signed_pair_launches,
                      "sha512_h": sc.launches, "sha256_frames": c256.launches,
                      "sha256_frames_lane": c256.lane_launches,
                      "sha256_frames_pair": c256.pair_launches},
@@ -1518,6 +1568,16 @@ def _stalls(stats):
 
 def node_close_leg(load, tmp, leg, device, device_hash, untimed_close, rounds=NODE_ROUNDS,
                    **knobs):
+    """``close_leg`` under a width-only ``VerifyTap``: its line gains the
+    leg's ``launch_widths``."""
+    with VerifyTap(keep=False) as tap:
+        line = close_leg(load, tmp, leg, device, device_hash, untimed_close, rounds, **knobs)
+    line["launch_widths"] = tap.launch_widths()
+    emit(line)
+    return line
+
+
+def close_leg(load, tmp, leg, device, device_hash, untimed_close, rounds, **knobs):
     """One standalone validator: the account ledgers, ``rounds`` timed
     closes (``TxSetFrame.check_valid`` + ``LedgerManager.close_ledger``, on
     the card the next round registered as the close pipeline's prewarm
@@ -1601,7 +1661,6 @@ def node_close_leg(load, tmp, leg, device, device_hash, untimed_close, rounds=NO
         "cpu_cutover_items": stats["cpu_cutover_items"], "ledger_hashes": hashes,
         "mesh_devices": stats["mesh_devices"], "pipeline": app.close_pipeline.stats(),
     }
-    emit(line)
     return line
 
 
@@ -1632,6 +1691,7 @@ def phase_node_close(fx, tmp):
     assert [ln["stalls"] for ln in (card, card_dh, plain)] == [0, 0, 0], "a dispatch stalled"
     for line in (card, card_dh, *meshes):
         assert line["launches"]["ed25519_verify_signed"] == 0, f"{line['leg']}: a signed launch"
+        assert line["launches"]["ed25519_verify_signed_pair"] == 0, f"{line['leg']}: a signed launch"
     for line in (card, card_dh):
         assert line["launches"]["ed25519_verify"] > 0, f"{line['leg']}: no verify launch"
         assert line["plain_calls"] == {"ed25519": 0, "sha512": 0, "sha256": 0}, line["plain_calls"]
@@ -1646,14 +1706,16 @@ def phase_node_close(fx, tmp):
     return {"ed25519_verify": card["launches"]["ed25519_verify"] + card_dh["launches"]["ed25519_verify"],
             "sha512_h": card_dh["launches"]["sha512_h"],
             "mesh_ed25519_verify": sum(ln["launches"]["ed25519_verify"] for ln in meshes),
-            "ed25519_verify_signed": signed["launches"]["ed25519_verify_signed"]}
+            "ed25519_verify_signed": signed["launches"]["ed25519_verify_signed"],
+            "ed25519_verify_signed_pair": signed["launches"]["ed25519_verify_signed_pair"]}
 
 
 def node_close_signed_leg(load, tmp, card):
     """``card_signed``: the card leg with the signed-digit windows, the
     module constant ``_SIGNED_WIN`` set for the leg and restored after it.
-    Hash for hash with the card leg; every verify launch a signed one, no
-    plain call, 0 stalls."""
+    Hash for hash with the card leg; every verify launch a signed one (the
+    kernel of ``signed_variant``: the wide variant on the 4096-lane chunks,
+    the pair on the narrow ones), no plain call, 0 stalls."""
     from stellar_tpu_torch.ops import ed25519 as ed
 
     was = ed._SIGNED_WIN
@@ -1664,7 +1726,10 @@ def node_close_signed_leg(load, tmp, card):
         ed._SIGNED_WIN = was
     assert leg["ledger_hashes"] == card["ledger_hashes"], "card_signed disagrees with the card leg"
     assert leg["launches"]["ed25519_verify"] == 0, f"card_signed reached the unsigned kernel: {leg['launches']}"
-    assert leg["launches"]["ed25519_verify_signed"] > 0, "card_signed never launched the signed kernel"
+    signed = leg["launches"]["ed25519_verify_signed"] + leg["launches"]["ed25519_verify_signed_pair"]
+    assert signed > 0, "card_signed never launched a signed kernel"
+    by_rule = signed_by_rule(leg["launch_widths"])
+    assert by_rule == {k: leg["launches"][k] for k in by_rule}, (by_rule, leg["launches"])
     assert leg["plain_calls"] == {"ed25519": 0, "sha512": 0, "sha256": 0}, leg["plain_calls"]
     assert leg["stalls"] == 0 and leg["bad_tx"] == "txBAD_AUTH" and leg["cpu_cutover_items"] == 0, leg
     return leg
@@ -1755,23 +1820,28 @@ def consensus_run(tmp, tag, device, n_accounts, n_txs, rate, bucket_hash_node=No
 
 
 class VerifyTap:
-    """While installed, every verify kernel launch keeps a copy of its
-    input chunk and its verdicts (on the card, on the launch's stream), so
-    a run's verdicts can be held against the plain version afterwards.  It
-    wraps the wrapper: the launch count is the wrapper's own.  Install it
-    before the nodes are built: a verifier binds the wrapper when built."""
+    """While installed, every call of the verify wrapper counts its width
+    (lanes) and, with ``keep``, keeps a copy of its input chunk and its
+    verdicts (on the card, on the launch's stream), so a run's verdicts can
+    be held against the plain version afterwards.  It wraps the wrapper:
+    the launch counts are the wrapper's own.  Install it before the nodes
+    are built: a verifier binds the wrapper when built."""
 
-    def __init__(self):
+    def __init__(self, keep=True):
         from stellar_tpu_torch.ops import ed25519_cuda
 
         self.mod = ed25519_cuda
         self.launch = ed25519_cuda.verify_packed
+        self.keep = keep
         self.calls = []
+        self.widths = {}
 
     def __enter__(self):
-        def tapped(p):
-            out = self.launch(p)
-            self.calls.append((p.clone(), out.clone()))
+        def tapped(p, *args, **kwargs):
+            out = self.launch(p, *args, **kwargs)
+            self.widths[p.shape[1]] = self.widths.get(p.shape[1], 0) + 1
+            if self.keep:
+                self.calls.append((p.clone(), out.clone()))
             return out
 
         self.mod.verify_packed = tapped
@@ -1780,8 +1850,25 @@ class VerifyTap:
     def __exit__(self, *exc):
         self.mod.verify_packed = self.launch
 
+    def launch_widths(self):
+        """{lanes: calls} of the run, by width."""
+        return dict(sorted(self.widths.items()))
+
     def check(self):
         return verify_calls_vs_plain(self.calls)
+
+
+def signed_by_rule(widths):
+    """The launch counts that ``signed_variant`` gives a run of the signed
+    windows with these launch widths ({lanes: calls}), keyed as
+    ``_node_counts`` keys them."""
+    from stellar_tpu_torch.ops import ed25519_cuda as ec
+
+    out = {"ed25519_verify": 0, "ed25519_verify_signed": 0, "ed25519_verify_signed_pair": 0}
+    for n, calls in widths.items():
+        out["ed25519_verify_signed_pair" if ec.signed_variant(n) == "pair"
+            else "ed25519_verify_signed"] += calls
+    return out
 
 
 def phase_node_consensus(tmp):
@@ -1809,9 +1896,11 @@ def phase_node_consensus(tmp):
     assert all(_stalls(st) == 0 for st in full["stats"])
     assert full["bucket_backends"] == ["device-cuda", "native", "native"], full["bucket_backends"]
     verdicts = tap.check()
-    emit({"phase": "node_consensus", "run": "card", "verdicts_vs_plain": verdicts})
+    emit({"phase": "node_consensus", "run": "card", "verdicts_vs_plain": verdicts,
+          "launch_widths": tap.launch_widths()})
     assert verdicts["launches"] == c["launches"]["ed25519_verify"], verdicts
     assert verdicts["mismatches"] == 0, verdicts
+    signed = consensus_signed_run(tmp, full)
     pair = {}
     for device in ("cuda", "cpu"):
         run = consensus_run(tmp, f"pair-{device}", device, PAIR_ACCOUNTS, PAIR_TXS, PAIR_RATE)
@@ -1830,7 +1919,48 @@ def phase_node_consensus(tmp):
     emit({"phase": "node_consensus", "pair_hashes_equal": n})
     return {"ed25519_verify": c["launches"]["ed25519_verify"],
             "sha256_frames": c["launches"]["sha256_frames_lane"],
-            "sha256_frames_pair": c["launches"]["sha256_frames_pair"]}
+            "sha256_frames_pair": c["launches"]["sha256_frames_pair"],
+            **{k: signed["launches"][k]
+               for k in ("ed25519_verify_signed", "ed25519_verify_signed_pair")}}
+
+
+def consensus_signed_run(tmp, card):
+    """``card_signed``: the full consensus load again with the signed-digit
+    windows (``_SIGNED_WIN`` set for the run and for its check, restored
+    after): hash for hash with the ``card`` run, every launch a signed one
+    of the kernel ``signed_variant`` picks, no plain call, 0 stalls, and
+    every launch's verdicts equal to the signed plain version's.  Returns
+    the run's counts."""
+    from stellar_tpu_torch.ops import ed25519 as ed
+
+    was = ed._SIGNED_WIN
+    ed._SIGNED_WIN = True
+    try:
+        with VerifyTap() as tap:
+            run = consensus_run(tmp, "consensus-signed", "cuda", CONSENSUS_ACCOUNTS, CONSENSUS_TXS,
+                                CONSENSUS_RATE, bucket_hash_node=0)
+        verdicts = tap.check()
+    finally:
+        ed._SIGNED_WIN = was
+    c = run["counts"]
+    widths = tap.launch_widths()
+    n = min(run["ledgers"], card["ledgers"])
+    emit({"phase": "node_consensus", "run": "card_signed", "accounts": CONSENSUS_ACCOUNTS,
+          "payments": CONSENSUS_TXS, "ledgers": run["ledgers"], "txs_applied": run["applied"],
+          "wall_s": run["wall_s"], "virtual_s": run["virtual_s"], **c,
+          "stalls": sum(_stalls(st) for st in run["stats"]), "verdicts_vs_plain": verdicts,
+          "launch_widths": widths, "hashes_equal_to_card": n - 1})
+    assert run["ledgers"] >= CONSENSUS_LEDGERS
+    assert [h[:n - 1] for h in run["hashes"]] == [h[:n - 1] for h in card["hashes"]], \
+        "card_signed disagrees with the card run"
+    by_rule = signed_by_rule(widths)
+    assert by_rule == {k: c["launches"][k] for k in by_rule}, (by_rule, c["launches"])
+    assert c["launches"]["ed25519_verify"] == 0, f"card_signed reached the unsigned kernel: {c}"
+    assert c["launches"]["ed25519_verify_signed_pair"] > 0, "card_signed never launched the pair"
+    assert c["plain_calls"] == {"ed25519": 0, "sha512": 0, "sha256": 0}, c
+    assert all(_stalls(st) == 0 for st in run["stats"])
+    assert verdicts["mismatches"] == 0 and verdicts["launches"] == sum(widths.values()), verdicts
+    return c
 
 
 # -- phase 11: the chaos scenario on the card --------------------------------
@@ -1902,7 +2032,8 @@ def phase_scenario_flood():
     assert counts["plain_calls"] == {"ed25519": 0, "sha512": 0, "sha256": 0}, counts
     assert line["stalls"] == 0 and line["cpu_cutover_items"] == 0, "a batch stalled or left the card"
     verdicts = tap.check()
-    emit({"phase": "scenario_flood", "verdicts_vs_plain": verdicts})
+    emit({"phase": "scenario_flood", "verdicts_vs_plain": verdicts,
+          "launch_widths": tap.launch_widths()})
     assert verdicts["launches"] == counts["launches"]["ed25519_verify"], verdicts
     assert verdicts["mismatches"] == 0, verdicts
     return counts["launches"]["ed25519_verify"]
@@ -2034,10 +2165,10 @@ def main() -> int:
 
         floor_ms = launch_floor_ms()
         emit({"phase": "kernels", "name": "noop", "launch_floor_ms": floor_ms})
-        b1_row, b1_packed = phase_kernels(rng, ledger1[0])
+        b1_row, b1_packed = phase_kernels(rng, ledger1[0], floor_ms)
         rows = [
             b1_row,
-            phase_kernel_signed(b1_packed),
+            *phase_kernel_signed(b1_packed, floor_ms),
             phase_kernel_sha512(rng, ledger1[0]),
             *phase_kernel_sha256(frames, frame_len),
         ]
@@ -2088,10 +2219,9 @@ def main() -> int:
         phase_fuzz(tmp)
 
     rows[0]["launches"] = launches["ed25519_verify"]
-    rows[1]["launches"] = close_launches["ed25519_verify_signed"]
-    rows[2]["launches"] = dh_launches["sha512_h"]
-    rows[3]["launches"] = bucket_launches["lane"]
-    rows[4]["launches"] = bucket_launches["pair"]
+    rows[3]["launches"] = dh_launches["sha512_h"]
+    rows[4]["launches"] = bucket_launches["lane"]
+    rows[5]["launches"] = bucket_launches["pair"]
     # each path's own count, set to 0 just before it and read just after
     rows[0]["launches_by_path"] = {"main_path": launches["ed25519_verify"],
                                    "mesh": mesh_launches["ed25519_verify"],
@@ -2099,13 +2229,19 @@ def main() -> int:
                                    "node_close_mesh": close_launches["mesh_ed25519_verify"],
                                    "node_consensus": consensus_launches["ed25519_verify"],
                                    "scenario_flood": flood_launches}
-    rows[1]["launches_by_path"] = {"node_close_signed": close_launches["ed25519_verify_signed"]}
-    rows[2]["launches_by_path"] = {"main_path_device_hash": dh_launches["sha512_h"],
+    # the signed windows' two kernels: the node_close card_signed leg and
+    # the node_consensus card_signed run
+    for row in rows[1:3]:
+        row["launches_by_path"] = {"node_close_signed": close_launches[row["name"]],
+                                   "node_consensus_signed": consensus_launches[row["name"]]}
+        row["launches"] = sum(row["launches_by_path"].values())
+    rows[3]["launches_by_path"] = {"main_path_device_hash": dh_launches["sha512_h"],
                                    "mesh": mesh_launches["sha512_h"],
                                    "node_close": close_launches["sha512_h"]}
-    for row, kernel in ((rows[3], "lane"), (rows[4], "pair")):
+    for row, kernel in ((rows[4], "lane"), (rows[5], "pair")):
         row["launches_by_path"] = {"bucket_hash": bucket_launches[kernel],
                                    "node_consensus": consensus_launches[SHA256_KERNELS[kernel]]}
+    assert all(row["launches"] > 0 for row in rows), {row["name"]: row["launches"] for row in rows}
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
             "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{**{k: row[k] for k in keys}, "launch_floor_ms": floor_ms}

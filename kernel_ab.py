@@ -13,9 +13,10 @@ port's nvcc flags into a temporary directory; this checkout's kernel is
 built as the port builds it.  The lanes are those of ``chip_smoke.py``'s
 kernels phase:
 
-- ``ed25519_verify``: 4096 mixed lanes, their first 904 (a 5000-tx
-  ledger's tail chunk) and first 300 (an SCP flush), and the 4096 eight
-  times over (32768);
+- ``ed25519_verify``: the first n of 4096 mixed lanes for n in
+  ``VERIFY_WIDTHS`` (the node's launch widths 1, 3, 16 and 64, an SCP
+  flush's 300, a 5000-tx ledger's tail chunk of 904, the 4096-lane chunk)
+  and the 4096 eight times over (32768);
 - ``sha512_h``: 4096 device-hash lanes (``chip_smoke.sha512_lanes``), their
   first 904, and the 4096 eight times over (32768);
 - ``sha256_frames``: every shape of ``chip_smoke.sha256_shapes`` on the
@@ -25,12 +26,19 @@ kernels phase:
 On each shape both kernels' results must equal the plain version's; then
 each is timed by ``chip_smoke.graph_ms`` (launches captured in a CUDA graph,
 replayed between one event pair; median of ``--reps`` replays) in turns:
-baseline, change, change, baseline.  For ``ed25519_verify`` a third side,
-``signed``, is this checkout's signed-digit instance (``verify_packed(p,
-signed=True)``, ``STELLAR_TPU_SIGNED_WINDOWS``), held against the signed
-plain version and timed in the same turns: baseline, change, signed,
-signed, change, baseline; its line gives the signed-over-unsigned ratio of
-this checkout beside the change-over-baseline speedup.  Prints one JSON line
+baseline, change, change, baseline.  For ``ed25519_verify`` the signed-digit
+instance (``STELLAR_TPU_SIGNED_WINDOWS``) has sides of its own, held against
+the signed plain version: ``baseline_signed`` (BASELINE.cu's
+``ed25519_verify_signed_launch``, where it exports one) and ``signed``
+(this checkout's ``verify_packed(p, signed=True)``, the variant its rule
+picks); the turns run baseline, change, baseline_signed, signed and back,
+and each line gives ``speedup`` (unsigned, baseline over change),
+``signed_speedup`` (baseline_signed over signed) and
+``signed_over_change``.  Where this checkout has two signed variants
+(``ed25519_cuda.SIGNED_VARIANTS``) a sweep follows: both forced at each
+width of ``VERIFY_SWEEP`` (1..32768 lanes; turns wide, pair, pair, wide),
+each line with the rule's pick (``signed_variant``) and the faster one.
+Prints one JSON line
 per shape, the ptxas report of both builds, and the nvidia-smi line.  For ``sha512_h`` it
 also prints, per shape, the cycle stamps of block 0's two warps at the
 kernel's phase boundaries (this checkout's source built with
@@ -110,31 +118,136 @@ def ptxas_of(mod):
         return [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
 
 
-def verify_sides(base, packed):
-    """(baseline, change, plain, shapes, extra sides) of the verify kernel;
-    the extra side is the signed instance with its own plain verdicts."""
+# the widths of the verify kernel's A/B: the node's launches, its chunks, and
+# the chunk eight times over
+VERIFY_WIDTHS = (*chip_smoke.NODE_WIDTHS, *chip_smoke.TAIL_LANES[::-1], chip_smoke.LANES,
+                 chip_smoke.LANES * chip_smoke.WIDE_FACTOR)
+# the signed variants' sweep, 1..32768 lanes: one to a few blocks, the
+# widths where a block an SM ends (the pair's 1056, the wide variant's
+# 2112) and the resident limits
+VERIFY_SWEEP = (1, 2, 3, 4, 8, 16, 32, 64, 128, 256, 300, 512, 768, 904, 1024, 1056, 1152,
+                1536, 2048, 2112, 2304, 3072, 4096, 4224, 6144, 8192, 12672, 16384, 25344,
+                32768)
+
+
+# csrc/ed25519_verify.cu's pair_stamp(k) points, in k order: the chain
+# warp stamps all but 5, the comb warp 0-2 and 4-6 (its 4 is the comb sum)
+PAIR_STAMPS = ("start", "constants", "decoded", "table_built", "windows_or_comb_done",
+               "comb_handed_over", "joined", "verdict_stored")
+PAIR_STAMPED = (1, 64, 904, 2048)
+
+
+def pair_stamps(packed):
+    """Block 0's cycle stamps of this checkout's pair at each width of
+    PAIR_STAMPED (the source built with -DED25519_PAIR_STAMPS): one JSON line
+    a width, with the SM clock that the chain warp's stamps and the global
+    timer give."""
+    import numpy as np
+    import torch
+
+    from stellar_tpu_torch.ops import ed25519_cuda as ec
+
+    consts, comb = (torch.from_numpy(a).cuda() for a in (ec.kernel_constants(), ec.comb_table()))
+    with tempfile.TemporaryDirectory() as tmp:
+        lib, _ = build(ec.SOURCE, tmp, "ed25519_pair_stamps", ["-DED25519_PAIR_STAMPS"])
+        lib.ed25519_verify_signed_pair_launch.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + \
+            [ctypes.c_void_p] * 3
+        lib.ed25519_pair_stamps.argtypes = [ctypes.c_void_p]
+        k = len(PAIR_STAMPS)
+        for n in PAIR_STAMPED:
+            p = packed[:, :n].contiguous()
+            out = torch.empty(n, dtype=torch.uint8, device=p.device)
+            stamps = np.zeros(2 * k + 2, dtype=np.int64)
+            for _ in range(2):  # the second launch's stamps, the code warm
+                assert lib.ed25519_verify_signed_pair_launch(
+                    p.data_ptr(), out.data_ptr(), n, consts.data_ptr(), comb.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream) == 0
+                assert lib.ed25519_pair_stamps(stamps.ctypes.data) == 0
+            cyc = stamps[:-2].reshape(2, k)
+            t0 = cyc[0, 0]
+            ns = int(stamps[-1] - stamps[-2])
+            warps = {w: {PAIR_STAMPS[j]: int(cyc[i, j] - t0) for j in range(k) if cyc[i, j]}
+                     for i, w in enumerate(("chain", "comb"))}
+            print(json.dumps({"kernel": "ed25519_verify", "stamps": "pair", "lanes": n,
+                              "block0_ns": ns, "ghz": (cyc[0, -1] - cyc[0, 0]) / ns if ns else None,
+                              "warps": warps}), flush=True)
+
+
+def verify_ab(base, packed, reps):
+    """The ed25519_verify A/B (module docstring): one JSON line a width,
+    then the sweep of the signed variants where this checkout has two."""
     import torch
 
     from stellar_tpu_torch.ops import ed25519 as ed
     from stellar_tpu_torch.ops import ed25519_cuda as ec
 
-    base.ed25519_verify_launch.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-    base.ed25519_verify_launch.restype = ctypes.c_int
-    base.ed25519_const_ints.restype = ctypes.c_int
     consts = torch.from_numpy(ec.kernel_constants()).cuda()
+    base.ed25519_const_ints.restype = ctypes.c_int
     assert base.ed25519_const_ints() == consts.numel(), "constant blocks differ"
 
-    def run_base(p):
-        out = torch.empty(p.shape[1], dtype=torch.uint8, device=p.device)
-        err = base.ed25519_verify_launch(p.data_ptr(), out.data_ptr(), p.shape[1], consts.data_ptr(),
-                                         torch.cuda.current_stream().cuda_stream)
-        assert err == 0, f"baseline launch failed ({err})"
-        return out.view(torch.bool)
+    def base_launcher(fn):
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
 
-    plain = ed._verify_packed(packed, signed=False)
-    signed = (lambda p: ec.verify_packed(p, signed=True), ed._verify_packed(packed, signed=True))
-    return (run_base, lambda p: ec.verify_packed(p, signed=False), plain,
-            (chip_smoke.LANES, *chip_smoke.TAIL_LANES), {"signed": signed})
+        def run(p):
+            out = torch.empty(p.shape[1], dtype=torch.uint8, device=p.device)
+            err = fn(p.data_ptr(), out.data_ptr(), p.shape[1], consts.data_ptr(),
+                     torch.cuda.current_stream().cuda_stream)
+            assert err == 0, f"baseline launch failed ({err})"
+            return out.view(torch.bool)
+        return run
+
+    sides = {"baseline": (base_launcher(base.ed25519_verify_launch), False),
+             "change": (lambda p: ec.verify_packed(p, signed=False), False)}
+    if hasattr(base, "ed25519_verify_signed_launch"):
+        sides["baseline_signed"] = (base_launcher(base.ed25519_verify_signed_launch), True)
+    sides["signed"] = (lambda p: ec.verify_packed(p, signed=True), True)
+    variants = getattr(ec, "SIGNED_VARIANTS", None)
+    full = packed.repeat(1, -(-max(VERIFY_SWEEP + VERIFY_WIDTHS) // packed.shape[1])).contiguous()
+    plain_4096 = {s: ed._verify_packed(packed, signed=s) for s in (False, True)}
+    plain = {s: v.repeat(full.shape[1] // packed.shape[1]) for s, v in plain_4096.items()}
+
+    def turns(fns, p):
+        order = list(fns) + list(fns)[::-1]
+        t = [chip_smoke.graph_ms(lambda: fn(p), reps=reps) for fn in order]
+        return [[t[k], t[-1 - k]] for k in range(len(fns))]
+
+    def mismatches(fns, p, n):
+        bad = {}
+        for side, (fn, signed) in fns.items():
+            got = fn(p)
+            torch.cuda.synchronize()
+            bad[side] = int((got != plain[signed][:n]).sum())
+        assert not any(bad.values()), (n, bad)
+        return bad
+
+    for n in VERIFY_WIDTHS:
+        p = full[:, :n].contiguous()
+        bad = mismatches(sides, p, n)
+        ms = dict(zip(sides, turns([fn for fn, _ in sides.values()], p)))
+        line = {"kernel": "ed25519_verify", "lanes": n, "accepts": int(plain[False][:n].sum()),
+                "mismatches": bad, **{f"{side}_ms": t for side, t in ms.items()},
+                "speedup": sum(ms["baseline"]) / sum(ms["change"]),
+                "signed_over_change": sum(ms["signed"]) / sum(ms["change"])}
+        if "baseline_signed" in ms:
+            line["signed_speedup"] = sum(ms["baseline_signed"]) / sum(ms["signed"])
+        if variants:
+            line["signed_variant"] = ec.signed_variant(n)
+        print(json.dumps(line), flush=True)
+    if not variants:
+        return
+    pair_stamps(packed)
+    forced = {v: ((lambda p, v=v: ec.verify_packed(p, signed=True, variant=v)), True)
+              for v in variants}
+    for n in VERIFY_SWEEP:
+        p = full[:, :n].contiguous()
+        bad = mismatches(forced, p, n)
+        ms = dict(zip(forced, turns([fn for fn, _ in forced.values()], p)))
+        faster = min(ms, key=lambda v: sum(ms[v]))
+        print(json.dumps({"kernel": "ed25519_verify", "sweep": True, "lanes": n, "mismatches": bad,
+                          **{f"{v}_ms": ms[v] for v in ms},
+                          "pair_over_wide": sum(ms["pair"]) / sum(ms["wide"]),
+                          "rule_picks": ec.signed_variant(n), "faster": faster}), flush=True)
 
 
 def sha512_sides(base, packed):
@@ -155,7 +268,7 @@ def sha512_sides(base, packed):
         return out
 
     plain = tsha.h_rows_from_packed(packed).to(torch.uint8)
-    return run_base, sc.h_rows, plain, (chip_smoke.LANES, chip_smoke.TAIL_LANES[0]), {}
+    return run_base, sc.h_rows, plain, (chip_smoke.LANES, chip_smoke.TAIL_LANES[0])
 
 
 def sha512_stamps(out_dir, shapes):
@@ -346,46 +459,42 @@ def main() -> int:
             lambda k: [hashlib.sha256(b"l1 tx %d" % k).digest()],
         )
     if args.kernel == "ed25519_verify":
-        mod, sides, lanes = ed25519_cuda, verify_sides, chip_smoke.kernel_lanes(rng, items)
-    else:
-        mod, sides, lanes = sha512_cuda, sha512_sides, chip_smoke.sha512_lanes(rng, items)[0]
-    packed = torch.from_numpy(lanes).cuda()
+        packed = torch.from_numpy(chip_smoke.kernel_lanes(rng, items)).cuda()
+        with tempfile.TemporaryDirectory() as tmp:
+            base, base_ptxas = build(args.baseline, tmp, "ed25519_verify_baseline")
+            new_ptxas = ptxas_of(ed25519_cuda)
+            verify_ab(base, packed, args.reps)
+        print(json.dumps({"ptxas": {"baseline": base_ptxas, "change": new_ptxas}}))
+        print(smi)
+        return 0
+    packed = torch.from_numpy(chip_smoke.sha512_lanes(rng, items)[0]).cuda()
     with tempfile.TemporaryDirectory() as tmp:
-        base, base_ptxas = build(args.baseline, tmp, f"{args.kernel}_baseline")
-        new_ptxas = ptxas_of(mod)
-        run_base, run_change, plain, widths, extra = sides(base, packed)
+        base, base_ptxas = build(args.baseline, tmp, "sha512_h_baseline")
+        new_ptxas = ptxas_of(sha512_cuda)
+        run_base, run_change, plain, widths = sha512_sides(base, packed)
         shapes = {n: packed[:, :n].contiguous() for n in widths}
         wide = chip_smoke.LANES * chip_smoke.WIDE_FACTOR
         shapes[wide] = packed.repeat(1, chip_smoke.WIDE_FACTOR).contiguous()
 
         def cut(v, n):
-            return v.repeat(*(1,) * (v.dim() - 1), chip_smoke.WIDE_FACTOR) if n == wide else v[..., :n]
+            return v.repeat(1, chip_smoke.WIDE_FACTOR) if n == wide else v[..., :n]
 
         for n, p in shapes.items():
             bad = {}
-            checks = [("baseline", run_base, plain), ("change", run_change, plain)]
-            checks += [(side, fn, want) for side, (fn, want) in extra.items()]
-            for side, fn, want in checks:
+            for side, fn in (("baseline", run_base), ("change", run_change)):
                 got = fn(p)
                 torch.cuda.synchronize()
-                diff = got != cut(want, n)
-                bad[side] = int((diff.any(dim=0) if diff.dim() == 2 else diff).sum())
+                bad[side] = int((got != cut(plain, n)).any(dim=0).sum())
             assert not any(bad.values()), (n, bad)
-            order = [run_base, run_change, *(fn for fn, _ in extra.values())]
-            order += order[::-1]
+            order = [run_base, run_change, run_change, run_base]
             turns = [chip_smoke.graph_ms(lambda: fn(p), reps=args.reps) for fn in order]
-            line = {
+            print(json.dumps({
                 "kernel": args.kernel, "lanes": n, "mismatches": bad,
                 "baseline_ms": [turns[0], turns[-1]], "change_ms": [turns[1], turns[-2]],
                 "speedup": (turns[0] + turns[-1]) / (turns[1] + turns[-2]),
-            }
-            for k, side in enumerate(extra, start=2):
-                line[f"{side}_ms"] = [turns[k], turns[-1 - k]]
-                line[f"{side}_over_change"] = (turns[k] + turns[-1 - k]) / (turns[1] + turns[-2])
-            print(json.dumps(line), flush=True)
-        if args.kernel == "sha512_h":
-            for n, stamps in sha512_stamps(tmp, shapes).items():
-                print(json.dumps({"kernel": args.kernel, "lanes": n, "stamps": stamps}), flush=True)
+            }), flush=True)
+        for n, stamps in sha512_stamps(tmp, shapes).items():
+            print(json.dumps({"kernel": args.kernel, "lanes": n, "stamps": stamps}), flush=True)
     print(json.dumps({"ptxas": {"baseline": base_ptxas, "change": new_ptxas}}))
     print(smi)
     return 0

@@ -5,9 +5,11 @@
 // stellar_tpu/ops/ed25519.py::verify_kernel computes), in two instances of
 // one template: unsigned 4-bit windows (signed=False, the default) and the
 // signed-digit windows of verify_kernel_pallas(signed=True), which
-// STELLAR_TPU_SIGNED_WINDOWS picks.  The plain PyTorch version beside it is
-// stellar_tpu_torch/ops/ed25519.py::_verify_packed (its ``signed`` flag);
-// the wrapper is stellar_tpu_torch/ops/ed25519_cuda.py.
+// STELLAR_TPU_SIGNED_WINDOWS picks; the signed windows have a second
+// kernel for narrow launches, the pair (its note below).  The plain
+// PyTorch version beside them is stellar_tpu_torch/ops/ed25519.py::
+// _verify_packed (its ``signed`` flag); the wrapper is
+// stellar_tpu_torch/ops/ed25519_cuda.py.
 //
 // Input: the packed (128, N) uint8 staging chunk, one lane per column —
 // rows 0:32 A, 32:64 R, 64:96 s, 96:128 h = SHA-512(R‖A‖M) mod L, all
@@ -129,6 +131,46 @@
 // registers 6: registers bind.  At 4096 lanes (256 blocks, about 2 an SM)
 // neither limit is reached; at 32768 lanes the 6 blocks against 5 show in
 // the time (PERF.md §6).
+//
+// The pair: the signed windows for narrow launches.  The node launches the
+// verify kernel mostly one lane at a time (node_consensus: 1339 of 1374
+// launches; scenario_flood: 1488 of 1974), and there the template's signed
+// instance (above: the "wide" variant) runs one group of 4 threads through
+// the whole chain of one signature: ~1066 product stages (decode 273,
+// table 24, 64 windows × 12, check 1), ~0.45 ms on an H100 SXM.  Its bound
+// is the signed instance's: 3428 field operations, 407,784 IMADs a verify,
+// ≈ 24 ns of the whole card's INT32 rate; a one-lane launch cannot come
+// near it, but it can shorten the chain.  The pair is a second kernel of
+// the same function (ed25519_cuda.signed_variant picks it up to 2112
+// lanes, two pair blocks an SM, one warp a scheduler; the wide variant
+// past that): a block of two warps over the same 8 signatures, 4 threads
+// a signature in each.
+// - The chain warp decodes A, builds the table of k·(−A), k = 0..8, and
+//   runs 64 windows of 4 doublings and one niels add of d_h·(−A): 10
+//   product stages a window, not 12, with the same recoded digits of h.
+// - The comb warp decodes R (with y < p) and sums S = s·B = Σ d_i·16^i·B
+//   over the signed comb from the wrapper (k·16^i·B for i = 0..63, k =
+//   1..8, affine niels (y+x, y−x, 2d·xy): 61,440 B, read through __ldg and
+//   held in L2 and L1; the next window's entry is loaded while the current
+//   addition runs): 64 additions and no doubling, with the same recoded
+//   digits of s, so the carry out of window 63 is dropped as the wide
+//   variant drops it.  A negative digit negates the entry at the select,
+//   as in the wide variant; a zero digit selects the identity.
+// - One __syncthreads joins them: the comb warp hands S in niels form (Y+X,
+//   Y−X, 2d·T, 2Z), x_R, y_R and R's verdict over shared memory; the chain
+//   warp forms P = H + S (one niels add) and checks R as the wide variant
+//   does, with the same verdict form.
+// - The chain's additions stay lazy (lz_add, lz_sub, pt_double_lazy,
+//   pt_add_niels_lazy): only the operand a product multiplies by 19 is
+//   carried, ~24 % fewer instructions a window.
+// Chain: ~939 stages (decode 273, table 23, windows 640, join 3) against
+// the wide variant's ~1066; the comb warp's ~402 (decode 273, 128 adds, 1)
+// run on another scheduler, off the chain.  Block 0's clock64 stamps
+// (kernel_ab.py, -DED25519_PAIR_STAMPS; PERF.md §6) time each phase.
+// Past 2112 lanes two chain warps share a scheduler and the pair loses to
+// the wide variant, which keeps twice the signatures resident (the pair:
+// 164 registers, 14,328 B of shared memory, 6 blocks an SM, registers
+// bind: 48 signatures an SM against 96).
 
 
 #include <cuda_runtime.h>
@@ -588,6 +630,257 @@ ed25519_verify_kernel(const uint8_t *__restrict__ p, uint8_t *__restrict__ out,
     if (r == 0 && lane < n) out[lane] = (uint8_t)all;
 }
 
+// --- the pair: B1s for narrow launches ------------------------------------
+
+// Lazy arithmetic of the pair (module note): limbwise, no carry.  Every
+// limb stays non-negative: a − b adds 2p (b carried) or 4p (b a lazy sum
+// of two carried values), whose limbs exceed b's.  A lazy value enters a
+// product only as its first operand, whose limbs fe_mul doubles at most
+// (the second is multiplied by 19 and must be carried).
+__device__ __forceinline__ Fe lz_add(const Fe &a, const Fe &b) {
+    Fe r;
+#pragma unroll
+    for (int i = 0; i < 10; i++) r.v[i] = a.v[i] + b.v[i];
+    return r;
+}
+
+__device__ __forceinline__ Fe lz_sub(const Fe &a, const Fe &b) {
+    Fe r;
+#pragma unroll
+    for (int i = 0; i < 10; i++) r.v[i] = a.v[i] + ((i == 0) ? (1 << 27) - 38 : (2 << BITS(i)) - 2) - b.v[i];
+    return r;
+}
+
+__device__ __forceinline__ Fe lz_sub4(const Fe &a, const Fe &b) {
+    Fe r;
+#pragma unroll
+    for (int i = 0; i < 10; i++) r.v[i] = a.v[i] + ((i == 0) ? (1 << 28) - 76 : (4 << BITS(i)) - 4) - b.v[i];
+    return r;
+}
+
+__device__ __forceinline__ Fe fe_carry(const Fe &a) {
+    int32_t h[10];
+#pragma unroll
+    for (int i = 0; i < 10; i++) h[i] = a.v[i];
+    return carry(h);
+}
+
+// pt_double with the second stage's operands lazy: thread r forms E, F, G
+// and H without a carry, carries only the operand its product multiplies
+// by 19.  Limbs of the first operand stay below 1.75·2^28 (2^27 odd), so a
+// product column stays below 2^62.
+__device__ __forceinline__ Pt pt_double_lazy(int r, const Pt &p) {
+    const Pt q = gather(fe_sq(fe_sel4(r, p.X, p.Y, p.Z, fe_add(p.X, p.Y))));
+    const Fe ab = lz_add(q.X, q.Y);
+    const Fe g = lz_sub(q.Y, q.X);
+    const Fe e = lz_sub4(q.T, ab), h = lz_sub4(fe_small(0), ab);
+    const Fe f = lz_sub4(g, lz_add(q.Z, q.Z));
+    return gather(fe_mul(fe_sel4(r, e, g, f, e), fe_carry(fe_sel4(r, f, h, g, h))));
+}
+
+// pt_add_niels with lazy operands: Y+X and Y−X uncarried into the first
+// stage (n_r, carried, is the product's second operand), E, F, G, H
+// uncarried into the second.
+__device__ __forceinline__ Pt pt_add_niels_lazy(int r, const Pt &p, const Fe &n_r) {
+    const Pt q = gather(fe_mul(fe_sel4(r, lz_add(p.Y, p.X), lz_sub(p.Y, p.X), p.T, p.Z), n_r));
+    const Fe e = lz_sub(q.X, q.Y), f = lz_sub(q.T, q.Z), g = lz_add(q.T, q.Z), h = lz_add(q.X, q.Y);
+    return gather(fe_mul(fe_sel4(r, e, g, f, e), fe_carry(fe_sel4(r, f, h, g, h))));
+}
+
+// the signed comb from the wrapper: k·16^i·B for i = 0..63, k = 1..8, in
+// affine niels form (y+x, y−x, 2d·x·y), as [i][k−1][component][limb]
+constexpr int kCombInts = 64 * 8 * 3 * 10;
+constexpr int kPairSigs = 32 / kGroup;  // signatures a pair block: 8
+
+// This thread's component of the comb entry d·16^win·B, d in [−8, 7]: the
+// identity (1, 1, 0) for d = 0, entry |d| negated for d < 0 (threads 0 and
+// 1 read the partner component, thread 2 negates 2d·xy); thread 3's
+// component is the constant 2z = 2.
+__device__ __forceinline__ Fe comb_entry(const int32_t *__restrict__ comb, int win, int d,
+                                         int r) {
+    const bool neg = d < 0;
+    const int k = neg ? -d : d;
+    const int c = (neg && r < 2) ? r ^ 1 : (r < 3 ? r : 2);
+    const int32_t *e = comb + ((win * 8 + (k > 0 ? k - 1 : 0)) * 3 + c) * 10;
+    Fe v;
+#pragma unroll
+    for (int l = 0; l < 10; l++) v.v[l] = __ldg(e + l);
+    const Fe fixed = fe_small(r == 2 ? 0 : r == 3 ? 2 : 1);
+    v = fe_sel(k == 0 || r == 3, fixed, v);
+    return fe_sel(neg && r == 2 && k > 0, fe_neg(v), v);
+}
+
+// Signed digit win of a recoded scalar (recode_signed), in [−8, 7].
+__device__ __forceinline__ int digit_signed(const uint64_t w[4], int win) {
+    return (int)((w[win >> 4] >> ((win & 15) * 4)) & 15) - 8;
+}
+
+// Cycle stamps of block 0's two warps ([0] the chain warp, [1] the comb
+// warp) at the pair's phase boundaries (PAIR_STAMPS in kernel_ab.py), and
+// the global timer (ns) at the chain warp's first and last stamp, read by
+// kernel_ab.py from a build with -DED25519_PAIR_STAMPS; nothing otherwise.
+constexpr int kPairStamps = 8;
+#ifdef ED25519_PAIR_STAMPS
+__device__ long long g_pair_stamps[2][kPairStamps];
+__device__ unsigned long long g_pair_ns[2];
+__device__ __forceinline__ void pair_stamp(int k) {
+    if (blockIdx.x == 0 && (threadIdx.x & 31) == 0) {
+        g_pair_stamps[threadIdx.x >> 5][k] = clock64();
+        if (threadIdx.x == 0 && (k == 0 || k == kPairStamps - 1)) {
+            unsigned long long t;
+            asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+            g_pair_ns[k ? 1 : 0] = t;
+        }
+    }
+}
+#else
+__device__ __forceinline__ void pair_stamp(int) {}
+#endif
+
+// The pair (module note): a block is two warps over the same kPairSigs
+// signatures, 4 threads a signature in each.  Warp 0, the chain warp:
+// decodes A, builds the table of k·(−A), k = 0..8, runs 64 windows of 4
+// doublings and one niels add of d_h·(−A) (10 product stages, not 12).
+// Warp 1, the comb warp: decodes R (with y < p), sums S = s·B over the
+// comb (64 niels adds, no doubling) and hands S in niels form, x_R, y_R and
+// R's verdict over shared memory; after one __syncthreads the chain warp
+// adds S and checks R as the wide variant does.
+__global__ void __launch_bounds__(kThreads)
+ed25519_verify_signed_pair_kernel(const uint8_t *__restrict__ p, uint8_t *__restrict__ out,
+                                  int n, const int32_t *__restrict__ consts,
+                                  const int32_t *__restrict__ comb) {
+    pair_stamp(0);
+    constexpr int kTab = 9;
+    __shared__ int32_t cst[30];
+    __shared__ int32_t tab[kTab * 10 * 32];  // the chain warp's [k][limb][thread]
+    __shared__ int32_t s_niels[10 * 32];     // S, component r: [limb][thread]
+    __shared__ int32_t r_coord[10 * 32];     // x_R (r = 0, 1) or y_R (r = 2, 3)
+    __shared__ int32_t r_ok[32];
+    for (int k = threadIdx.x; k < 30; k += blockDim.x) cst[k] = consts[kBaseInts + k];
+    __syncthreads();
+    pair_stamp(1);
+
+    const bool chain = threadIdx.x < 32;
+    const int t = threadIdx.x & 31;
+    const int r = t & (kGroup - 1);
+    const int lane = blockIdx.x * kPairSigs + t / kGroup;
+    const int i = lane < n ? lane : n - 1;  // the ragged tail computes, stores nothing
+    Fe D, D2, SQRT_M1;
+#pragma unroll
+    for (int k = 0; k < 10; k++) {
+        D.v[k] = cst[k];
+        D2.v[k] = cst[10 + k];
+        SQRT_M1.v[k] = cst[20 + k];
+    }
+
+    Pt acc;  // the identity
+    acc.X = fe_small(0);
+    acc.Y = fe_small(1);
+    acc.Z = fe_small(1);
+    acc.T = fe_small(0);
+    bool ok_a = false;
+    uint64_t w[4];
+    if (chain) {
+        load_words(p, n, i, 0, w);
+        Fe x, y;
+        ok_a = decode(w, D, SQRT_M1, x, y);
+        pair_stamp(2);
+        // −A = (−x, y, 1, −x·y), niels component r: (y − x, y + x, −2d·x·y, 2)
+        Pt q;
+        q.X = fe_neg(x);
+        q.Y = y;
+        q.Z = fe_small(1);
+        q.T = fe_neg(fe_mul(x, y));
+        const Fe na = fe_sel4(r, fe_sub(y, x), fe_add(y, x), fe_mul(q.T, D2), fe_small(2));
+        const Fe ident = fe_small(r == 2 ? 0 : r == 3 ? 2 : 1);
+#pragma unroll
+        for (int k = 0; k < 10; k++) {
+            tab[(0 * 10 + k) * 32 + t] = ident.v[k];
+            tab[(1 * 10 + k) * 32 + t] = na.v[k];
+        }
+#pragma unroll 1
+        for (int e = 2; e < kTab; e++) {
+            q = pt_add_niels_lazy(r, q, na);
+            const Fe c = fe_sel4(r, fe_add(q.Y, q.X), fe_sub(q.Y, q.X), fe_mul(q.T, D2),
+                                 fe_add(q.Z, q.Z));
+#pragma unroll
+            for (int k = 0; k < 10; k++) tab[(e * 10 + k) * 32 + t] = c.v[k];
+        }
+        // a negative digit makes threads 0 and 1 read each other's slots
+        __syncwarp();
+        pair_stamp(3);
+        load_words(p, n, i, 96, w);
+        recode_signed(w);
+#pragma unroll 1
+        for (int win = 63; win >= 0; win--) {
+            acc = pt_double_lazy(r, acc);
+            acc = pt_double_lazy(r, acc);
+            acc = pt_double_lazy(r, acc);
+            acc = pt_double_lazy(r, acc);
+            const int d = digit_signed(w, win);
+            const bool neg = d < 0;
+            const int k = neg ? -d : d;
+            const int th = (neg && r < 2) ? t ^ 1 : t;
+            Fe nh;
+#pragma unroll
+            for (int l = 0; l < 10; l++) nh.v[l] = tab[(k * 10 + l) * 32 + th];
+            nh = fe_sel(neg && r == 2, fe_neg(nh), nh);
+            acc = pt_add_niels_lazy(r, acc, nh);
+        }
+        pair_stamp(4);
+    } else {
+        load_words(p, n, i, 32, w);
+        // the 255-bit y < p = 2^255 − 19
+        const bool r_canonical = !((w[3] << 1) == ~1ull && w[2] == ~0ull && w[1] == ~0ull &&
+                                   w[0] >= 0xffffffffffffffedull);
+        Fe x, y;
+        const bool ok_r = decode(w, D, SQRT_M1, x, y) && r_canonical;
+        pair_stamp(2);
+        load_words(p, n, i, 64, w);
+        recode_signed(w);
+        // S = Σ d_i·16^i·B; the next window's entry is loaded before the
+        // current addition runs
+        Fe cur = comb_entry(comb, 0, digit_signed(w, 0), r);
+#pragma unroll 1
+        for (int win = 0; win < 64; win++) {
+            const int nx = win < 63 ? win + 1 : 63;
+            const Fe next = comb_entry(comb, nx, digit_signed(w, nx), r);
+            acc = pt_add_niels_lazy(r, acc, cur);
+            cur = next;
+        }
+        pair_stamp(4);
+        // S in niels form, component r: (Y+X, Y−X, 2d·T, 2Z)
+        const Fe c = fe_sel4(r, fe_add(acc.Y, acc.X), fe_sub(acc.Y, acc.X), fe_mul(acc.T, D2),
+                             fe_add(acc.Z, acc.Z));
+        const Fe rc = fe_sel(r & 2, y, x);
+#pragma unroll
+        for (int k = 0; k < 10; k++) {
+            s_niels[k * 32 + t] = c.v[k];
+            r_coord[k * 32 + t] = rc.v[k];
+        }
+        r_ok[t] = ok_r;
+        pair_stamp(5);
+    }
+    __syncthreads();
+    pair_stamp(6);
+    if (!chain) return;
+
+    // P = H + S; R == enc(P): thread 1 checks X_P = x_R·Z_P, thread 3
+    // Y_P = y_R·Z_P
+    Fe ns, rc;
+#pragma unroll
+    for (int k = 0; k < 10; k++) {
+        ns.v[k] = s_niels[k * 32 + t];
+        rc.v[k] = r_coord[k * 32 + t];
+    }
+    acc = pt_add_niels_lazy(r, acc, ns);
+    const bool eq = fe_eq(fe_mul(rc, acc.Z), fe_sel(r & 2, acc.Y, acc.X));
+    const int32_t mine = ok_a && r_ok[t] && ((r & 1) == 0 || eq);
+    const int32_t all = shfl4(mine, 0) & shfl4(mine, 1) & shfl4(mine, 2) & shfl4(mine, 3);
+    if (r == 0 && lane < n) out[lane] = (uint8_t)all;
+    pair_stamp(kPairStamps - 1);
+}
+
 }  // namespace
 
 template <bool kSigned>
@@ -614,14 +907,29 @@ extern "C" int ed25519_verify_signed_launch(const void *packed, void *out, int n
     return launch<true>(packed, out, n, consts, stream);
 }
 
-// Residency of one instance on the current device, from the runtime:
-// info = {registers a thread, static shared bytes a block, local bytes a
-// thread, resident blocks an SM (the occupancy calculator), blocks an SM
-// that shared memory alone allows, blocks an SM that registers alone
-// allow}.  Returns the first CUDA error, 0 on success.
-extern "C" int ed25519_residency(int signed_windows, int *info) {
-    const void *fn = signed_windows ? (const void *)ed25519_verify_kernel<true>
-                                    : (const void *)ed25519_verify_kernel<false>;
+// The signed-digit windows over the pair (two warps a block of kPairSigs
+// signatures); `comb` is the wrapper's kCombInts-int signed comb.
+extern "C" int ed25519_verify_signed_pair_launch(const void *packed, void *out, int n,
+                                                 const void *consts, const void *comb,
+                                                 void *stream) {
+    if (n <= 0) return 0;
+    const int blocks = (n + kPairSigs - 1) / kPairSigs;
+    ed25519_verify_signed_pair_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint8_t *)packed, (uint8_t *)out, n, (const int32_t *)consts,
+        (const int32_t *)comb);
+    return (int)cudaGetLastError();
+}
+
+// Residency of one kernel on the current device, from the runtime (kernel
+// 0 the unsigned instance, 1 the signed one, 2 the pair): info =
+// {registers a thread, static shared bytes a block, local bytes a thread,
+// resident blocks an SM (the occupancy calculator), blocks an SM that
+// shared memory alone allows, blocks an SM that registers alone allow}.
+// Returns the first CUDA error, 0 on success.
+extern "C" int ed25519_residency(int kernel, int *info) {
+    const void *fn = kernel == 2   ? (const void *)ed25519_verify_signed_pair_kernel
+                     : kernel == 1 ? (const void *)ed25519_verify_kernel<true>
+                                   : (const void *)ed25519_verify_kernel<false>;
     cudaFuncAttributes a;
     cudaError_t err = cudaFuncGetAttributes(&a, fn);
     int dev = 0, blocks = 0, smem_sm = 0, regs_sm = 0, reserved = 0;
@@ -646,7 +954,22 @@ extern "C" int ed25519_residency(int signed_windows, int *info) {
     return 0;
 }
 
+#ifdef ED25519_PAIR_STAMPS
+// Copy block 0's stamps of the last pair launch to `host` ([2][kPairStamps]
+// cycles, then the two ns readings) and clear them; synchronises the device.
+extern "C" int ed25519_pair_stamps(long long *host) {
+    static const long long zero[2][kPairStamps] = {};
+    cudaDeviceSynchronize();
+    cudaMemcpyFromSymbol(host, g_pair_stamps, sizeof(g_pair_stamps));
+    cudaMemcpyFromSymbol(host + 2 * kPairStamps, g_pair_ns, sizeof(g_pair_ns));
+    cudaMemcpyToSymbol(g_pair_stamps, zero, sizeof(g_pair_stamps));
+    return (int)cudaGetLastError();
+}
+#endif
+
 extern "C" int ed25519_const_ints(void) { return kConstInts; }
+
+extern "C" int ed25519_comb_ints(void) { return kCombInts; }
 
 extern "C" int ed25519_threads_per_lane(void) { return kGroup; }
 

@@ -8,16 +8,19 @@ and the verify-plane knobs the port reads as the JAX package does.
   where the recode drops the carry out of window 63 and the signed and
   unsigned kernels part.
 - Signed == unsigned == the JAX XLA ``verify_kernel`` on lanes that pass the
-  gate; the recode's digits; the CUDA source's signed instance built as host
-  C++ (``tests/torch_host_cuda.py``, block emulation) against the signed
-  plain version; the knob through ``BatchVerifier`` on the host-hash,
+  gate; the recode's digits; the CUDA source's two signed kernels (the
+  wide variant and the pair) built as host C++ (``tests/torch_host_cuda.py``,
+  block emulation) against the signed plain version; the knob through ``BatchVerifier`` on the host-hash,
   device-hash and torsion paths.
 - The knobs ``STELLAR_TPU_NATIVE_SIGHASH`` (``native_hash``),
   ``STELLAR_TPU_SIGHASH_THREADS``, ``STELLAR_TPU_HOST_ASSIST`` and
   ``STELLAR_TPU_VERIFY_STREAMS``: each parses to the JAX ``BatchVerifier``'s
   attribute under the same environment; the Python host stage equals the C
   one byte for byte; a host assist without libsodium refuses to build.
-- ``cuda``: the signed instance on the card against the signed plain
+- The pair (the signed windows' narrow-launch kernel): its comb against
+  ref25519's k·16^i·B and the JAX package's base table, and the width rule
+  ``signed_variant``.
+- ``cuda``: both signed kernels on the card against the signed plain
   version (skips without a card).
 
 JAX is imported inside fixtures only: the card's machine has none.
@@ -61,6 +64,12 @@ extern "C" void host_verify(const uint8_t *p, uint8_t *out, int n,
     host_launch((n + 15) / 16, 64, 4, [&] {
         if (signed_windows) ed25519_verify_kernel<true>(p, out, n, consts);
         else ed25519_verify_kernel<false>(p, out, n, consts);
+    });
+}
+extern "C" void host_verify_pair(const uint8_t *p, uint8_t *out, int n,
+                                 const int32_t *consts, const int32_t *comb) {
+    host_launch((n + kPairSigs - 1) / kPairSigs, 64, 4, [&] {
+        ed25519_verify_signed_pair_kernel(p, out, n, consts, comb);
     });
 }
 """
@@ -209,14 +218,25 @@ def host_kernel(tmp_path_factory):
     lib = build_host_kernel(ec.SOURCE, _HOST_LOOP, tmp_path_factory.mktemp("signed_host"), threads=True)
     lib.host_verify.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
     lib.host_verify.restype = None
+    lib.host_verify_pair.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                                     ctypes.c_void_p]
+    lib.host_verify_pair.restype = None
     return lib
 
 
-def _host_verify(lib, packed, signed):
+def _host_verify(lib, packed, signed, variant="wide"):
+    """The source's kernel over ``packed`` under the block emulation: the
+    unsigned instance, or for ``signed`` the variant named."""
     packed = np.ascontiguousarray(packed)
     consts = ec.kernel_constants()
     out = np.full(packed.shape[1], 7, dtype=np.uint8)  # every lane must be written
-    lib.host_verify(packed.ctypes.data, out.ctypes.data, packed.shape[1], consts.ctypes.data, int(signed))
+    if signed and variant == "pair":
+        comb = ec.comb_table()
+        lib.host_verify_pair(packed.ctypes.data, out.ctypes.data, packed.shape[1], consts.ctypes.data,
+                             comb.ctypes.data)
+    else:
+        lib.host_verify(packed.ctypes.data, out.ctypes.data, packed.shape[1], consts.ctypes.data,
+                        int(signed))
     assert set(out.tolist()) <= {0, 1}, out
     return out.astype(bool)
 
@@ -232,15 +252,71 @@ def _host_case(case):
 
 
 @pytest.mark.parametrize("case", ["mixed", "r_edge", "raw_carry", "ragged_1", "ragged_3", "ragged_33"])
-def test_kernel_source_signed_instance_matches_plain(host_kernel, case):
+@pytest.mark.parametrize("variant", ec.SIGNED_VARIANTS)
+def test_kernel_source_signed_instance_matches_plain(host_kernel, variant, case):
     packed = _host_case(case)
     plain = _plain(packed, signed=True)
-    np.testing.assert_array_equal(_host_verify(host_kernel, packed, signed=True), plain)
+    np.testing.assert_array_equal(_host_verify(host_kernel, packed, signed=True, variant=variant), plain)
     if case == "raw_carry":
         # the unsigned instance of the same source keeps its verdicts there
         unsigned = _host_verify(host_kernel, packed, signed=False)
         assert unsigned.all() and not plain.any()
         np.testing.assert_array_equal(unsigned, _plain(packed, signed=False))
+
+
+# -- the pair's comb and the variant rule --------------------------------------
+
+
+def _limbs_value(limbs):
+    """The kernel's 10 limbs (radix 2^25.5) -> their value mod p."""
+    return sum(int(v) << ((i * 51 + 1) // 2) for i, v in enumerate(limbs)) % ref.P
+
+
+@pytest.fixture(scope="module")
+def jax_base_table():
+    pytest.importorskip("jax")
+    from stellar_tpu.ops import ed25519 as jed
+    from stellar_tpu.ops import fe as jfe
+
+    return np.asarray(jed._BASE_TABLE), jfe.limbs_to_int
+
+
+def test_comb_table_holds_k_times_16_to_the_i_times_b(jax_base_table):
+    """Every entry [i][k−1] of the pair's comb is k·16^i·B in affine niels
+    form (y+x, y−x, 2d·x·y), from ref25519's scalar multiplication; row i = 0
+    is also the JAX package's fixed-base table at k = 1..8."""
+    comb = ec.comb_table()
+    assert comb.shape == (64, 8, 3, 10) and comb.dtype == np.int32 and comb.nbytes == 61440
+    B = ref.base_point()
+    for i in range(64):
+        for k in range(1, 9):
+            x, y, z, _ = ref.scalar_mult(k << (4 * i), B)
+            zinv = ref.fe_inv(z)
+            xa, ya = x * zinv % ref.P, y * zinv % ref.P
+            want = ((ya + xa) % ref.P, (ya - xa) % ref.P, 2 * ref.D * xa * ya % ref.P)
+            assert tuple(_limbs_value(comb[i, k - 1, c]) for c in range(3)) == want, (i, k)
+    jtab, limbs_to_int = jax_base_table
+    for k in range(1, 9):
+        for c in range(3):
+            assert _limbs_value(comb[0, k - 1, c]) == limbs_to_int(jtab[c, k]) % ref.P, (k, c)
+
+
+def test_signed_variant_picks_the_pair_up_to_two_blocks_an_sm():
+    """The rule: the pair up to PAIR_MAX_LANES lanes (two pair blocks on
+    each of the H100's 132 SMs), the wide variant past it; a forced variant
+    must name one of the signed windows' kernels."""
+    assert ec.SIGNED_VARIANTS == ("wide", "pair") and ec.PAIR_MAX_LANES == 2112
+    edge = ec.PAIR_MAX_LANES
+    picks = {n: ec.signed_variant(n) for n in (1, 3, 16, 64, 300, 904, edge, edge + 1, 4096, 32768)}
+    assert picks == {1: "pair", 3: "pair", 16: "pair", 64: "pair", 300: "pair", 904: "pair",
+                     edge: "pair", edge + 1: "wide", 4096: "wide", 32768: "wide"}
+    packed = torch.from_numpy(_pack(_raw_carry_cols(2)))
+    for variant in ec.SIGNED_VARIANTS:
+        assert not ec.verify_packed(packed, signed=True, variant=variant).any()
+    with pytest.raises(ValueError, match="no variant"):
+        ec.verify_packed(packed, signed=False, variant="pair")
+    with pytest.raises(ValueError, match="no variant"):
+        ec.verify_packed(packed, signed=True, variant="lane")
 
 
 # -- the knob through the verify plane ----------------------------------------
@@ -438,7 +514,7 @@ def test_signed_kernel_matches_signed_plain_version_on_card():
     packed = torch.from_numpy(np.concatenate(
         [_lanes(512, seed=4), _pack(raw + _cols(_rfc_items()) + edge)], axis=1)).cuda()
     launches, signed_launches = ec.launches, ec.signed_launches
-    got = ec.verify_packed(packed, signed=True)
+    got = ec.verify_packed(packed, signed=True, variant="wide")
     torch.cuda.synchronize()
     assert (ec.launches, ec.signed_launches) == (launches, signed_launches + 1)
     assert torch.equal(got, ted._verify_packed(packed, signed=True))
@@ -447,8 +523,38 @@ def test_signed_kernel_matches_signed_plain_version_on_card():
     assert not got[lo : lo + len(raw)].any() and ec.verify_packed(packed, signed=False)[lo : lo + len(raw)].all()
     for n in (1, 3, 33, 47):
         part = packed[:, :n].contiguous()
-        assert torch.equal(ec.verify_packed(part, signed=True), ted._verify_packed(part, signed=True)), n
-    for signed in (False, True):
-        res = ec.residency(signed)
+        want = ted._verify_packed(part, signed=True)
+        for variant in ec.SIGNED_VARIANTS:
+            assert torch.equal(ec.verify_packed(part, signed=True, variant=variant), want), (n, variant)
+    residency = ec.residency(True)
+    assert sorted(residency) == sorted(ec.SIGNED_VARIANTS)
+    for res in (ec.residency(False), *residency.values()):
         assert res["registers"] > 0 and res["blocks_per_sm"] >= 1, res
         assert res["blocks_per_sm"] <= min(res["blocks_by_shared"], res["blocks_by_registers"]), res
+
+
+@pytest.mark.cuda
+def test_signed_pair_matches_signed_plain_version_on_card():
+    """The pair, forced and by the rule, at the node's narrow widths and at
+    4096 lanes against the signed plain version; raw-carry lanes rejected;
+    each launch counted as a pair launch only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    raw = _raw_carry_cols()
+    mixed = np.tile(_lanes(256, seed=6), 16)
+    packed = torch.from_numpy(np.ascontiguousarray(
+        np.concatenate([_pack(raw), mixed], axis=1)[:, :4096])).cuda()
+    plain = ted._verify_packed(packed, signed=True)
+    assert not plain[: len(raw)].any() and plain.any()
+    for n in (1, 2, 3, 8, 16, 33, 64, 4096):
+        part = packed[:, -n:].contiguous() if n < 16 else packed[:, :n].contiguous()
+        want = plain[-n:] if n < 16 else plain[:n]
+        counts = (ec.launches, ec.signed_launches, ec.signed_pair_launches)
+        got = ec.verify_packed(part, signed=True, variant="pair")
+        torch.cuda.synchronize()
+        assert (ec.launches, ec.signed_launches, ec.signed_pair_launches) == (
+            counts[0], counts[1], counts[2] + 1)
+        assert torch.equal(got, want), n
+        if n <= ec.PAIR_MAX_LANES:
+            assert torch.equal(ec.verify_packed(part, signed=True), want), n
+            assert ec.signed_pair_launches == counts[2] + 2

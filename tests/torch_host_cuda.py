@@ -22,7 +22,7 @@ Two preludes:
   ``__reduce_max_sync`` the same exchange read whole.  Every thread of a
   group must reach every shuffle, as on the card.
 
-Both preludes define ``__byte_perm``.
+Both preludes define ``__byte_perm`` and ``__ldg``.
 """
 
 from __future__ import annotations
@@ -49,6 +49,9 @@ using std::min;
 #define __restrict__
 #define __shared__ static
 struct Dim3 { int x, y, z; };
+// a load through the read-only data cache
+template <typename T>
+static inline T __ldg(const T *p) { return *p; }
 // byte k of the result is byte (s >> 4k) & 7 of the 8 bytes y:x
 static inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
     const uint64_t v = (uint64_t)y << 32 | x;

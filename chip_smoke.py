@@ -72,6 +72,19 @@ phase's failure is caught while the run carries on):
               ``stage_raw`` and merged through the flag row.  Same verdict
               checks; both kernels must have launched and neither plain
               version run; span sums beside the host-hash run's;
+5b. bench   — ``bench``: the port's headline bench (``python -m
+              stellar_tpu_torch.bench``), its ``main()`` in process at full
+              width (``BENCH_BATCH=32768``, ``BENCH_CHUNKS=4``) with
+              ``BENCH_SKIP_CLOSE=1`` and ``BENCH_SCENARIOS=0`` (the close
+              and the chaos plane run in the node phases below): the
+              headline, two-stream, Python host-stage and device-hash
+              legs, the SCP envelope legs and the byzantine flood on the
+              card.  Its one JSON line is the phase's row, beside the
+              launch counts read around the call (set to 0 just before);
+              the first launch of each leg (B1, and B2 in the device-hash
+              leg) is held against the plain version on the card
+              afterwards.  Fails on an ``error`` or any ``*_error`` in the
+              line, a zero ``value``, a plain call, or a mismatch;
 6. torsion  — ``torsion_check`` on 512 encodings against
               ``ref25519.is_torsion_free``, and the host path (the
               ``native/halfagg.c`` ladder, what the cpu backend and a batch
@@ -295,6 +308,15 @@ FLOOD_CLASS = "byzantine_flood_gpu"
 MESH_SHARDS = (2, 3)
 MESH_REMAINDER = 43
 MESH_REPS = 5
+# bench: the port's bench at the headline's full width; the close and the
+# chaos plane are driven by node_close and scenario_flood
+BENCH_KNOBS = {"BENCH_BATCH": "32768", "BENCH_CHUNKS": "4", "BENCH_SKIP_CLOSE": "1",
+               "BENCH_SCENARIOS": "0", "BENCH_WATCHDOG": "600"}
+# the bench's stages (bench._progress["stage"]) that must launch B1 on the
+# card: the headline (its untimed first pass), the A/B legs, the SCP
+# envelopes through GpuSigBackend and the flood through the node's overlay path
+BENCH_B1_STAGES = ("warmup", "verify-2stream", "verify-python-hoststage", "verify-device-hash",
+                   "scp-envelopes-gpu", "byzantine-flood")
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1105,6 +1127,133 @@ def phase_torsion(fx, rng, backend, pks):
         "launches": launches, "ms": sec * 1e3, "host_path_equal": True, "host_ms": host_sec * 1e3,
     })
     return encs, want
+
+
+# -- phase 5b: the port's bench ----------------------------------------------
+
+
+class BenchTap:
+    """While installed, the first B1 launch and the first B2 launch of
+    each stage of the bench (``bench._progress["stage"]``) keep their
+    input and output (clones on the launch's stream), to be held against
+    the plain versions afterwards.  Install it before the bench builds its
+    verifiers: a verifier binds the B1 wrapper when built."""
+
+    def __init__(self, bench):
+        import threading
+
+        from stellar_tpu_torch.ops import ed25519_cuda, sha512_cuda
+
+        self.bench = bench
+        self.ec, self.sc = ed25519_cuda, sha512_cuda
+        self.verify, self.hash = ed25519_cuda.verify_packed, sha512_cuda.hash_in_place
+        self.lock = threading.Lock()
+        self.b1, self.b2 = {}, {}
+
+    def _first(self, kept, stage):
+        with self.lock:
+            if stage in kept:
+                return False
+            kept[stage] = None
+            return True
+
+    def __enter__(self):
+        def verify(p, *args, **kwargs):
+            out = self.verify(p, *args, **kwargs)
+            stage = self.bench._progress.get("stage")
+            if p.is_cuda and self._first(self.b1, stage):
+                self.b1[stage] = (p.clone(), out.clone())
+            return out
+
+        def hash_in_place(p):
+            stage = self.bench._progress.get("stage")
+            keep = p.is_cuda and self._first(self.b2, stage)
+            before = p.clone() if keep else None
+            self.hash(p)
+            if keep:
+                self.b2[stage] = (before, p.clone())
+
+        self.ec.verify_packed, self.sc.hash_in_place = verify, hash_in_place
+        return self
+
+    def __exit__(self, *exc):
+        self.ec.verify_packed, self.sc.hash_in_place = self.verify, self.hash
+
+    def check(self):
+        """{stage: {kernel: lanes, mismatches}} against the plain versions,
+        each launch's whole chunk in one plain call on the card."""
+        import torch
+
+        from stellar_tpu_torch.ops import ed25519 as ed
+        from stellar_tpu_torch.ops import sha512 as tsha
+
+        torch.cuda.synchronize()
+        out = {}
+        for stage, (p, got) in self.b1.items():
+            plain = ed._verify_packed(p)
+            out.setdefault(stage, {})["ed25519_verify"] = {
+                "lanes": int(p.shape[1]), "accepts": int(got.sum()),
+                "mismatches": int((plain != got).sum())}
+        for stage, (before, after) in self.b2.items():
+            plain = tsha.h_rows_from_packed(before).to(torch.uint8)
+            moved = int((after[:96] != before[:96]).any(dim=0).sum()
+                        + (after[128:] != before[128:]).any(dim=0).sum())
+            out.setdefault(stage, {})["sha512_h"] = {
+                "lanes": int(before.shape[1]),
+                "mismatches": int((after[96:128] != plain).any(dim=0).sum()) + moved}
+        torch.cuda.synchronize()
+        return out
+
+
+def phase_bench():
+    """``bench``: the port's bench's ``main()`` at full width, in process;
+    returns its launches of B1 and B2."""
+    import contextlib
+    import io
+
+    from stellar_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in BENCH_KNOBS}
+    os.environ.update(BENCH_KNOBS)
+    stdout = io.StringIO()
+    try:
+        with BenchTap(bench) as tap:
+            _node_counts(reset=True)
+            try:
+                with contextlib.redirect_stdout(stdout):
+                    bench.main()
+            except SystemExit as e:
+                raise AssertionError(f"the bench exited {e.code}: {stdout.getvalue()}") from None
+            counts = _node_counts()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    lines = [ln for ln in stdout.getvalue().splitlines() if ln.strip()]
+    assert len(lines) == 1, f"the bench printed {len(lines)} lines: {lines}"
+    line = json.loads(lines[0])
+    bench_s = time.perf_counter() - t0
+    vs_plain = tap.check()
+    emit({"phase": "bench", "line": line, "byzantine_flood": bench._progress.get("byzantine_flood"),
+          "launches": counts["launches"],
+          "plain_calls": counts["plain_calls"], "first_launch_vs_plain": vs_plain,
+          "seconds": bench_s, "check_seconds": time.perf_counter() - t0 - bench_s})
+    errors = {k: v for k, v in line.items() if k == "error" or k.endswith("_error")}
+    assert not errors, f"the bench reported errors: {errors}"
+    assert line["value"] > 0, "the bench measured no headline rate"
+    assert line["batch"] == int(BENCH_KNOBS["BENCH_BATCH"]), line["batch"]
+    assert all(v == 0 for v in counts["plain_calls"].values()), counts["plain_calls"]
+    missing = [s for s in BENCH_B1_STAGES if s not in vs_plain]
+    assert not missing, f"bench legs that never launched B1: {missing}"
+    assert "sha512_h" in vs_plain["verify-device-hash"], "the device-hash leg never launched B2"
+    bad = {s: k for s, ks in vs_plain.items() for k, r in ks.items() if r["mismatches"]}
+    assert not bad, f"bench launches that disagree with the plain version: {bad}"
+    launched = counts["launches"]
+    assert launched["ed25519_verify_signed"] == launched["ed25519_verify_signed_pair"] == 0
+    return {"ed25519_verify": launched["ed25519_verify"], "sha512_h": launched["sha512_h"]}
 
 
 # -- phase 7: the sharded verify path ----------------------------------------
@@ -2205,6 +2354,8 @@ def main() -> int:
             emit({"phase": "main_path_compare", "load": name,
                   "host_hash": host, "device_hash": dh_loads[name]})
 
+        bench_launches = phase_bench()
+
         torsion = phase_torsion(fx, rng, backend, [it[0] for it in ledger1[0][:TORSION_ENCS]])
 
         with tempfile.TemporaryDirectory(prefix="chip_smoke_node_") as tmp:
@@ -2228,7 +2379,8 @@ def main() -> int:
                                    "node_close": close_launches["ed25519_verify"],
                                    "node_close_mesh": close_launches["mesh_ed25519_verify"],
                                    "node_consensus": consensus_launches["ed25519_verify"],
-                                   "scenario_flood": flood_launches}
+                                   "scenario_flood": flood_launches,
+                                   "bench": bench_launches["ed25519_verify"]}
     # the signed windows' two kernels: the node_close card_signed leg and
     # the node_consensus card_signed run
     for row in rows[1:3]:
@@ -2237,7 +2389,8 @@ def main() -> int:
         row["launches"] = sum(row["launches_by_path"].values())
     rows[3]["launches_by_path"] = {"main_path_device_hash": dh_launches["sha512_h"],
                                    "mesh": mesh_launches["sha512_h"],
-                                   "node_close": close_launches["sha512_h"]}
+                                   "node_close": close_launches["sha512_h"],
+                                   "bench": bench_launches["sha512_h"]}
     for row, kernel in ((rows[4], "lane"), (rows[5], "pair")):
         row["launches_by_path"] = {"bucket_hash": bucket_launches[kernel],
                                    "node_consensus": consensus_launches[SHA256_KERNELS[kernel]]}

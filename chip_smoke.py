@@ -85,6 +85,19 @@ phase's failure is caught while the run carries on):
               leg) is held against the plain version on the card
               afterwards.  Fails on an ``error`` or any ``*_error`` in the
               line, a zero ``value``, a plain call, or a mismatch;
+5c. profilers — ``profilers``: the port's close and state profilers
+              (``python -m stellar_tpu_torch.profile_close`` /
+              ``profile_system``) in process at full width:
+              ``pipeline_report(5000, 3)`` (the paired close-pipeline
+              report, PARANOID, invariants all-on, its legs bit-exact; the
+              prewarm's dispatched and joined counts), the state ladder's
+              top rung ``_rung(10**6)`` (its three bucket backends hash for
+              hash, the device leg over every bucket) and ``hash_ab(64)``
+              (its 2x gate a field, ``gate_ok``, not a failure).  Launch
+              counts read around each call; the first and widest B1 launch
+              and the first launch of each B3 kernel of each call held
+              against the plain versions; fails on any exception, mismatch,
+              stall, plain call or zero launch count;
 6. torsion  — ``torsion_check`` on 512 encodings against
               ``ref25519.is_torsion_free``, and the host path (the
               ``native/halfagg.c`` ladder, what the cpu backend and a batch
@@ -317,6 +330,13 @@ BENCH_KNOBS = {"BENCH_BATCH": "32768", "BENCH_CHUNKS": "4", "BENCH_SKIP_CLOSE": 
 # envelopes through GpuSigBackend and the flood through the node's overlay path
 BENCH_B1_STAGES = ("warmup", "verify-2stream", "verify-python-hoststage", "verify-device-hash",
                    "scp-envelopes-gpu", "byzantine-flood")
+# profilers: the port's close and state profilers at the sizes operators
+# run — the close pipeline's paired report over 5000-tx closes, the state
+# ladder's top rung (10^6 accounts, ~100 MB of buckets; the device leg's
+# default byte budget covers every bucket) and the bucket-hash A/B's 64 MB
+PIPELINE_TXS, PIPELINE_LEDGERS = 5000, 3
+LADDER_ACCOUNTS = 1_000_000
+HASH_AB_MB = 64
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1254,6 +1274,197 @@ def phase_bench():
     launched = counts["launches"]
     assert launched["ed25519_verify_signed"] == launched["ed25519_verify_signed_pair"] == 0
     return {"ed25519_verify": launched["ed25519_verify"], "sha512_h": launched["sha512_h"]}
+
+
+# -- phase 5c: the port's close and state profilers --------------------------
+
+
+class ProfilerTap:
+    """While installed, the first B1 launch (and the widest,
+    ``ed25519_verify_widest``) and the first launch of each B3 kernel
+    (lane, pair) of each profiler path (``path``, set by the phase) keep
+    their input and output, to be held against the plain versions
+    afterwards, and every node stopped meanwhile leaves its last ledger
+    hash and its verify backend's stats.  Install it before the nodes are
+    built: a verifier binds the B1 wrapper when built."""
+
+    def __init__(self):
+        import threading
+
+        from stellar_tpu_torch.main.application import Application
+        from stellar_tpu_torch.ops import ed25519_cuda, sha256_cuda
+
+        self.app_cls, self.ec, self.c256 = Application, ed25519_cuda, sha256_cuda
+        self.verify, self.digest = ed25519_cuda.verify_packed, sha256_cuda.digest_rows
+        self.stop = Application.graceful_stop
+        self.lock = threading.Lock()
+        self.path = None
+        self.kept = {}
+        self.apps = {}
+
+    def _first(self, name):
+        with self.lock:
+            if (self.path, name) in self.kept:
+                return False
+            self.kept[(self.path, name)] = None
+            return True
+
+    def __enter__(self):
+        def verify(p, *args, **kwargs):
+            out = self.verify(p, *args, **kwargs)
+            if p.is_cuda and self._first("ed25519_verify"):
+                self.kept[(self.path, "ed25519_verify")] = (p.clone(), out.clone())
+            widest = (self.path, "ed25519_verify_widest")
+            with self.lock:
+                prev = self.kept.get(widest)
+                if p.is_cuda and (prev is None or p.shape[1] > prev[0].shape[1]):
+                    self.kept[widest] = (p.clone(), out.clone())
+            return out
+
+        def digest_rows(p, nblocks):
+            out = self.digest(p, nblocks)
+            name = SHA256_KERNELS[self.c256.variant(int(p.shape[1]), int(p.shape[0]) // 64)]
+            if p.is_cuda and self._first(name):
+                self.kept[(self.path, name)] = (p.clone(), nblocks.clone(), out.clone())
+            return out
+
+        def graceful_stop(app):
+            with self.lock:
+                self.apps.setdefault(self.path, []).append(
+                    (app.ledger_manager.last_closed.hash.hex(), app.sig_backend.stats()))
+            return self.stop(app)
+
+        self.ec.verify_packed, self.c256.digest_rows = verify, digest_rows
+        self.app_cls.graceful_stop = graceful_stop
+        return self
+
+    def __exit__(self, *exc):
+        self.ec.verify_packed, self.c256.digest_rows = self.verify, self.digest
+        self.app_cls.graceful_stop = self.stop
+
+    def check(self):
+        """{path: {kernel: lanes, mismatches}}: each kept launch's whole
+        input in one plain call on the card."""
+        import torch
+
+        from stellar_tpu_torch.ops import ed25519 as ed
+        from stellar_tpu_torch.ops import sha256 as t256
+
+        torch.cuda.synchronize()
+        out = {}
+        for (path, name), kept in self.kept.items():
+            if name.startswith("ed25519_verify"):
+                p, got = kept
+                row = {"lanes": int(p.shape[1]), "accepts": int(got.sum()),
+                       "mismatches": int((ed._verify_packed(p) != got).sum())}
+            else:
+                p, nb, got = kept
+                plain = t256.sha256_rows_from_packed(p, nb).to(torch.uint8)
+                row = {"lanes": int(p.shape[1]), "max_blocks": int(p.shape[0]) // 64,
+                       "mismatches": int((plain != got).any(dim=0).sum())}
+            out.setdefault(path, {})[name] = row
+        torch.cuda.synchronize()
+        return out
+
+
+def _profiler_run(tap, path, fn):
+    """One profiler call on ``path``: the launch counts set to 0 just before
+    and read just after, what it printed, its result and seconds."""
+    import contextlib
+    import io
+
+    tap.path = path
+    _node_counts(reset=True)
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        result = fn()
+    seconds = time.perf_counter() - t0
+    counts = _node_counts()
+    stats = [st for _, st in tap.apps.get(path, [])]
+    line = {"phase": "profilers", "path": path, "seconds": seconds,
+            "printed": printed.getvalue().splitlines(), **counts,
+            "stalls": sum(_stalls(st) for st in stats),
+            "node_hashes": [h for h, _ in tap.apps.get(path, [])]}
+    assert counts["plain_calls"] == {"ed25519": 0, "sha512": 0, "sha256": 0}, counts
+    assert line["stalls"] == 0, f"{path}: a dispatch stalled"
+    return result, line
+
+
+def phase_profilers():
+    """``profilers``: the port's close and state profilers on the card at
+    full width, in process, through the functions their CLIs call:
+    ``profile_close.pipeline_report(5000, 3)`` (the paired close-pipeline
+    report: PARANOID, invariants all-on, hashes, SQL dumps and history metas
+    bit-exact between its legs), ``profile_system._rung(10**6)`` (the state
+    ladder's top rung: 12 traffic closes, the spill merge, the catchup
+    re-hash and the three bucket backends hash for hash, the device leg over
+    every bucket) and ``profile_system.hash_ab(64)`` (its 2x gate printed as
+    ``gate_ok``, a speed verdict that fails nothing).  The launch counts are
+    set to 0 just before each call and read just after; the first and the
+    widest B1 launch and the first launch of each B3 kernel of each call
+    are held against the plain versions on the card afterwards.  Fails on any exception, a
+    hash or bit-identity mismatch, an invariant violation (the report's own
+    assertions), a stall, a plain call or a zero launch count.  Returns the
+    launches by path."""
+    from stellar_tpu_torch import profile_close as pc
+    from stellar_tpu_torch import profile_system as ps
+
+    t_phase = time.perf_counter()
+    os.environ.pop("PROFILE_DEVICE", None)
+    launches = {}
+    try:
+        with ProfilerTap() as tap:
+            rc, line = _profiler_run(tap, "profile_close", lambda: pc.pipeline_report(
+                PIPELINE_TXS, PIPELINE_LEDGERS))
+            text = "\n".join(line["printed"])
+            m = re.search(r"pipeline: dispatched (\d+), joined (\d+)", text)
+            line.update(call=f"pipeline_report({PIPELINE_TXS}, {PIPELINE_LEDGERS})",
+                        acceptance_rc=rc, dispatched=int(m.group(1)) if m else None,
+                        joined=int(m.group(2)) if m else None)
+            emit(line)
+            assert "final ledger hashes + SQL dumps + history metas bit-exact" in text, text
+            assert len(set(line["node_hashes"])) == 1 and len(line["node_hashes"]) == 2
+            assert line["dispatched"] == line["joined"] == PIPELINE_LEDGERS - 1, line
+            launches["profile_close"] = line["launches"]
+
+            rung, line = _profiler_run(tap, "state_ladder", lambda: ps._rung(LADDER_ACCOUNTS))
+            line.update(call=f"_rung({LADDER_ACCOUNTS})", rung=rung)
+            emit(line)
+            ab = rung["backends"]
+            assert ab["bit_identical"] and "mismatch" not in ab, ab
+            assert ab["device_backend"] == "device-cuda", ab
+            assert ab["device_buckets_covered"] == rung["n_buckets"] >= 2, rung
+            launches["state_ladder"] = line["launches"]
+
+            rc, line = _profiler_run(tap, "hash_ab", lambda: ps.hash_ab(HASH_AB_MB))
+            m = re.search(r"host\[(\w+)\] ([\d,.]+) MB/s; device\[([\w-]+)\] ([\d,.]+) MB/s;"
+                          r" ratio ([\d.]+)x", "\n".join(line["printed"]))
+            assert m, line["printed"]
+            line.update(call=f"hash_ab({HASH_AB_MB})", gate_ok=rc == 0, host=m.group(1),
+                        host_mb_per_s=float(m.group(2).replace(",", "")), device=m.group(3),
+                        device_mb_per_s=float(m.group(4).replace(",", "")),
+                        ratio=float(m.group(5)))
+            emit(line)
+            assert line["device"] == "device-cuda", line
+            launches["hash_ab"] = line["launches"]
+        t_check = time.perf_counter()
+        vs_plain = tap.check()
+    finally:
+        pc._close_pool()
+    emit({"phase": "profilers", "first_launch_vs_plain": vs_plain,
+          "seconds": time.perf_counter() - t_phase, "check_seconds": time.perf_counter() - t_check})
+    for path in ("profile_close", "state_ladder"):
+        assert launches[path]["ed25519_verify"] > 0, (path, launches[path])
+        assert "ed25519_verify" in vs_plain[path], (path, vs_plain)
+    for path in ("state_ladder", "hash_ab"):
+        assert launches[path]["sha256_frames"] > 0, (path, launches[path])
+        assert set(vs_plain[path]) & set(SHA256_KERNELS.values()), (path, vs_plain)
+    assert all(n[k] == 0 for n in launches.values()
+               for k in ("ed25519_verify_signed", "ed25519_verify_signed_pair", "sha512_h")), launches
+    bad = {p: k for p, ks in vs_plain.items() for k, r in ks.items() if r["mismatches"]}
+    assert not bad, f"profiler launches that disagree with the plain version: {bad}"
+    return launches
 
 
 # -- phase 7: the sharded verify path ----------------------------------------
@@ -2355,6 +2566,7 @@ def main() -> int:
                   "host_hash": host, "device_hash": dh_loads[name]})
 
         bench_launches = phase_bench()
+        profiler_launches = phase_profilers()
 
         torsion = phase_torsion(fx, rng, backend, [it[0] for it in ledger1[0][:TORSION_ENCS]])
 
@@ -2380,7 +2592,9 @@ def main() -> int:
                                    "node_close_mesh": close_launches["mesh_ed25519_verify"],
                                    "node_consensus": consensus_launches["ed25519_verify"],
                                    "scenario_flood": flood_launches,
-                                   "bench": bench_launches["ed25519_verify"]}
+                                   "bench": bench_launches["ed25519_verify"],
+                                   **{path: profiler_launches[path]["ed25519_verify"]
+                                      for path in ("profile_close", "state_ladder")}}
     # the signed windows' two kernels: the node_close card_signed leg and
     # the node_consensus card_signed run
     for row in rows[1:3]:
@@ -2393,7 +2607,9 @@ def main() -> int:
                                    "bench": bench_launches["sha512_h"]}
     for row, kernel in ((rows[4], "lane"), (rows[5], "pair")):
         row["launches_by_path"] = {"bucket_hash": bucket_launches[kernel],
-                                   "node_consensus": consensus_launches[SHA256_KERNELS[kernel]]}
+                                   "node_consensus": consensus_launches[SHA256_KERNELS[kernel]],
+                                   **{path: profiler_launches[path][f"sha256_frames_{kernel}"]
+                                      for path in ("state_ladder", "hash_ab")}}
     assert all(row["launches"] > 0 for row in rows), {row["name"]: row["launches"] for row in rows}
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "max_abs_err",
             "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -98,6 +98,24 @@ phase's failure is caught while the run carries on):
               and the first launch of each B3 kernel of each call held
               against the plain versions; fails on any exception, mismatch,
               stall, plain call or zero launch count;
+5d. profile_kernel — ``profile_kernel``: the port's kernel profiler and
+              driver entry (``python -m stellar_tpu_torch.profile_kernel`` /
+              ``graft_entry``) in process at their defaults:
+              ``graft_entry.entry()`` (16 mixed lanes through B1, verdicts
+              equal to the mask) and ``dryrun_multichip(2)`` (two cards, or
+              the repeated-device rig on one), ``profile_kernel.main(32768,
+              ab=True)`` (device-only B1 / wide B1s / B1 and the signed
+              windows' gain), ``device_hash_ab(8192, 3)`` (kernel-only against
+              the host-hash and device-hash rates end to end; its 0.9 gate's
+              rc a field) and ``mesh_curve([1, 2, 4], 2048, 3)`` on the rig
+              (one child process a leg, each printing its own launches and
+              plain calls by kernel; the retention gate's rc a field).
+              Launch counts read around each call (the dryrun a path of its
+              own); the first launch of each kernel (B1, B1s, B2) on each
+              in-process path held against the plain version, the curve's
+              legs against the oracle; fails on any exception, wrong
+              verdict, failed leg, mismatch, plain call (the legs' too) or
+              zero launch count;
 6. torsion  — ``torsion_check`` on 512 encodings against
               ``ref25519.is_torsion_free``, and the host path (the
               ``native/halfagg.c`` ladder, what the cpu backend and a batch
@@ -337,6 +355,14 @@ BENCH_B1_STAGES = ("warmup", "verify-2stream", "verify-python-hoststage", "verif
 PIPELINE_TXS, PIPELINE_LEDGERS = 5000, 3
 LADDER_ACCOUNTS = 1_000_000
 HASH_AB_MB = 64
+# profile_kernel: the port's kernel profiler and driver entry at their
+# defaults — main's A/B/A at 32,768 lanes (the wide B1s there), the
+# device-hash A/B at 8192 lanes and 3 reps, the rig's curve over 1, 2 and 4
+# shards of 2048 lanes, the dryrun over two shards
+KERNEL_PROFILE_LANES = 32768
+DEVICE_HASH_AB_LANES, DEVICE_HASH_AB_REPS = 8192, 3
+MESH_CURVE_COUNTS, MESH_CURVE_PER_CHIP, MESH_CURVE_REPS = (1, 2, 4), 2048, 3
+DRYRUN_SHARDS = 2
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1152,46 +1178,61 @@ def phase_torsion(fx, rng, backend, pks):
 # -- phase 5b: the port's bench ----------------------------------------------
 
 
-class BenchTap:
-    """While installed, the first B1 launch and the first B2 launch of
-    each stage of the bench (``bench._progress["stage"]``) keep their
-    input and output (clones on the launch's stream), to be held against
-    the plain versions afterwards.  Install it before the bench builds its
-    verifiers: a verifier binds the B1 wrapper when built."""
+class LaunchTap:
+    """While installed, the first launch of each kernel under each key
+    (``key()``, read at the launch: a bench stage, an entry point's path)
+    keeps its input and output (clones on the launch's stream), to be held
+    against the plain versions afterwards: B1, the signed windows' two
+    kernels and B2.  The B1 wrapper's calls are made one at a time (their
+    host side only: the kernels still run on their streams), so the launch
+    count a call moves by one names the kernel it launched.  Install the
+    tap before the verifiers are built: a verifier binds the B1 wrapper
+    when built."""
 
-    def __init__(self, bench):
+    def __init__(self, key):
         import threading
 
-        from stellar_tpu_torch.ops import ed25519_cuda, sha512_cuda
+        from stellar_tpu_torch.ops import ed25519, ed25519_cuda, sha512_cuda
 
-        self.bench = bench
-        self.ec, self.sc = ed25519_cuda, sha512_cuda
+        self.key = key
+        self.ed, self.ec, self.sc = ed25519, ed25519_cuda, sha512_cuda
         self.verify, self.hash = ed25519_cuda.verify_packed, sha512_cuda.hash_in_place
-        self.lock = threading.Lock()
+        self.lock, self.call_lock = threading.Lock(), threading.Lock()
         self.b1, self.b2 = {}, {}
 
-    def _first(self, kept, stage):
+    def _counts(self):
+        return {"ed25519_verify": self.ec.launches, "ed25519_verify_signed": self.ec.signed_launches,
+                "ed25519_verify_signed_pair": self.ec.signed_pair_launches}
+
+    def _first(self, kept, key):
         with self.lock:
-            if stage in kept:
+            if key in kept:
                 return False
-            kept[stage] = None
+            kept[key] = None
             return True
 
     def __enter__(self):
-        def verify(p, *args, **kwargs):
-            out = self.verify(p, *args, **kwargs)
-            stage = self.bench._progress.get("stage")
-            if p.is_cuda and self._first(self.b1, stage):
-                self.b1[stage] = (p.clone(), out.clone())
+        def verify(p, signed=None, variant=None):
+            with self.call_lock:
+                before = self._counts()
+                out = self.verify(p, signed=signed, variant=variant)
+                moved = {k: n - before[k] for k, n in self._counts().items() if n != before[k]}
+            # one count up by one: this call's launch (a verifier built
+            # before the tap, launching meanwhile, would move another)
+            if p.is_cuda and list(moved.values()) == [1]:
+                (name,) = moved
+                key = (self.key(), name)
+                if self._first(self.b1, key):
+                    self.b1[key] = (p.clone(), out.clone(), name != "ed25519_verify")
             return out
 
         def hash_in_place(p):
-            stage = self.bench._progress.get("stage")
-            keep = p.is_cuda and self._first(self.b2, stage)
+            key = (self.key(), "sha512_h")
+            keep = p.is_cuda and self._first(self.b2, key)
             before = p.clone() if keep else None
             self.hash(p)
             if keep:
-                self.b2[stage] = (before, p.clone())
+                self.b2[key] = (before, p.clone())
 
         self.ec.verify_packed, self.sc.hash_in_place = verify, hash_in_place
         return self
@@ -1200,25 +1241,24 @@ class BenchTap:
         self.ec.verify_packed, self.sc.hash_in_place = self.verify, self.hash
 
     def check(self):
-        """{stage: {kernel: lanes, mismatches}} against the plain versions,
+        """{key: {kernel: lanes, mismatches}} against the plain versions,
         each launch's whole chunk in one plain call on the card."""
         import torch
 
-        from stellar_tpu_torch.ops import ed25519 as ed
         from stellar_tpu_torch.ops import sha512 as tsha
 
         torch.cuda.synchronize()
         out = {}
-        for stage, (p, got) in self.b1.items():
-            plain = ed._verify_packed(p)
-            out.setdefault(stage, {})["ed25519_verify"] = {
+        for (key, name), (p, got, signed) in self.b1.items():
+            plain = self.ed._verify_packed(p, signed=signed)
+            out.setdefault(key, {})[name] = {
                 "lanes": int(p.shape[1]), "accepts": int(got.sum()),
                 "mismatches": int((plain != got).sum())}
-        for stage, (before, after) in self.b2.items():
+        for (key, name), (before, after) in self.b2.items():
             plain = tsha.h_rows_from_packed(before).to(torch.uint8)
             moved = int((after[:96] != before[:96]).any(dim=0).sum()
                         + (after[128:] != before[128:]).any(dim=0).sum())
-            out.setdefault(stage, {})["sha512_h"] = {
+            out.setdefault(key, {})[name] = {
                 "lanes": int(before.shape[1]),
                 "mismatches": int((after[96:128] != plain).any(dim=0).sum()) + moved}
         torch.cuda.synchronize()
@@ -1238,7 +1278,7 @@ def phase_bench():
     os.environ.update(BENCH_KNOBS)
     stdout = io.StringIO()
     try:
-        with BenchTap(bench) as tap:
+        with LaunchTap(lambda: bench._progress.get("stage")) as tap:
             _node_counts(reset=True)
             try:
                 with contextlib.redirect_stdout(stdout):
@@ -1407,6 +1447,7 @@ def phase_profilers():
     hash or bit-identity mismatch, an invariant violation (the report's own
     assertions), a stall, a plain call or a zero launch count.  Returns the
     launches by path."""
+    from stellar_tpu_torch import harness
     from stellar_tpu_torch import profile_close as pc
     from stellar_tpu_torch import profile_system as ps
 
@@ -1451,7 +1492,7 @@ def phase_profilers():
         t_check = time.perf_counter()
         vs_plain = tap.check()
     finally:
-        pc._close_pool()
+        harness.close_pool()
     emit({"phase": "profilers", "first_launch_vs_plain": vs_plain,
           "seconds": time.perf_counter() - t_phase, "check_seconds": time.perf_counter() - t_check})
     for path in ("profile_close", "state_ladder"):
@@ -1464,6 +1505,130 @@ def phase_profilers():
                for k in ("ed25519_verify_signed", "ed25519_verify_signed_pair", "sha512_h")), launches
     bad = {p: k for p, ks in vs_plain.items() for k, r in ks.items() if r["mismatches"]}
     assert not bad, f"profiler launches that disagree with the plain version: {bad}"
+    return launches
+
+
+# -- phase 5d: the port's kernel profiler and driver entry ------------------
+
+
+def phase_profile_kernel():
+    """``profile_kernel``: the port's kernel profiler and driver entry
+    (``python -m stellar_tpu_torch.profile_kernel`` / ``graft_entry``) on
+    the card, in process, through the functions their CLIs call:
+    ``graft_entry.entry()`` (verdicts equal to the mask) and
+    ``dryrun_multichip(2)`` (distinct cards where there are two, else the
+    repeated-device rig); ``profile_kernel.main(32768, ab=True)`` (B1, the
+    wide B1s, B1); ``device_hash_ab(8192, 3)`` and ``mesh_curve([1, 2, 4],
+    2048, 3)`` on the rig, each into a temporary file — their gates' rc a
+    field, a speed verdict that fails nothing.  The launch counts are set to
+    0 just before each call and read just after, ``entry()`` and the dryrun
+    apart (the curve's legs are child processes: each counts its launches
+    and plain calls by kernel and prints them); the first launch of each
+    kernel on each in-process path is held against the plain version on the
+    card afterwards, the legs' launches against the oracle (their mixed
+    lanes exact, their timed lanes all valid).  Fails on any exception, a
+    wrong verdict, an oracle or mesh leg that failed, a plain call (a
+    leg's too), a mismatch or a zero launch count.  Returns the launches
+    by path."""
+    import contextlib
+    import io
+
+    from stellar_tpu_torch import graft_entry as ge
+    from stellar_tpu_torch import harness
+    from stellar_tpu_torch import profile_kernel as pk
+
+    t_phase = time.perf_counter()
+    os.environ.pop("PROFILE_DEVICE", None)
+    path = [None]
+    launches = {}
+
+    def run(name, call, fn):
+        path[0] = name
+        _node_counts(reset=True)
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            result = fn()
+        counts = _node_counts()
+        assert counts["plain_calls"] == {"ed25519": 0, "sha512": 0, "sha256": 0}, (name, counts)
+        launches[name] = counts["launches"]
+        return result, {"phase": "profile_kernel", "path": name, "call": call,
+                        "seconds": time.perf_counter() - t0,
+                        "printed": printed.getvalue().splitlines(), **counts}
+
+    def entry():
+        fn, args = ge.entry()
+        return fn(*args).cpu().numpy()
+
+    try:
+        with LaunchTap(lambda: path[0]) as tap, \
+                tempfile.TemporaryDirectory(prefix="chip_smoke_profile_kernel_") as tmp:
+            want = ge._mixed_lane_items(16)[1]
+            got, line = run("graft_entry", "entry()", entry)
+            line.update(verdicts=got.tolist(), mask=want.tolist())
+            emit(line)
+            assert (got == want).all(), "entry(): verdicts differ from the mask"
+
+            _, line = run("graft_entry_dryrun", f"dryrun_multichip({DRYRUN_SHARDS})",
+                          lambda: ge.dryrun_multichip(DRYRUN_SHARDS))
+            emit(line)
+            assert line["printed"][-1].startswith(
+                f"dryrun_multichip OK: 256 lanes over {DRYRUN_SHARDS} devices"), line["printed"]
+
+            out, line = run("profile_kernel", f"main({KERNEL_PROFILE_LANES}, ab=True)",
+                            lambda: pk.main(KERNEL_PROFILE_LANES, ab=True))
+            line.update(result=out)
+            emit(line)
+            assert [leg["kernel"] for leg in out["legs"]] == ["unsigned", "wide", "unsigned"], out
+
+            dh_path = os.path.join(tmp, "DEVICE_HASH_torch.json")
+            rc, line = run("device_hash_ab",
+                           f"device_hash_ab({DEVICE_HASH_AB_LANES}, {DEVICE_HASH_AB_REPS})",
+                           lambda: pk.device_hash_ab(DEVICE_HASH_AB_LANES, DEVICE_HASH_AB_REPS,
+                                                     dh_path))
+            with open(dh_path) as f:
+                record = json.load(f)
+            line.update(gate_rc=rc, record=record)
+            del line["printed"]
+            emit(line)
+            assert record["mixed_oracle_exact_both_layouts"] and record["kernel_backend"] == "cuda"
+            assert record["gated"] and rc == (0 if record["ok"] else 1), record
+
+            mc_path = os.path.join(tmp, "MULTICHIP_torch.json")
+            rc, line = run("mesh_curve", f"mesh_curve({list(MESH_CURVE_COUNTS)}, "
+                           f"{MESH_CURVE_PER_CHIP}, {MESH_CURVE_REPS})",
+                           lambda: pk.mesh_curve(list(MESH_CURVE_COUNTS), MESH_CURVE_PER_CHIP,
+                                                 MESH_CURVE_REPS, False, mc_path))
+            with open(mc_path) as f:
+                record = json.load(f)
+            line.update(gate_rc=rc, record=record)
+            del line["printed"]
+            emit(line)
+            assert not record["failures"] and not record["skipped_legs"], record["failures"]
+            for leg in record["legs"]:
+                assert leg["mixed_oracle_exact"] and leg["kernel_backend"] == "cuda", leg
+                assert leg["plain_calls"] == {"ed25519": 0, "sha512": 0}, leg
+                assert leg["launches"]["ed25519_verify"] > 0 and leg["device_calls"] > 0, leg
+            assert rc == (0 if record["ok"] else 1), record
+            # each kernel's count on its own row; the children's launches
+            # are held against the oracle (their mixed lanes exact, their
+            # timed lanes all valid), not the plain version
+            launches["mesh_curve"] = {k: sum(leg["launches"][k] for leg in record["legs"])
+                                      for k in record["legs"][0]["launches"]}
+        t_check = time.perf_counter()
+        vs_plain = tap.check()
+    finally:
+        harness.close_pool()
+    emit({"phase": "profile_kernel", "first_launch_vs_plain": vs_plain,
+          "seconds": time.perf_counter() - t_phase, "check_seconds": time.perf_counter() - t_check})
+    expect = {"graft_entry": ("ed25519_verify",), "graft_entry_dryrun": ("ed25519_verify",),
+              "profile_kernel": ("ed25519_verify", "ed25519_verify_signed"),
+              "device_hash_ab": ("ed25519_verify", "sha512_h")}
+    for name, kernels in expect.items():
+        for k in kernels:
+            assert launches[name][k] > 0 and k in vs_plain[name], (name, k, launches[name], vs_plain)
+    bad = {p: k for p, ks in vs_plain.items() for k, r in ks.items() if r["mismatches"]}
+    assert not bad, f"entry-point launches that disagree with the plain version: {bad}"
     return launches
 
 
@@ -2567,6 +2732,7 @@ def main() -> int:
 
         bench_launches = phase_bench()
         profiler_launches = phase_profilers()
+        entry_launches = phase_profile_kernel()
 
         torsion = phase_torsion(fx, rng, backend, [it[0] for it in ledger1[0][:TORSION_ENCS]])
 
@@ -2594,17 +2760,28 @@ def main() -> int:
                                    "scenario_flood": flood_launches,
                                    "bench": bench_launches["ed25519_verify"],
                                    **{path: profiler_launches[path]["ed25519_verify"]
-                                      for path in ("profile_close", "state_ladder")}}
+                                      for path in ("profile_close", "state_ladder")},
+                                   **{path: entry_launches[path]["ed25519_verify"]
+                                      for path in ("graft_entry", "graft_entry_dryrun",
+                                                   "profile_kernel", "device_hash_ab",
+                                                   "mesh_curve")}}
     # the signed windows' two kernels: the node_close card_signed leg and
     # the node_consensus card_signed run
     for row in rows[1:3]:
         row["launches_by_path"] = {"node_close_signed": close_launches[row["name"]],
                                    "node_consensus_signed": consensus_launches[row["name"]]}
+    rows[1]["launches_by_path"]["profile_kernel_ab"] = entry_launches["profile_kernel"][
+        "ed25519_verify_signed"]
+    for row in rows[1:3]:
+        row["launches_by_path"]["mesh_curve"] = entry_launches["mesh_curve"][row["name"]]
+    for row in rows[1:3]:
         row["launches"] = sum(row["launches_by_path"].values())
     rows[3]["launches_by_path"] = {"main_path_device_hash": dh_launches["sha512_h"],
                                    "mesh": mesh_launches["sha512_h"],
                                    "node_close": close_launches["sha512_h"],
-                                   "bench": bench_launches["sha512_h"]}
+                                   "bench": bench_launches["sha512_h"],
+                                   "device_hash_ab": entry_launches["device_hash_ab"]["sha512_h"],
+                                   "mesh_curve": entry_launches["mesh_curve"]["sha512_h"]}
     for row, kernel in ((rows[4], "lane"), (rows[5], "pair")):
         row["launches_by_path"] = {"bucket_hash": bucket_launches[kernel],
                                    "node_consensus": consensus_launches[SHA256_KERNELS[kernel]],

@@ -42,12 +42,13 @@ import tempfile
 import threading
 import time
 
+from . import harness
+
 _progress = {"stage": "start"}
 _t_start = time.monotonic()
 _emit_lock = threading.Lock()
 _emitted = False
 _bench_lock = None
-_pool = None  # the run's signing pool without libsodium (_signed)
 
 # the kernel wrappers: an exception raised in one is a kernel's fault
 _KERNEL_MODULES = tuple(
@@ -214,121 +215,13 @@ def _build_kernels():
             raise KernelFault(f"kernel build: {e}") from e
 
 
-def _device_kind(dev) -> str:
-    if dev.type != "cuda":
-        return "cpu"
-    import torch
-
-    return torch.cuda.get_device_name(dev)
-
-
-def _nvidia_smi(dev):
-    """The card's name and power limit as nvidia-smi prints them."""
-    if dev.type != "cuda":
-        return None
-    try:
-        p = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60,
-        )
-    except (OSError, subprocess.TimeoutExpired) as e:
-        return f"unavailable ({e})"
-    lines = p.stdout.strip().splitlines()
-    return lines[dev.index or 0] if len(lines) > (dev.index or 0) else None
-
-
 # -- fixtures -----------------------------------------------------------------
-
-
-def _test_seed(i: int) -> bytes:
-    """The seed of ``SecretKey.pseudo_random_for_testing(i)``."""
-    from .crypto.sha import sha256
-
-    return sha256(b"stellar_tpu test seed %d" % i)
-
-
-def _sign_job(chunk):
-    """[(key index, msg or None)] -> [(pk, msg, sig or None)]: RFC 8032
-    with the pure-Python reference (one scalar multiplication for the
-    public key, one a signature), in a pool worker."""
-    import hashlib
-
-    from .ops import ref25519 as ref
-
-    B = ref.base_point()
-    out = []
-    for i, msg in chunk:
-        h = hashlib.sha512(_test_seed(i)).digest()
-        a = int.from_bytes(h[:32], "little")
-        a = (a & ((1 << 254) - 8)) | (1 << 254)
-        pk = ref.compress(ref.scalar_mult(a, B))
-        sig = None
-        if msg is not None:
-            r = int.from_bytes(hashlib.sha512(h[32:] + msg).digest(), "little") % ref.L
-            R = ref.compress(ref.scalar_mult(r, B))
-            k = int.from_bytes(hashlib.sha512(R + pk + msg).digest(), "little") % ref.L
-            sig = R + ((r + k * a) % ref.L).to_bytes(32, "little")
-        out.append((pk, msg, sig))
-    return out
-
-
-def _signing_pool(workers=None):
-    """A spawn process pool for ``_sign_pool`` (a worker takes seconds to
-    start: one pool serves a run's fixtures)."""
-    import multiprocessing as mp
-    from concurrent.futures import ProcessPoolExecutor
-
-    return ProcessPoolExecutor(max_workers=workers or os.cpu_count() or 1,
-                               mp_context=mp.get_context("spawn"))
-
-
-def _close_pool():
-    """Shut the run's signing pool down, if ``_signed`` started one."""
-    global _pool
-    if _pool is not None:
-        _pool.shutdown()
-        _pool = None
-
-
-def _sign_pool(jobs, pool, chunk=256):
-    """``_sign_job`` over ``pool``, in order."""
-    jobs = list(jobs)
-    parts = [jobs[i : i + chunk] for i in range(0, len(jobs), chunk)]
-    return [t for part in pool.map(_sign_job, parts) for t in part]
-
-
-def _signed(jobs):
-    """[(key index, msg or None)] -> [(pk, msg, sig or None)], the bytes of
-    ``SecretKey.pseudo_random_for_testing(i)`` and its ``sign(msg)``: with
-    libsodium in process, else ref25519 over the run's process pool (the
-    pure-Python reference takes milliseconds a signature), which ``main``
-    shuts down at its end."""
-    global _pool
-    from .crypto import SecretKey, sodium
-
-    jobs = list(jobs)
-    t0 = time.perf_counter()
-    if sodium.available():
-        out = []
-        for i, msg in jobs:
-            sk = SecretKey.pseudo_random_for_testing(i)
-            out.append((sk.public_raw, msg, None if msg is None else sk.sign(msg)))
-    else:
-        if _pool is None:
-            _pool = _signing_pool()
-        out = _sign_pool(jobs, _pool)
-    print(
-        f"# bench: fixture of {len(jobs)} keys signed in "
-        f"{time.perf_counter() - t0:.1f}s ({'libsodium' if sodium.available() else 'ref25519 pool'})",
-        file=sys.stderr,
-    )
-    return out
 
 
 def bench_items(n):
     """``n`` distinct (pk, msg, sig) triples: key i signs
     ``b"bench message %08d" % i``."""
-    return _signed((i, b"bench message %08d" % i) for i in range(n))
+    return harness.signed((i, b"bench message %08d" % i) for i in range(n))
 
 
 # -- legs ---------------------------------------------------------------------
@@ -420,7 +313,7 @@ def _scp_envelope_items(n, same_slot=None):
     from .xdr.xtypes import PublicKey
 
     network_id = b"\x42" * 32
-    keys = _signed((20_000_000 + i, None) for i in range(n))
+    keys = harness.signed((20_000_000 + i, None) for i in range(n))
     jobs = []
     for i, (pk, _, _) in enumerate(keys):
         st = SCPStatement(
@@ -432,7 +325,7 @@ def _scp_envelope_items(n, same_slot=None):
             ),
         )
         jobs.append((20_000_000 + i, xdr_to_opaque(network_id, EnvelopeType.ENVELOPE_TYPE_SCP, st)))
-    return _signed(jobs)
+    return harness.signed(jobs)
 
 
 def bench_scp_envelopes(n=4096, backend=None, reps=3, items=None):
@@ -755,7 +648,7 @@ def _main():
         _measure(batch, nchunks, iters, watchdog_s)
     finally:
         watchdog.cancel()
-        _close_pool()
+        harness.close_pool()
 
 
 def _measure(batch, nchunks, iters, watchdog_s):
@@ -965,8 +858,8 @@ def _measure(batch, nchunks, iters, watchdog_s):
         "chunks": nchunks,
         "iters": iters,
         "speedup_vs_libsodium_core": None if cpu_rate is None else round(rate / cpu_rate, 2),
-        "device": _device_kind(dev),
-        "nvidia_smi": _nvidia_smi(dev),
+        "device": harness.device_kind(dev),
+        "nvidia_smi": harness.nvidia_smi(dev),
         "libsodium": sodium.available(),
         "host_stage": "native" if bv._sighash is not None else "python",
         # the headline runs the host-hash path; the paired device-hash
@@ -1057,7 +950,7 @@ def _close_child(n_txs: int, n_ledgers: int) -> None:
             print("CLOSE_KERNEL_FAULT " + f"{type(e).__name__}: {e}"[:300], flush=True)
         raise
     finally:
-        _close_pool()
+        harness.close_pool()
     print("CLOSE_RESULT " + json.dumps(r), flush=True)
 
 
@@ -1271,7 +1164,7 @@ def bench_ledger_close(n_txs=5000, n_ledgers=3, device=None):
 
         # warm-up, untimed: one batch of n_txs synthetic triples (distinct
         # keys — no cache overlap) through the node's backend
-        warm = _signed((10_000_000 + i, b"warmup %d" % i) for i in range(n_txs))
+        warm = harness.signed((10_000_000 + i, b"warmup %d" % i) for i in range(n_txs))
         app.sig_backend.verify_batch(warm)
 
         # drop setup/warmup spans: the breakdown describes the timed closes

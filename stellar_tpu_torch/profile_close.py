@@ -38,64 +38,17 @@ import statistics
 import sys
 import time
 
-_pool = None  # the signing pool without libsodium (_sign_frames)
-
-
-def _device() -> str:
-    """The device the node verifies on: ``PROFILE_DEVICE`` (default the
-    card).  Without CUDA, unless it is ``cpu``: one line on stderr, exit 2."""
-    import torch
-
-    name = os.environ.get("PROFILE_DEVICE", "cuda")
-    try:
-        dev = torch.device(name)
-    except RuntimeError:
-        dev = None
-    if dev is None or dev.type not in ("cuda", "cpu"):
-        print(f"PROFILE_DEVICE={name!r}: want cuda, cuda:N or cpu", file=sys.stderr)
-        sys.exit(2)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        print(
-            "CUDA is not available: the profilers run on the card; set "
-            "PROFILE_DEVICE=cpu to run the kernels' plain versions on the CPU",
-            file=sys.stderr,
-        )
-        sys.exit(2)
-    return str(dev)
-
-
-# -- signing without libsodium ----------------------------------------------
-
-
-def _sign_job(jobs):
-    """[(seed, msg)] -> [signature]: ref25519 in a pool worker."""
-    from .ops import ref25519 as ref
-
-    return [ref.sign_with_seed(seed, msg) for seed, msg in jobs]
-
-
-def _close_pool():
-    """Shut the signing pool down, if ``_sign_frames`` started one."""
-    global _pool
-    if _pool is not None:
-        _pool.shutdown()
-        _pool = None
+from . import harness
 
 
 def _sign_frames(signed):
     """Add each (frame, secret key)'s signature as
     ``TransactionFrame.add_signature`` does, the ref25519 signing (a few
-    milliseconds each in Python) spread over a spawn process pool."""
-    global _pool
-    from .bench import _signing_pool
+    milliseconds each in Python) spread over the harness's process pool."""
     from .crypto.keys import PubKeyUtils
     from .xdr.txs import DecoratedSignature
 
-    if _pool is None:
-        _pool = _signing_pool()
-    jobs = [(sk.get_seed(), frame.get_contents_hash()) for frame, sk in signed]
-    parts = [jobs[i : i + 256] for i in range(0, len(jobs), 256)]
-    sigs = [s for part in _pool.map(_sign_job, parts) for s in part]
+    sigs = harness.sign_seeded((sk.get_seed(), frame.get_contents_hash()) for frame, sk in signed)
     for (frame, sk), sig in zip(signed, sigs):
         frame.clear_cached()
         frame.envelope.signatures.append(
@@ -114,7 +67,7 @@ def _make_app(instance, n_txs, buffered=True, frame_context=True, cow=True,
     from .util.clock import REAL_TIME, VirtualClock
 
     cfg = T.get_test_config(instance, backend="gpu")
-    cfg.SIG_DEVICE = _device()
+    cfg.SIG_DEVICE = harness.device()
     cfg.DESIRED_MAX_TX_PER_LEDGER = n_txs * 2
     cfg.ENTRY_WRITE_BUFFER = buffered
     cfg.FRAME_CONTEXT = frame_context
@@ -205,7 +158,7 @@ def _populate(app, accounts, n_txs):
 def _payment_txs(app, accounts, created_at, n_txs, round_no, dest_of=None):
     """One payment tx per source account; `dest_of(i)` returns the dest
     PublicKey (defaults to the next account in the list).  Signed with
-    libsodium in process, else over the signing pool."""
+    libsodium in process, else over the harness's process pool."""
     from . import xdr as X
     from .crypto import sodium
     from .tx import testutils as T
@@ -768,7 +721,7 @@ def assert_budget(budget_ms=2000.0, n_txs=5000, n_ledgers=3):
 
 
 def _cli(args) -> int:
-    _device()  # no card, no run: exit 2 before anything is measured
+    harness.device()  # no card, no run: exit 2 before anything is measured
     if args and args[0] == "ladder":
         buffered = "--no-buffer" not in args
         scales_args = [a for a in args[1:] if a != "--no-buffer"]
@@ -822,5 +775,5 @@ if __name__ == "__main__":
     try:
         rc = _cli(sys.argv[1:])
     finally:
-        _close_pool()
+        harness.close_pool()
     sys.exit(rc)

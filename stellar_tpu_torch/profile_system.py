@@ -45,7 +45,7 @@ import statistics
 import sys
 import time
 
-from .profile_close import _device
+from . import harness
 
 
 def bucket(n=100_000):
@@ -58,7 +58,7 @@ def bucket(n=100_000):
     from .xdr.ledger import LedgerEntry
 
     cfg = T.get_test_config(95)
-    cfg.SIG_DEVICE = _device()
+    cfg.SIG_DEVICE = harness.device()
     clock = VirtualClock()
     app = Application.create(clock, cfg, new_db=True)
     bm = app.bucket_manager
@@ -98,7 +98,7 @@ def autoload(n_txs=30_000, mix="payments"):
     n_accounts = max(100, n_txs // 60)
     clock = VirtualClock(VIRTUAL_TIME)
     cfg = T.get_test_config(96)
-    cfg.SIG_DEVICE = _device()
+    cfg.SIG_DEVICE = harness.device()
     cfg.MANUAL_CLOSE = False
     cfg.ARTIFICIALLY_ACCELERATE_TIME_FOR_TESTING = True
     cfg.DESIRED_MAX_TX_PER_LEDGER = 10000
@@ -166,7 +166,7 @@ def _rung(n: int, traffic_closes: int = 12, txs_per_close: int = 50,
     from .tx import testutils as T
     from .util.clock import VirtualClock
 
-    device = _device()
+    device = harness.device()
     cfg = T.get_test_config(97)
     cfg.SIG_DEVICE = device
     clock = VirtualClock()
@@ -323,7 +323,7 @@ def ladder(max_rung: int = 1_000_000):
 
     import torch
 
-    device = _device()
+    device = harness.device()
     rungs = [r for r in (10_000, 100_000, 1_000_000) if r <= max_rung]
     results = {}
     for n in rungs:
@@ -371,7 +371,7 @@ def hash_ab(mb: int = 64):
 
     from .bucket import hashplane
 
-    device = _device()
+    device = harness.device()
     body = bytes(range(256))
     frame = struct.pack(">I", 0x80000000 | len(body)) + body
     reps = (mb << 20) // len(frame)
@@ -402,7 +402,7 @@ def hash_ab(mb: int = 64):
 
 
 def _cli(args) -> int:
-    _device()  # no card, no run: exit 2 before anything is measured
+    harness.device()  # no card, no run: exit 2 before anything is measured
     cmd = args[0] if args else "bucket"
     if cmd == "bucket":
         bucket(int(args[1]) if len(args) > 1 else 100_000)

@@ -211,13 +211,13 @@ def test_close_hang_is_killed_and_the_headline_stands():
 
 
 def test_pool_signed_fixture_equals_secret_key_sign():
-    from stellar_tpu_torch import bench
+    from stellar_tpu_torch import bench, harness
     from stellar_tpu_torch.crypto import SecretKey, sodium
 
     assert sodium.available()  # the reference side signs with libsodium here
     jobs = [(i, b"bench message %08d" % i) for i in range(5)] + [(20_000_000, None)]
-    with bench._signing_pool(2) as pool:
-        got = bench._sign_pool(jobs, pool, chunk=2)
+    with harness.signing_pool(2) as pool:
+        got = harness.sign_pool(jobs, pool, chunk=2)
     want = []
     for i, msg in jobs:
         sk = SecretKey.pseudo_random_for_testing(i)

@@ -41,7 +41,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
             "stellar_tpu_torch.scenarios.storagefaults",
             "stellar_tpu_torch.parallel", "stellar_tpu_torch.parallel.mesh",
             "stellar_tpu_torch.bench", "stellar_tpu_torch.profile_close",
-            "stellar_tpu_torch.profile_system"} <= set(names)
+            "stellar_tpu_torch.profile_system", "stellar_tpu_torch.profile_kernel",
+            "stellar_tpu_torch.graft_entry", "stellar_tpu_torch.harness"} <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"
@@ -70,5 +71,7 @@ def test_sources_name_no_jax_or_jax_package_import(path):
     for m in re.finditer(r"^\s*(?:import|from)\s+([\w.]+)", src, re.M):
         mod = m.group(1)
         assert not (mod == "stellar_tpu" or mod.startswith("stellar_tpu.")), (path, mod)
-        # nor the JAX package's root entry points (bench.py, profile_*.py)
-        assert mod not in ("bench", "profile_close", "profile_system", "profile_kernel"), (path, mod)
+        # nor the JAX package's root entry points (bench.py, profile_*.py,
+        # __graft_entry__.py)
+        assert mod not in ("bench", "profile_close", "profile_system", "profile_kernel",
+                           "__graft_entry__"), (path, mod)

@@ -225,6 +225,7 @@ def test_pool_signed_payments_equal_libsodium_signed(both, monkeypatch):
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
 
+    from stellar_tpu_torch import harness
     from stellar_tpu_torch.crypto import sodium
 
     _, tpc, _ = both
@@ -236,13 +237,13 @@ def test_pool_signed_payments_equal_libsodium_signed(both, monkeypatch):
         created_at = {a.get_strkey_public(): 3 for a in accounts}
         want = [t.envelope.to_xdr() for t in tpc._payment_txs(app, accounts, created_at, 5, 1)]
         monkeypatch.setattr(sodium, "available", lambda: False)
-        monkeypatch.setattr(tpc, "_pool", ProcessPoolExecutor(
+        monkeypatch.setattr(harness, "_pool", ProcessPoolExecutor(
             max_workers=2, mp_context=mp.get_context("spawn")))
         try:
             got = tpc._payment_txs(app, accounts, created_at, 5, 1)
         finally:
-            tpc._close_pool()
-        assert tpc._pool is None
+            harness.close_pool()
+        assert harness._pool is None
         assert [t.envelope.to_xdr() for t in got] == want
         assert all(len(t.envelope.signatures) == 1 for t in got)
     finally:

@@ -504,7 +504,9 @@ class GpuSigBackend(SigBackend):
         worker thread and wait for it: past the surface's budget the batch
         counts as stalled under a ``sig.device_stall`` span; past
         DEVICE_GIVE_UP, or while ``caller`` is latched, DeviceStallError
-        raises."""
+        raises.  The thread hops are spans: ``sig.hop_out`` from just before
+        the worker starts to its first line, ``sig.hop_back`` from its
+        ``finally`` to the caller's return from the wait."""
         with self._wedge_lock:
             left = self._wedged_until.get(caller, 0.0) - time.monotonic()
             if left > 0:
@@ -523,8 +525,11 @@ class GpuSigBackend(SigBackend):
         err: List[BaseException] = []
         done = threading.Event()
         calls_before = self._verifier.n_device_calls
+        tracer = self._tracer
+        hop_back: List[Any] = [None]
 
         def work():
+            tracer.end(hop_out)
             try:
                 result[0] = fn()
                 # warm on COMPLETION of a REAL device dispatch.  An
@@ -539,8 +544,10 @@ class GpuSigBackend(SigBackend):
             except BaseException as e:
                 err.append(e)
             finally:
+                hop_back[0] = tracer.begin("sig.hop_back")
                 done.set()
 
+        hop_out = tracer.begin("sig.hop_out")
         threading.Thread(target=work, name=f"gpu-{surface}", daemon=True).start()
         budget = self.DEVICE_FIRST_TIMEOUT if first else self.DEVICE_TIMEOUT
         if not done.wait(budget):
@@ -571,6 +578,7 @@ class GpuSigBackend(SigBackend):
                     f"{surface}: device batch of {n} stalled: no answer in"
                     f" {self.DEVICE_GIVE_UP:.0f}s"
                 )
+        tracer.end(hop_back[0])
         if err:
             raise err[0]
         return result[0]

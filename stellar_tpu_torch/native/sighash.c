@@ -1,7 +1,9 @@
 /* sighash — CPython extension: the ed25519 batch-verify HOST STAGE in C.
  *
  * A copy of the JAX package's native/sighash.c without its two test
- * hooks (_sha512_rax, _reduce512), built by stellar_tpu_torch/native into
+ * hooks (_sha512_rax, _reduce512), and with an optional stamp buffer on
+ * stage() and stage_raw() (clock stamps of the GIL-held and GIL-released
+ * parts, for the span tracer), built by stellar_tpu_torch/native into
  * the port's own build directory.  Entry points: stage() and stage_raw()
  * (the verify plane's host-hash and device-hash staging), sodium_verify(),
  * and sha256_batch() / bucket_hash_frames() (the bucket-hash plane's
@@ -44,6 +46,7 @@
 #include <pthread.h>
 #include <stdint.h>
 #include <string.h>
+#include <time.h>
 #include <unistd.h>
 
 /* ------------------------------------------------------------------ */
@@ -866,7 +869,26 @@ borrow_bytes(PyObject *o, const uint8_t **p, Py_ssize_t *len)
     return NULL;
 }
 
-/* stage(items, start, count, out, ok, blacklist, threads=0) -> rejects
+/* Called through a pointer, so the module imports no symbol of its own
+ * for the stamps: a new PLT entry moves every function after it by 16
+ * bytes, and at that offset the gate's loops ran ~25 % slower on an
+ * Emerald Rapids host (stage_raw over 32,768 lanes, one thread). */
+static int (*volatile clock_fn)(clockid_t, struct timespec *) = clock_gettime;
+
+/* CLOCK_MONOTONIC in ns: the clock time.monotonic() reads on Linux, so a
+ * stamp divided by 1e9 lies on the span tracer's clock */
+static uint64_t
+mono_ns(void)
+{
+    struct timespec ts;
+    clock_fn(CLOCK_MONOTONIC, &ts);
+    return (uint64_t)ts.tv_sec * 1000000000ULL + (uint64_t)ts.tv_nsec;
+}
+
+enum { N_STAMPS = 5 };
+
+/* stage(items, start, count, out, ok, blacklist, threads=0, stamps) ->
+ * rejects
  *
  * items     sequence of (pk, msg, sig) tuples — the LAST three slots are
  *           used, so the verifier's (idx, pk, msg, sig) tuples work too
@@ -877,23 +899,38 @@ borrow_bytes(PyObject *o, const uint8_t **p, Py_ssize_t *len)
  * ok        writable uint8 buffer, >= count: per-item gate verdicts
  * blacklist k*32 bytes of sign-masked small-order encodings
  * threads   0 = auto (pool when count >= 2048 and >1 core), 1 = inline
+ * stamps    optional writable buffer of 5 uint64: CLOCK_MONOTONIC ns at
+ *           [0] entry, [1] just before the GIL is released, [2] just
+ *           before it is taken back, [3] just after, [4] exit.  [0, 1) is
+ *           the GIL-held prologue (argument parsing, the tuple walk, the
+ *           increfs), [1, 2) the compute, [2, 3) the wait for the GIL,
+ *           [3, 4) the epilogue (the decrefs).  Not given: no clock is
+ *           read.  The staged bytes and the verdicts are the same either
+ *           way.
  */
 static PyObject *
 stage_common(PyObject *args, int raw)
 {
     PyObject *seq, *fast = NULL;
     Py_ssize_t start, count, stride;
-    Py_buffer out = {0}, okb = {0}, bl = {0};
+    Py_buffer out = {0}, okb = {0}, bl = {0}, sb = {0};
     int threads = 0;
     Item *items = NULL;
     size_t rejects = 0;
     size_t rowsz = raw ? DH_ROWS : 128;
     Py_ssize_t j;
     size_t r;
+    uint64_t st[N_STAMPS] = {0};
 
-    if (!PyArg_ParseTuple(args, "Onnw*w*y*|i", &seq, &start, &count, &out,
-                          &okb, &bl, &threads))
+    if (PyTuple_GET_SIZE(args) > 7)
+        st[0] = mono_ns();
+    if (!PyArg_ParseTuple(args, "Onnw*w*y*|iw*", &seq, &start, &count, &out,
+                          &okb, &bl, &threads, &sb))
         return NULL;
+    if (sb.obj && sb.len < (Py_ssize_t)sizeof(st)) {
+        PyErr_SetString(PyExc_ValueError, "stamps must hold 5 uint64");
+        goto fail;
+    }
     if (out.len % (Py_ssize_t)rowsz != 0) {
         PyErr_Format(PyExc_ValueError, "out must be %zu*stride bytes",
                      rowsz);
@@ -954,6 +991,8 @@ stage_common(PyObject *args, int raw)
         job.nbl = (int)(bl.len / 32);
         job.next_tile = 0;
         job.rejects = 0;
+        if (sb.obj)
+            st[1] = mono_ns();
         Py_BEGIN_ALLOW_THREADS
         if (threads == 1 || count < PAR_MIN || hw_threads() < 2) {
             run_job_tiles(&job);
@@ -969,7 +1008,11 @@ stage_common(PyObject *args, int raw)
             for (r = 0; r < rowsz; r++)
                 memset(job.out + (size_t)r * job.stride + count, 0,
                        (size_t)(stride - count));
+        if (sb.obj)
+            st[2] = mono_ns();
         Py_END_ALLOW_THREADS
+        if (sb.obj)
+            st[3] = mono_ns();
         rejects = job.rejects;
     }
 
@@ -983,6 +1026,11 @@ stage_common(PyObject *args, int raw)
     PyBuffer_Release(&out);
     PyBuffer_Release(&okb);
     PyBuffer_Release(&bl);
+    if (sb.obj) {
+        st[4] = mono_ns();
+        memcpy(sb.buf, st, sizeof(st));
+        PyBuffer_Release(&sb);
+    }
     return PyLong_FromSize_t(rejects);
 
 fail:
@@ -1000,6 +1048,8 @@ fail:
         PyBuffer_Release(&okb);
     if (bl.obj)
         PyBuffer_Release(&bl);
+    if (sb.obj)
+        PyBuffer_Release(&sb);
     return NULL;
 }
 
@@ -1010,8 +1060,8 @@ sighash_stage(PyObject *self, PyObject *args)
     return stage_common(args, 0);
 }
 
-/* stage_raw(items, start, count, out, ok, blacklist, threads=0) ->
- * rejects — the DEVICE-HASH staging pass: same strict gate, but the
+/* stage_raw(items, start, count, out, ok, blacklist, threads=0, stamps)
+ * -> rejects — the DEVICE-HASH staging pass: same strict gate, but the
  * (DH_ROWS, stride) layout carries raw single-block message bytes for
  * the device SHA-512 stage (ops/sha512.py); only multi-block residuals
  * are hashed here.  Host cost per item drops to gate + memcpy. */
@@ -1298,12 +1348,14 @@ sighash_bucket_hash_frames(PyObject *self, PyObject *args)
 
 static PyMethodDef methods[] = {
     {"stage", sighash_stage, METH_VARARGS,
-     "stage(items, start, count, out, ok, blacklist, threads=0) -> "
-     "rejects: gate + SHA-512(R||A||M) mod L + transposed staging"},
+     "stage(items, start, count, out, ok, blacklist, threads=0, stamps) -> "
+     "rejects: gate + SHA-512(R||A||M) mod L + transposed staging; stamps,"
+     " a writable buffer of 5 uint64, takes CLOCK_MONOTONIC ns at entry,"
+     " GIL release, GIL request, GIL back and exit"},
     {"stage_raw", sighash_stage_raw, METH_VARARGS,
-     "stage_raw(items, start, count, out, ok, blacklist, threads=0) -> "
-     "rejects: gate-only device-hash staging (raw single-block M bytes;"
-     " multi-block residuals hashed here, flag row 0)"},
+     "stage_raw(items, start, count, out, ok, blacklist, threads=0, stamps)"
+     " -> rejects: gate-only device-hash staging (raw single-block M bytes;"
+     " multi-block residuals hashed here, flag row 0); stamps as stage()'s"},
     {"sodium_verify", sighash_sodium_verify, METH_VARARGS,
      "sodium_verify(fn_addr, items, ok, threads=0): batch libsodium"
      " strict verify over the worker pool, GIL released; verdicts land"

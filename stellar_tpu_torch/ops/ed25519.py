@@ -360,6 +360,10 @@ def _verify_packed_device_hash(p, signed=None):
 # to the Python gate's — both derive from ref25519.small_order_blacklist)
 _BLACKLIST = b"".join(ref.small_order_blacklist())
 ROWS = 128  # packed staging rows: A, R, s, h
+# the C stage's parts between its five clock stamps (sighash.c stage()):
+# GIL held, GIL released, the wait to take it back, GIL held
+_STAGE_SPANS = ("ed25519.stage_prologue", "ed25519.stage_compute",
+                "ed25519.stage_gil_wait", "ed25519.stage_epilogue")
 # least bucket of a chunk under a mesh (the JAX verifier's default
 # ``min_device_batch``); buckets only place the shard boundaries here, as
 # nothing is padded to them
@@ -392,12 +396,14 @@ class _StagingPool:
     non_blocking upload) has completed — an earlier release would let the
     next chunk's host stage overwrite bytes the copy engine is still
     reading.  Pool size is bounded by the pipeline depth (times the shard
-    count under a mesh)."""
+    count under a mesh).  Staging never waits for a buffer: a miss
+    allocates a fresh one, under an ``ed25519.pool_alloc`` span."""
 
-    def __init__(self, lanes: int, rows: int, pin: bool):
+    def __init__(self, lanes: int, rows: int, pin: bool, tracer):
         self._lanes = lanes
         self._rows = rows
         self._pin = pin
+        self._tracer = tracer
         self._free = []
         self._lock = threading.Lock()
 
@@ -405,10 +411,11 @@ class _StagingPool:
         with self._lock:
             if self._free:
                 return self._free.pop()
-        return (
-            torch.empty(self._rows * self._lanes, dtype=torch.uint8, pin_memory=self._pin),
-            np.empty(self._lanes, dtype=np.uint8),
-        )
+        with self._tracer.span("ed25519.pool_alloc", lanes=self._lanes, pinned=self._pin):
+            return (
+                torch.empty(self._rows * self._lanes, dtype=torch.uint8, pin_memory=self._pin),
+                np.empty(self._lanes, dtype=np.uint8),
+            )
 
     def release(self, bufs) -> None:
         if bufs is None:
@@ -458,7 +465,18 @@ class BatchVerifier:
     a stager thread and shard), over its live lanes only; its verdicts come
     back into its slice of one pinned host result.  A dead shard, or one
     whose live lanes all fail the gate, launches nothing.  The mesh's
-    devices take the place of ``device``."""
+    devices take the place of ``device``.
+
+    ``tracer`` (``NULL_TRACER`` when None) takes ``ed25519.verify`` a call,
+    holding ``ed25519.verify_setup`` (up to the first chunk's submit) and
+    ``ed25519.stager_join`` (the stager threads' join after the last
+    drain), and, a chunk: ``ed25519.stage_queue`` (from the submit to the
+    stager's start); ``ed25519.host_hash``, holding ``ed25519.pool_alloc``
+    on a pool miss and, on a real clock, the C stage's ``stage_prologue``,
+    ``stage_compute``, ``stage_gil_wait`` and ``stage_epilogue`` from its
+    clock stamps, with ``stage_glue`` on either side of the call;
+    ``ed25519.device_dispatch``, holding ``result_alloc`` and ``launch``;
+    ``ed25519.drain``, holding ``drain_wait`` and ``drain_copy``."""
 
     def __init__(
         self,
@@ -522,7 +540,8 @@ class BatchVerifier:
         except ValueError:
             self._hash_threads = 0
         self._pool = _StagingPool(
-            self.max_batch // self._granule, self._rows, pin=self.device.type == "cuda"
+            self.max_batch // self._granule, self._rows, pin=self.device.type == "cuda",
+            tracer=self._tracer,
         )
         if streams is None:
             streams = int(os.environ.get("STELLAR_TPU_VERIFY_STREAMS", "1"))
@@ -552,7 +571,6 @@ class BatchVerifier:
         self.n_gate_rejects = 0
         self.n_host_assist_items = 0
         self.n_torsion_items = 0
-        self.verify_seconds = 0.0
         # n_device_calls is bumped from every stager thread
         self._calls_lock = threading.Lock()
 
@@ -587,8 +605,15 @@ class BatchVerifier:
         Chunks are (start, n) RANGES over ``items``: each chunk's gate +
         hash + staging happens in one C call over the original bytes
         objects (one a shard under a mesh), and gate verdicts mask the
-        device results at drain time."""
+        device results at drain time.  One ``ed25519.verify`` span a call."""
         items = items if isinstance(items, (list, tuple)) else list(items)
+        with self._tracer.span("ed25519.verify", items=len(items)):
+            return self._verify(items)
+
+    def _verify(self, items) -> List[bool]:
+        tracer = self._tracer
+        # ed25519.verify_setup: up to the first chunk's submit to the stager
+        setup = tracer.begin("ed25519.verify_setup")
         out = [False] * len(items)
         self.n_items += len(items)
         n_dev = len(items)
@@ -623,17 +648,19 @@ class BatchVerifier:
                 _t.start()
                 assist_join = _t.join
         pending = []
-        t0 = time.perf_counter()
 
         def drain_one():
             (start, n), staged, fut = pending.pop(0)
-            dsp = self._tracer.begin("ed25519.drain")
+            dsp = tracer.begin("ed25519.drain")
             if fut is not None:
-                res = np.logical_and(self._collect(fut)[:n], staged.ok[:n])
-                out[start : start + n] = res.tolist()
+                with tracer.span("ed25519.drain_wait"):
+                    got = self._collect(fut)
+                with tracer.span("ed25519.drain_copy"):
+                    res = np.logical_and(got[:n], staged.ok[:n])
+                    out[start : start + n] = res.tolist()
             # fut None: every lane was gate-rejected — out[] rows stay
             # False without a device round-trip
-            self._tracer.end(dsp, items=n)
+            tracer.end(dsp, items=n)
             self._release(staged)
 
         chunks = [
@@ -641,7 +668,7 @@ class BatchVerifier:
             for s in range(0, n_dev, self.max_batch)
         ]
         try:
-            self._run_pipeline(items, chunks, pending, drain_one)
+            self._run_pipeline(items, chunks, pending, drain_one, setup=setup)
         finally:
             # join even when the device pipeline raises: an orphan assist
             # thread would compete with the caller's retry for host cores
@@ -649,9 +676,6 @@ class BatchVerifier:
                 assist_join()
         if assist_err:
             raise assist_err[0]
-        # wall time of the whole batched call: staging + hashing + device
-        # compute + sync (NOT device-only)
-        self.verify_seconds += time.perf_counter() - t0
         return out
 
     def verify_torsion(self, encs: Sequence[bytes]) -> List[bool]:
@@ -727,10 +751,13 @@ class BatchVerifier:
         packed[96:128, :n] = L_BYTES[:, None] * ok[None, :]
         okbuf[:n] = ok
 
-    def _run_pipeline(self, items, chunks, pending, drain_one, stage_fn=None):
+    def _run_pipeline(self, items, chunks, pending, drain_one, stage_fn=None, setup=None):
+        """Stage, dispatch and drain ``chunks`` in order; ``setup``, an open
+        span of the caller's, ends where the first chunk is handed on."""
         stage = stage_fn if stage_fn is not None else self._stage_chunk
         if len(chunks) <= 1:
             for rng in chunks:
+                self._tracer.end(setup)
                 staged = stage(items, *rng)
                 pending.append((rng, staged, self._dispatch_staged(staged)))
             while pending:
@@ -749,35 +776,43 @@ class BatchVerifier:
             # needs an in-flight slot plus one being drained.
             depth = max(PIPELINE_DEPTH, self.streams + 1)
 
-            def stage_and_dispatch(rng):
+            def stage_and_dispatch(rng, queued):
+                # ed25519.stage_queue: from the submit to the stager's start
+                self._tracer.end(queued)
                 staged = stage(items, *rng)
                 return staged, self._dispatch_staged(staged)
 
-            with ThreadPoolExecutor(max_workers=self.streams) as stager:
-                futs = []
-                drained = 0
+            stager = ThreadPoolExecutor(max_workers=self.streams)
+            futs = []
+            drained = 0
 
-                def drain_oldest():
-                    nonlocal drained
-                    rng, f = futs[drained]
-                    drained += 1
-                    staged, fut = f.result()
-                    pending.append((rng, staged, fut))
-                    drain_one()
+            def drain_oldest():
+                nonlocal drained
+                rng, f = futs[drained]
+                drained += 1
+                staged, fut = f.result()
+                pending.append((rng, staged, fut))
+                drain_one()
 
-                try:
-                    for rng in chunks:
-                        if len(futs) - drained >= depth:
-                            drain_oldest()
-                        futs.append((rng, stager.submit(stage_and_dispatch, rng)))
-                    while drained < len(futs):
+            try:
+                for rng in chunks:
+                    if len(futs) - drained >= depth:
                         drain_oldest()
-                except BaseException:
-                    # drop queued work; running workers just finish their
-                    # chunk, so executor __exit__ joins cleanly
-                    for _, f in futs:
-                        f.cancel()
-                    raise
+                    self._tracer.end(setup)  # a no-op after the first chunk
+                    queued = self._tracer.begin("ed25519.stage_queue")
+                    futs.append((rng, stager.submit(stage_and_dispatch, rng, queued)))
+                while drained < len(futs):
+                    drain_oldest()
+            except BaseException:
+                # drop queued work; running workers just finish their
+                # chunk, so the shutdown below joins cleanly
+                for _, f in futs:
+                    f.cancel()
+                raise
+            finally:
+                # the stager threads live for one call: their join
+                with self._tracer.span("ed25519.stager_join"):
+                    stager.shutdown(wait=True)
 
     def _stage_chunk(self, items, start, n) -> Optional[_Staged]:
         """Host stage over ``items[start:start+n]``: strict-input gate +
@@ -804,7 +839,22 @@ class BatchVerifier:
             stage = self._stage_py_raw if self.device_hash else self._stage_py
             return stage(items, start, n, packed.numpy(), okbuf)
         stage = self._sighash.stage_raw if self.device_hash else self._sighash.stage
-        return stage(items, start, n, packed.numpy(), okbuf, _BLACKLIST, self._hash_threads)
+        tracer = self._tracer
+        if not (tracer.enabled and tracer.real_clock):
+            return stage(items, start, n, packed.numpy(), okbuf, _BLACKLIST, self._hash_threads)
+        # the C stage's clock stamps (CLOCK_MONOTONIC ns, the tracer's
+        # clock): four children of ed25519.host_hash, and ed25519.stage_glue
+        # for this frame's Python on either side of the call
+        entered = time.monotonic()
+        stamps = np.zeros(len(_STAGE_SPANS) + 1, dtype=np.uint64)
+        rejects = stage(items, start, n, packed.numpy(), okbuf, _BLACKLIST,
+                        self._hash_threads, stamps)
+        t = (stamps / 1e9).tolist()
+        tracer.record("ed25519.stage_glue", entered, t[0])
+        for k, name in enumerate(_STAGE_SPANS):
+            tracer.record(name, t[k], t[k + 1], items=n)
+        tracer.record("ed25519.stage_glue", t[-1], time.monotonic())
+        return rejects
 
     @staticmethod
     def _gate_chunk(items, start, n, packed, okbuf, keep_rejected):
@@ -942,22 +992,24 @@ class BatchVerifier:
         )
         # one host result for the chunk; the lanes of a shard that launched
         # nothing are all gate-rejected, and the drain masks them False
-        host = torch.empty(staged.n, dtype=torch.bool, pin_memory=cuda)
+        with self._tracer.span("ed25519.result_alloc"):
+            host = torch.empty(staged.n, dtype=torch.bool, pin_memory=cuda)
         events = []
-        for k, lo, packed in parts:
-            dev = self._devices()[k]
-            out = host[lo : lo + packed.shape[1]]
-            if not cuda:
-                out.copy_(self._run_kernels(packed, dev))
-                continue
-            stream = self._stream(k)
-            # the stream makes its device current; the wrappers make the
-            # tensor's device current around each launch
-            with torch.cuda.stream(stream):
-                out.copy_(self._run_kernels(packed, dev), non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(stream)
-            events.append(done)
+        with self._tracer.span("ed25519.launch", shards=len(parts)):
+            for k, lo, packed in parts:
+                dev = self._devices()[k]
+                out = host[lo : lo + packed.shape[1]]
+                if not cuda:
+                    out.copy_(self._run_kernels(packed, dev))
+                    continue
+                stream = self._stream(k)
+                # the stream makes its device current; the wrappers make the
+                # tensor's device current around each launch
+                with torch.cuda.stream(stream):
+                    out.copy_(self._run_kernels(packed, dev), non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record(stream)
+                events.append(done)
         self._tracer.end(dsp, lanes=staged.n, shards=len(parts), device=str(self.device))
         with self._calls_lock:
             self.n_device_calls += 1
@@ -983,7 +1035,6 @@ class BatchVerifier:
             "native_host_stage": self._sighash is not None,
             "device_hash": self.device_hash,
             "torsion_items": self.n_torsion_items,
-            "verify_seconds": self.verify_seconds,
             # 0 = unsharded; >0 = shards of the mesh (Config.SIG_MESH)
             "mesh_devices": len(self.mesh) if self.mesh is not None else 0,
         }

@@ -25,12 +25,34 @@ A disabled tracer (``Config.TRACE_ENABLED = false``) short-circuits to a
 shared no-op scope before touching the ring or the clock; ``NULL_TRACER`` is
 the module-wide disabled instance components use when no Application wired a
 real one in (keeps every call site unconditional).
+
+Two kinds of span act on real clocks only, since their stamps come from the
+host's ``CLOCK_MONOTONIC`` (what ``time.monotonic`` reads on Linux) and a
+virtual clock's spans must stay deterministic:
+
+- ``Tracer.record(name, start, end, **attrs)`` takes a span whose stamps
+  were taken elsewhere, e.g. by the C host stage (``native/sighash.c``);
+  a tracer on a VIRTUAL clock records nothing through it;
+- ``py.gc``: one span for each of the interpreter's collections of
+  generation 1 or 2 (attributes ``generation`` and ``collected``), in every
+  enabled tracer on the real clock, through one module-level
+  ``gc.callbacks`` entry over a weak set of those tracers.  The entry is
+  installed with the first such tracer and removed when the last one is
+  collected, so it keeps no tracer alive.  Generation-0 passes are left out:
+  they run every ~700 container allocations and would churn the ring.  A
+  collection can start inside ``_complete``'s locked section (an
+  allocation there), and the lock is not re-entrant, so the callback never
+  takes it: it appends to the tracer's ``_gc_pending`` deque, which the
+  next completion or read drains under the lock.
 """
 
 from __future__ import annotations
 
+import collections
+import gc
 import threading
 import time
+import weakref
 from typing import Dict, List, Optional
 
 from ..util.metrics import Histogram
@@ -114,6 +136,17 @@ class Tracer:
             self._now = clock.now
         else:
             self._now = time.monotonic
+        # py.gc spans completed by the collector's callback, stored by the
+        # next _complete or read (see the module docstring)
+        self._gc_pending: collections.deque = collections.deque()
+        if self.enabled and self.real_clock:
+            _gc_register(self)
+
+    @property
+    def real_clock(self) -> bool:
+        """True where the stamps are ``time.monotonic``'s (not a virtual
+        clock's): ``record`` and ``py.gc`` act only then."""
+        return self._now is time.monotonic
 
     # -- recording ----------------------------------------------------------
     def span(self, name: str, **attrs):
@@ -144,18 +177,38 @@ class Tracer:
                 span.attrs = attrs
         self._complete(span)
 
+    def record(self, name: str, start: float, end: float, **attrs) -> None:
+        """Record a completed span whose stamps (seconds of ``time.monotonic``,
+        i.e. ``CLOCK_MONOTONIC``) were taken elsewhere.  Nothing is recorded
+        by a disabled tracer or one on a virtual clock."""
+        if not self.enabled or not self.real_clock:
+            return
+        span = Span(name, start, threading.get_ident(), attrs or None)
+        span.end = end
+        self._complete(span)
+
     def _complete(self, span: Span) -> None:
-        dur_ms = span.duration * 1000.0
         with self._lock:
-            if self._idx >= self.ring_size:
-                self._dropped += 1
-            self._ring[self._idx % self.ring_size] = span
-            self._idx += 1
-            hist = self._hists.get(span.name)
-            if hist is None:
-                hist = self._make_hist(span.name)
-                self._hists[span.name] = hist
-            hist.update(dur_ms)
+            self._store_locked(span)
+            self._drain_gc_locked()
+
+    def _store_locked(self, span: Span) -> None:
+        if self._idx >= self.ring_size:
+            self._dropped += 1
+        self._ring[self._idx % self.ring_size] = span
+        self._idx += 1
+        hist = self._hists.get(span.name)
+        if hist is None:
+            hist = self._make_hist(span.name)
+            self._hists[span.name] = hist
+        hist.update(span.duration * 1000.0)
+
+    def _drain_gc_locked(self) -> None:
+        # a collection during the drain appends behind it: the loop takes
+        # that span too
+        pending = self._gc_pending
+        while pending:
+            self._store_locked(pending.popleft())
 
     def _make_hist(self, name: str) -> Histogram:
         if self._metrics is not None:
@@ -166,6 +219,7 @@ class Tracer:
 
     # -- reading ------------------------------------------------------------
     def _spans_locked(self) -> List[Span]:
+        self._drain_gc_locked()
         n = min(self._idx, self.ring_size)
         cursor = self._idx % self.ring_size
         if self._idx <= self.ring_size:
@@ -177,6 +231,7 @@ class Tracer:
         ]
 
     def _aggregates_locked(self) -> Dict[str, dict]:
+        self._drain_gc_locked()
         return {
             name: {
                 "count": h.count,
@@ -191,6 +246,7 @@ class Tracer:
         self._ring = [None] * self.ring_size
         self._idx = 0
         self._dropped = 0
+        self._gc_pending.clear()
         for h in self._hists.values():
             h.clear()
 
@@ -203,6 +259,7 @@ class Tracer:
     def dropped(self) -> int:
         """Spans overwritten by ring wraparound since the last clear."""
         with self._lock:
+            self._drain_gc_locked()
             return self._dropped
 
     def aggregates(self) -> Dict[str, dict]:
@@ -233,6 +290,50 @@ class Tracer:
         from .chrome import chrome_trace_json
 
         return chrome_trace_json(self.spans())
+
+
+# -- py.gc: the collector's passes of generation 1 and 2 --------------------
+_GC_TRACERS: "weakref.WeakSet[Tracer]" = weakref.WeakSet()
+_gc_lock = threading.RLock()  # a finalizer may run inside a collection
+_gc_open: List[Optional[float]] = [None]  # the start of the collection under way
+
+
+def _gc_callback(phase: str, info: dict) -> None:
+    """``gc.callbacks`` entry: a ``py.gc`` span into every registered
+    tracer's pending deque (never its lock; see the module docstring)."""
+    gen = info.get("generation", 0)
+    if gen < 1:
+        return
+    if phase == "start":
+        _gc_open[0] = time.monotonic()
+        return
+    start, _gc_open[0] = _gc_open[0], None
+    if start is None:
+        return
+    end = time.monotonic()
+    tid = threading.get_ident()
+    for tracer in list(_GC_TRACERS):
+        if tracer.enabled:
+            span = Span("py.gc", start, tid,
+                        {"generation": gen, "collected": info.get("collected", 0)})
+            span.end = end
+            tracer._gc_pending.append(span)
+
+
+def _gc_register(tracer: Tracer) -> None:
+    with _gc_lock:
+        _GC_TRACERS.add(tracer)
+        if _gc_callback not in gc.callbacks:
+            gc.callbacks.append(_gc_callback)
+    weakref.finalize(tracer, _gc_forget).atexit = False
+
+
+def _gc_forget() -> None:
+    """A registered tracer was collected: remove the callback once no live
+    one is left (the weak set yields live tracers only)."""
+    with _gc_lock:
+        if not any(True for _ in _GC_TRACERS) and _gc_callback in gc.callbacks:
+            gc.callbacks.remove(_gc_callback)
 
 
 # Disabled tracer for components constructed without an Application (ops-level

@@ -91,14 +91,17 @@ SEAMS = {
     "scenarios/faults.py": "imports the xdr package relatively",
     "scenarios/__main__.py": "prog and usage name the port's package; --signature-backend"
                              " sets every node's backend (the tests ask for cpu)",
+    "trace/tracer.py": "record() takes spans stamped elsewhere (the verify plane's C host"
+                       " stage) and py.gc spans record the collector's passes, both on"
+                       " real clocks only",
 }
-# the only files a seam may be (the composition root's seams)
+# the only files a seam may be (the composition root's seams, and the tracer)
 SEAM_FILES = {
     "crypto/__init__.py", "crypto/keys.py", "crypto/ecdh.py", "overlay/peer.py",
     "main/config.py", "main/application.py", "main/cli.py", "main/commandhandler.py",
     "tx/testutils.py", "analysis/core.py", "analysis/__main__.py", "analysis/__init__.py",
     "scenarios/scenario.py", "scenarios/matrix.py", "scenarios/killsweep.py",
-    "scenarios/faults.py", "scenarios/__main__.py",
+    "scenarios/faults.py", "scenarios/__main__.py", "trace/tracer.py",
 }
 # comment and docstring hunks whose words leave out the original's
 # development-history tags: "<original lines' digest>:<copy lines' digest>"

@@ -337,6 +337,12 @@ def test_device_stall_raises_and_latches_only_its_caller(monkeypatch):
             spans.append((name, attrs.get("caller"), attrs.get("items")))
             return contextlib.nullcontext()
 
+        def begin(self, name, **attrs):  # the thread hops' spans, not counted here
+            return None
+
+        def end(self, span, **attrs):
+            pass
+
     slow = GpuSigBackend(device="cpu", cpu_cutover=0)
     slow._tracer = Tracer()  # the backend's own spans (the verifier keeps its tracer)
     slow.DEVICE_FIRST_TIMEOUT = 0.2
@@ -438,7 +444,9 @@ def test_kernel_error_still_raises():
 
 
 def test_stats_keys_match_jax(port, jbv):
-    assert set(port.stats()) == set(jbv.stats())
+    # the port keeps no verify_seconds: its tracer's ed25519.verify spans
+    # time each call
+    assert set(port.stats()) == set(jbv.stats()) - {"verify_seconds"}
     assert port.stats()["backend"] == "gpu"
 
 
@@ -466,3 +474,139 @@ def test_secret_key_matches_jax_and_without_libsodium(monkeypatch):
     sk = SecretKey.pseudo_random_for_testing(7)
     assert sk.public_raw == jsk.public_raw
     assert sk.sign(b"fixture") == jsk.sign(b"fixture")
+
+
+# -- the verify plane's spans (trace/tracer.py) -------------------------------
+
+
+def _fake_device_hash_kernel(p, signed=None):
+    """A fast stand-in for the plain device-hash pair: a verdict from two
+    staged bytes of each lane, so the verdicts follow the staging."""
+    rows = p.numpy()
+    return torch.from_numpy(((rows[0] ^ rows[96]) & 1) == 0)
+
+
+class _StageArgs:
+    """The C stage, counting the arguments of each call."""
+
+    def __init__(self, mod):
+        self._mod = mod
+        self.nargs = []
+
+    def stage_raw(self, *args):
+        self.nargs.append(len(args))
+        return self._mod.stage_raw(*args)
+
+
+def _inside(child, parent):
+    return parent.start <= child.start <= child.end <= parent.end
+
+
+@pytest.mark.parametrize("fn,rows", [("stage", 128), ("stage_raw", 160)])
+def test_stage_stamps_leave_the_stage_unchanged(fn, rows):
+    """With the stamp buffer the C stage writes the same bytes and verdicts,
+    and its five CLOCK_MONOTONIC stamps rise in order on the tracer's
+    clock."""
+    items = _signed(24, b"stamp", random.Random(11), bad_every=3, max_len=200)
+    items.append((b"\x00" * 32, b"m", b"\x00" * 64))  # a small-order key: the gate refuses
+    stage = getattr(tnative.load_sighash(), fn)
+    outs = []
+    a = time.monotonic_ns()
+    for extra in ((), (np.zeros(5, dtype=np.uint64),)):
+        packed = np.full((rows, 32), 0xAB, dtype=np.uint8)
+        ok = np.full(32, 7, dtype=np.uint8)
+        rejects = stage(items, 0, len(items), packed, ok, ted._BLACKLIST, 1, *extra)
+        outs.append((packed, ok, rejects, extra))
+    b = time.monotonic_ns()
+    (p0, ok0, r0, _), (p1, ok1, r1, (stamps,)) = outs
+    np.testing.assert_array_equal(p0, p1)
+    np.testing.assert_array_equal(ok0, ok1)
+    assert r0 == r1 > 0
+    assert a <= stamps[0] <= stamps[1] <= stamps[2] <= stamps[3] <= stamps[4] <= b
+    with pytest.raises(ValueError, match="5 uint64"):
+        stage(items, 0, 1, p1, ok1, ted._BLACKLIST, 1, np.zeros(4, dtype=np.uint64))
+
+
+def test_batch_verifier_spans_nest(monkeypatch):
+    """A several-chunk call with a tracer yields every span of the plane,
+    each child inside its parent, one stage_queue a chunk ending before its
+    chunk's host stage."""
+    from stellar_tpu_torch.trace import Tracer
+
+    monkeypatch.setattr(ted, "_verify_packed_device_hash", _fake_device_hash_kernel)
+    tracer = Tracer(ring_size=1024)
+    bv = ted.BatchVerifier(device="cpu", max_batch=8, device_hash=True, tracer=tracer)
+    items = _signed(24, b"span", random.Random(12), bad_every=5)
+    bv.verify(items)
+    by = {}
+    for s in tracer.spans():
+        by.setdefault(s.name, []).append(s)
+    (call,) = by["ed25519.verify"]
+    assert all(_inside(s, call) for n, ss in by.items() if n.startswith("ed25519.") for s in ss)
+    for parent, children in (
+        ("ed25519.host_hash", ("ed25519.stage_prologue", "ed25519.stage_compute",
+                               "ed25519.stage_gil_wait", "ed25519.stage_epilogue",
+                               "ed25519.stage_glue", "ed25519.pool_alloc")),
+        ("ed25519.device_dispatch", ("ed25519.result_alloc", "ed25519.launch")),
+        ("ed25519.drain", ("ed25519.drain_wait", "ed25519.drain_copy")),
+    ):
+        assert len(by[parent]) == 3
+        for name in children:
+            assert by[name], name
+            for s in by[name]:
+                assert any(_inside(s, p) for p in by[parent]), name
+    parts = [by[n] for n in ("ed25519.stage_prologue", "ed25519.stage_compute",
+                             "ed25519.stage_gil_wait", "ed25519.stage_epilogue")]
+    glue = sorted(by["ed25519.stage_glue"], key=lambda s: s.start)
+    for pro, comp, wait, epi, before, after in zip(*parts, glue[::2], glue[1::2]):
+        assert before.end == pro.start and epi.end == after.start
+        assert pro.end == comp.start and comp.end == wait.start and wait.end == epi.start
+    queued = sorted(by["ed25519.stage_queue"], key=lambda s: s.start)
+    stages = sorted(by["ed25519.host_hash"], key=lambda s: s.start)
+    assert len(queued) == 3 and all(q.end <= h.start for q, h in zip(queued, stages))
+    # the call's own parts, before the first chunk and after the last drain
+    (setup,), (join,) = by["ed25519.verify_setup"], by["ed25519.stager_join"]
+    assert call.start <= setup.start <= setup.end <= queued[0].start
+    assert max(d.end for d in by["ed25519.drain"]) <= join.start <= join.end <= call.end
+
+
+def test_gpu_backend_thread_hop_spans(monkeypatch):
+    """GpuSigBackend records one sig.hop_out and one sig.hop_back a call,
+    around the verifier's call on the worker thread."""
+    from stellar_tpu_torch.trace import Tracer
+
+    monkeypatch.setattr(ted, "_verify_packed_device_hash", _fake_device_hash_kernel)
+    tracer = Tracer(ring_size=1024)
+    backend = GpuSigBackend(device="cpu", cpu_cutover=0, max_batch=8, device_hash=True,
+                            tracer=tracer)
+    items = _signed(12, b"hop", random.Random(13), bad_every=4)
+    for _ in range(2):
+        backend.verify_batch(items, caller="close")
+    by = {}
+    for s in tracer.spans():
+        by.setdefault(s.name, []).append(s)
+    assert len(by["sig.hop_out"]) == len(by["sig.hop_back"]) == len(by["ed25519.verify"]) == 2
+    for out, call, back in zip(by["sig.hop_out"], by["ed25519.verify"], by["sig.hop_back"]):
+        assert out.start <= out.end <= call.start <= call.end <= back.start <= back.end
+
+
+def test_no_stamps_and_no_spans_without_a_real_clock_tracer(monkeypatch):
+    """With NULL_TRACER nothing is recorded and the C stage gets no stamp
+    buffer (nor on a virtual clock); the verdicts equal a traced call's."""
+    from types import SimpleNamespace
+
+    from stellar_tpu_torch.trace import NULL_TRACER, Tracer
+
+    monkeypatch.setattr(ted, "_verify_packed_device_hash", _fake_device_hash_kernel)
+    items = _signed(24, b"null", random.Random(14), bad_every=3)
+    virtual = Tracer(clock=SimpleNamespace(mode="virtual", now=lambda: 0.0))
+    verdicts, nargs = [], []
+    for tracer in (None, virtual, Tracer(ring_size=1024)):
+        bv = ted.BatchVerifier(device="cpu", max_batch=8, device_hash=True, tracer=tracer)
+        bv._sighash = _StageArgs(bv._sighash)
+        verdicts.append(bv.verify(items))
+        nargs.append(set(bv._sighash.nargs))
+    assert verdicts[0] == verdicts[1] == verdicts[2] and any(verdicts[0])
+    assert nargs == [{7}, {7}, {8}]
+    assert NULL_TRACER.spans() == [] and NULL_TRACER.aggregates() == {}
+    assert not {s.name for s in virtual.spans()} & set(ted._STAGE_SPANS)

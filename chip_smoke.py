@@ -43,9 +43,17 @@ phase's failure is caught while the run carries on):
                 lanes at 4096 and 32768, and each one's registers, shared
                 memory and resident blocks an SM from the CUDA runtime; the
                 wide variant's row at 4096 lanes, the pair's at one;
-              - sha512_h: 4096 device-hash lanes (every single-block
-                message length 0-47, host-hashed longer messages, gate-
-                rejected inert lanes), into a new tensor and in place; an
+              - dh_rows_to_cols (T1): 32,768 device-hash lanes staged
+                item-major by ``stage_rows`` (every single-block message
+                length 0-47, host-hashed longer messages, gate-rejected
+                inert lanes) into the (160, n) layout, and the first n of
+                them for n in TRANSPOSE_WIDTHS, each from an aligned and a
+                misaligned input (the byte path) and once replayed from a
+                CUDA graph; each equal to the plain version and to
+                ``stage_raw``'s buffer of the same items, timed beside
+                PyTorch's own transpose (``library_ms``);
+              - sha512_h: the first 4096 of T1's lanes on the card, as the
+                verify plane feeds B2, into a new tensor and in place; an
                 all-flag-0 chunk must come back unchanged;
               - sha256_frames: a 4 MB BucketHasher flush (~40,000 frames)
                 and the whole two-block class of the 10^6-record bucket,
@@ -69,9 +77,11 @@ phase's failure is caught while the run carries on):
               ``make_backend("gpu", device_hash=True)`` in a fresh cache:
               the 32-byte tx hashes are hashed on the card by the SHA-512
               kernel, the SCP statements (multi-block) on the host by
-              ``stage_raw`` and merged through the flag row.  Same verdict
-              checks; both kernels must have launched and neither plain
-              version run; span sums beside the host-hash run's;
+              ``stage_rows`` and merged through the flag row; every chunk
+              is staged item-major and transposed by T1, one T1 launch a
+              B1 launch.  Same verdict checks; the kernels must have
+              launched and neither plain version run; span sums beside the
+              host-hash run's;
 5b. bench   — ``bench``: the port's headline bench (``python -m
               stellar_tpu_torch.bench``), its ``main()`` in process at full
               width (``BENCH_BATCH=32768``, ``BENCH_CHUNKS=4``) with
@@ -81,8 +91,8 @@ phase's failure is caught while the run carries on):
               legs, the SCP envelope legs and the byzantine flood on the
               card.  Its one JSON line is the phase's row, beside the
               launch counts read around the call (set to 0 just before);
-              the first launch of each leg (B1, and B2 in the device-hash
-              leg) is held against the plain version on the card
+              the first launch of each leg (B1, and T1 and B2 in the
+              device-hash leg) is held against the plain version on the card
               afterwards.  Fails on an ``error`` or any ``*_error`` in the
               line, a zero ``value``, a plain call, or a mismatch;
 5c. profilers — ``profilers``: the port's close and state profilers
@@ -111,7 +121,7 @@ phase's failure is caught while the run carries on):
               (one child process a leg, each printing its own launches and
               plain calls by kernel; the retention gate's rc a field).
               Launch counts read around each call (the dryrun a path of its
-              own); the first launch of each kernel (B1, B1s, B2) on each
+              own); the first launch of each kernel (B1, B1s, T1, B2) on each
               in-process path held against the plain version, the curve's
               legs against the oracle; fails on any exception, wrong
               verdict, failed leg, mismatch, plain call (the legs' too) or
@@ -131,9 +141,9 @@ phase's failure is caught while the run carries on):
               envelopes, a 43-lane remainder of mixed and hostile lanes (the
               tail shard short, a dead shard on three) and the 512 torsion
               encodings: verdicts equal the unsharded verifier's in the same
-              call and the known ones; one B1 launch (and, for single-block
-              messages under device hashing, one B2 launch) a live shard and
-              none for a dead one; every shard's launch held against the
+              call and the known ones; one B1 launch (and under device
+              hashing one T1 launch a verify chunk, and for single-block
+              messages one B2 launch) a live shard and none for a dead one; every shard's launch held against the
               plain version on its inputs afterwards; ms per load beside the
               unsharded verifier's, in turns.  With two cards or more the
               same on ``[cuda:0, cuda:1]``; else ``"multi_card": "not run:
@@ -246,6 +256,12 @@ TORSION_ENCS = 512
 REF_SAMPLE = 256
 WIDE_FACTOR = 8
 GRAPH_LAUNCHES = 50  # kernel launches captured in one CUDA graph to time a kernel
+# the device-hash chunk of the benchmark's cell and of the bench
+# (SIG_BATCH_MAX = 32768), T1's main shape; and its narrower launches: one
+# lane, a width past no multiple of 4 (T1's byte path), a 5000-tx ledger's
+# tail, the node's chunk and one lane more
+DH_CHUNK_LANES = LANES * WIDE_FACTOR
+TRANSPOSE_WIDTHS = (1, 63, 904, LANES, LANES + 1)
 # the verify kernel's ragged chunks: a 5000-tx ledger's tail (5000 - 4096)
 # and a 300-envelope SCP flush
 TAIL_LANES = (904, 300)
@@ -776,12 +792,13 @@ def phase_kernel_signed(packed, floor_ms):
     return rows
 
 
-def sha512_lanes(rng, ledger_items, n=LANES):
-    """(160, n) device-hash lanes staged by the port's ``stage_raw``:
-    message lengths 0..59 in turn — 0..47 upload raw with flag 1, 48..59 are
-    hashed on the host with flag 0 — and every 16th lane gate-rejected
-    (s := L: an inert zero lane).  Returns the lanes, the items and the
-    gate verdicts."""
+def sha512_lanes(rng, ledger_items, n=DH_CHUNK_LANES):
+    """(n, 160) item-major device-hash lanes staged by the port's
+    ``stage_rows``, as the verify plane stages a device-hash chunk, over
+    the ledger's items in turn: message lengths 0..59 in turn — 0..47
+    upload raw with flag 1, 48..59 are hashed on the host with flag 0 —
+    and every 16th lane gate-rejected (s := L: an inert zero lane).
+    Returns the rows, the items and the gate verdicts."""
     import numpy as np
 
     from stellar_tpu_torch import native
@@ -790,24 +807,109 @@ def sha512_lanes(rng, ledger_items, n=LANES):
 
     items = []
     for i in range(n):
-        pk, _, sig = ledger_items[i]
+        pk, _, sig = ledger_items[i % len(ledger_items)]
         if i % 16 == 15:
             sig = sig[:32] + tsha.L.to_bytes(32, "little")
         items.append((pk, rng.randbytes(i % 60), sig))
-    packed = np.zeros((tsha.DH_ROWS, n), dtype=np.uint8)
+    rows = np.zeros((n, tsha.DH_ROWS), dtype=np.uint8)
     ok = np.zeros(n, dtype=np.uint8)
-    native.load_sighash().stage_raw(items, 0, n, packed, ok, ed._BLACKLIST, 0)
-    return packed, items, ok
+    rejects, flagged = native.load_sighash().stage_rows(items, 0, n, rows, ok, ed._BLACKLIST, 0)
+    assert rejects == n - int(ok.sum()), (rejects, int(ok.sum()))
+    assert flagged == int(np.count_nonzero(rows[:, tsha.ROW_FLAG])), flagged
+    return rows, items, ok
 
 
-def phase_kernel_sha512(rng, ledger_items):
+def phase_kernel_transpose(rows, items, ok, floor_ms):
+    """T1, ``dh_rows_to_cols_kernel``, on ``sha512_lanes``' 32,768 staged
+    lanes and on the first n of them for n in TRANSPOSE_WIDTHS: each
+    output equal to its plain version on the card (``cols_from_rows``) and
+    to ``stage_raw``'s (160, n) buffer over the same items; a launch from
+    a misaligned input (the byte path), and one captured in a CUDA graph
+    and replayed, equal too.  Timed as the other kernels, beside the
+    bound (each lane's 160 bytes read and written over the memory rate)
+    and ``library_ms``, PyTorch's own transpose (``x.t().contiguous()``)
+    timed as ``ms`` is.  Returns the row and the card's (160, n) chunk."""
+    import numpy as np
+    import torch
+
+    from stellar_tpu_torch import native
+    from stellar_tpu_torch.ops import ed25519 as ed
+    from stellar_tpu_torch.ops import sha512 as tsha
+    from stellar_tpu_torch.ops import sha512_cuda as sc
+
+    n = rows.shape[0]
+    raw = np.zeros((tsha.DH_ROWS, n), dtype=np.uint8)
+    raw_ok = np.zeros(n, dtype=np.uint8)
+    native.load_sighash().stage_raw(items, 0, n, raw, raw_ok, ed._BLACKLIST, 0)
+    assert np.array_equal(raw_ok, ok), "stage_raw and stage_rows disagree on the gate"
+    raw = torch.from_numpy(raw).cuda()
+    x = torch.from_numpy(rows).cuda()
+
+    def check(part, what):
+        launched = sc.transpose_launches
+        got = sc.rows_to_cols(part)
+        torch.cuda.synchronize()
+        assert sc.transpose_launches == launched + 1, f"{what}: T1 did not launch"
+        plain = tsha.cols_from_rows(part)
+        want = raw[:, : part.shape[0]]
+        mismatches = int((got != plain).any(dim=0).sum())
+        assert mismatches == 0, f"{what}: T1 disagrees with the plain version on {mismatches} lanes"
+        assert torch.equal(got, want), f"{what}: T1's chunk is not stage_raw's"
+        return got
+
+    got = check(x, f"{n} lanes")
+    widths = {}
+    for w in TRANSPOSE_WIDTHS:
+        part = x[:w]
+        check(part, f"{w} lanes")
+        # one byte off the 16-byte alignment: the byte path at any width
+        flat = torch.empty(tsha.DH_ROWS * w + 1, dtype=torch.uint8, device=x.device)
+        flat[1:].copy_(part.reshape(-1))
+        check(flat[1:].view(w, tsha.DH_ROWS), f"{w} lanes, misaligned")
+        widths[w] = {"ms": graph_ms(lambda: sc.rows_to_cols(part)),
+                     "call_ms": cuda_ms(lambda: sc.rows_to_cols(part), 21),
+                     # at one lane the two layouts are the same bytes: PyTorch
+                     # launches nothing
+                     "library_ms": graph_ms(lambda: part.t().contiguous()) if w > 1 else None,
+                     "bound_ms": 1e3 * 2 * tsha.DH_ROWS * w / H100_BYTES_PER_S,
+                     "launch_floor_ms": floor_ms}
+    # as graph_ms launches it: captured once, replayed into the same output
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = sc.rows_to_cols(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, got), "T1 replayed from a CUDA graph differs"
+    del graph, replayed
+    row = {
+        "name": "dh_rows_to_cols",
+        "route": "cuda",
+        "source": "stellar_tpu_torch/csrc/sha512_h.cu",
+        "replaces": None,
+        "lanes": n,
+        "mismatches": 0,
+        "max_abs_err": 0,
+        "ms": graph_ms(lambda: sc.rows_to_cols(x)),
+        "call_ms": cuda_ms(lambda: sc.rows_to_cols(x), 21),
+        "plain_ms": cuda_ms(lambda: tsha.cols_from_rows(x), 21),
+        "bound_ms": 1e3 * 2 * tsha.DH_ROWS * n / H100_BYTES_PER_S,
+        "bound_by": "bytes",
+        "library_ms": graph_ms(lambda: x.t().contiguous()),
+    }
+    emit({"phase": "kernels", **row, "widths": widths, "launch_floor_ms": floor_ms})
+    return row, got
+
+
+def phase_kernel_sha512(chunk, rows, items, ok):
+    """B2 on the first LANES lanes of T1's (160, n) chunk on the card, as
+    the verify plane feeds it (``stage_rows``, the upload, T1)."""
     import torch
 
     from stellar_tpu_torch.ops import sha512 as tsha
     from stellar_tpu_torch.ops import sha512_cuda as sc
 
-    packed, items, ok = sha512_lanes(rng, ledger_items)
-    p = torch.from_numpy(packed).cuda()
+    p = chunk[:, :LANES].contiguous()
+    rows, items, ok = rows[:LANES], items[:LANES], ok[:LANES]
     got = sc.h_rows(p)
     torch.cuda.synchronize()
     plain = tsha.h_rows_from_packed(p).to(torch.uint8)
@@ -832,7 +934,7 @@ def phase_kernel_sha512(rng, ledger_items):
         if ok[j]:
             want = tsha.reduce_digest(hashlib.sha512(sig[:32] + pk + msg).digest())
             assert host[j].tobytes() == want, f"lane {j}: h is not SHA-512(R||A||M) mod L"
-    flags = packed[tsha.ROW_FLAG]
+    flags = rows[:, tsha.ROW_FLAG]
     hashed = int((flags != 0).sum())
     lanes = {
         "flag1": hashed,
@@ -1004,9 +1106,14 @@ def phase_kernel_sha256(frames, frame_len):
 
 
 class SpanSums:
-    """A tracer (``span``/``begin``/``end``) that keeps the total seconds of
-    each span name — the host-side breakdown of a load: staging, launch
-    (enqueue only), and drain (the wait for the card)."""
+    """A tracer (``span``/``begin``/``end``/``record``, ``enabled`` and on
+    the real clock, as ``trace.tracer.Tracer``) that keeps the total
+    seconds of each span name — the host-side breakdown of a load:
+    staging (with the C stage's parts, which it ``record``s from its
+    stamps), launch (enqueue only), and drain (the wait for the card)."""
+
+    enabled = True
+    real_clock = True
 
     def __init__(self):
         import threading
@@ -1015,14 +1122,16 @@ class SpanSums:
         self._sums = {}
 
     def begin(self, name, **attrs):
-        return (name, time.perf_counter())
+        return (name, time.monotonic())
 
     def end(self, span, **attrs):
         if span is not None:
             name, t0 = span
-            dt = time.perf_counter() - t0
-            with self._lock:
-                self._sums[name] = self._sums.get(name, 0.0) + dt
+            self.record(name, t0, time.monotonic())
+
+    def record(self, name, start, end, **attrs):
+        with self._lock:
+            self._sums[name] = self._sums.get(name, 0.0) + (end - start)
 
     def span(self, name, **attrs):
         import contextlib
@@ -1074,15 +1183,21 @@ def phase_main(fx, rng, loads, device_hash=False):
     phase = "main_path_device_hash" if device_hash else "main_path"
     results = []
     ec.launches = ec.signed_launches = ec.signed_pair_launches = sc.launches = 0
+    sc.transpose_launches = 0
     ed.plain_calls = tsha.plain_calls = 0
+
+    def counts():
+        return {"ed25519_verify": ec.launches, "sha512_h": sc.launches,
+                "dh_rows_to_cols": sc.transpose_launches}
+
     for name, caller, items, want, run in loads(backend):
-        before = (ec.launches, sc.launches)
+        before = counts()
         t0 = time.perf_counter()
         got = run(backend, items, caller)
         sec = time.perf_counter() - t0
-        launched = {"ed25519_verify": ec.launches - before[0], "sha512_h": sc.launches - before[1]}
+        launched = {k: v - before[k] for k, v in counts().items()}
         results.append((name, caller, items, want, got, sec, tracer.take_ms(), launched))
-    launches = {"ed25519_verify": ec.launches, "sha512_h": sc.launches}
+    launches = counts()
     plain_calls = {"ed25519": ed.plain_calls, "sha512": tsha.plain_calls}
     stats = backend.stats()
     per_load = {}
@@ -1098,9 +1213,13 @@ def phase_main(fx, rng, loads, device_hash=False):
         assert launched["ed25519_verify"] > 0, f"{name}: the verify kernel never launched"
         if device_hash:
             # tx hashes (32 bytes) hash on the card; SCP statements (100-300
-            # bytes) are multi-block, hashed by stage_raw: a flag-0-only load
+            # bytes) are multi-block, hashed by stage_rows: a flag-0-only load
             single_block = all(len(m) <= tsha.MAX_DEVICE_MSG for _, m, _ in items)
             assert (launched["sha512_h"] > 0) == single_block, (name, launched)
+        # every device-hash chunk is staged item-major and transposed by T1
+        # ahead of its B1, whether B2 runs or not
+        t1 = launched["ed25519_verify"] if device_hash else 0
+        assert launched["dh_rows_to_cols"] == t1, (name, launched)
     assert launches["ed25519_verify"] > 0, "the main path never launched the CUDA kernel"
     if device_hash:
         assert launches["sha512_h"] > 0, "the device-hash path never launched the SHA-512 kernel"
@@ -1183,7 +1302,7 @@ class LaunchTap:
     (``key()``, read at the launch: a bench stage, an entry point's path)
     keeps its input and output (clones on the launch's stream), to be held
     against the plain versions afterwards: B1, the signed windows' two
-    kernels and B2.  The B1 wrapper's calls are made one at a time (their
+    kernels, T1 and B2.  The B1 wrapper's calls are made one at a time (their
     host side only: the kernels still run on their streams), so the launch
     count a call moves by one names the kernel it launched.  Install the
     tap before the verifiers are built: a verifier binds the B1 wrapper
@@ -1197,8 +1316,9 @@ class LaunchTap:
         self.key = key
         self.ed, self.ec, self.sc = ed25519, ed25519_cuda, sha512_cuda
         self.verify, self.hash = ed25519_cuda.verify_packed, sha512_cuda.hash_in_place
+        self.transpose = sha512_cuda.rows_to_cols
         self.lock, self.call_lock = threading.Lock(), threading.Lock()
-        self.b1, self.b2 = {}, {}
+        self.b1, self.b2, self.t1 = {}, {}, {}
 
     def _counts(self):
         return {"ed25519_verify": self.ec.launches, "ed25519_verify_signed": self.ec.signed_launches,
@@ -1234,11 +1354,19 @@ class LaunchTap:
             if keep:
                 self.b2[key] = (before, p.clone())
 
+        def rows_to_cols(x):
+            out = self.transpose(x)
+            if x.is_cuda and self._first(self.t1, (self.key(), "dh_rows_to_cols")):
+                self.t1[(self.key(), "dh_rows_to_cols")] = (x.clone(), out.clone())
+            return out
+
         self.ec.verify_packed, self.sc.hash_in_place = verify, hash_in_place
+        self.sc.rows_to_cols = rows_to_cols
         return self
 
     def __exit__(self, *exc):
         self.ec.verify_packed, self.sc.hash_in_place = self.verify, self.hash
+        self.sc.rows_to_cols = self.transpose
 
     def check(self):
         """{key: {kernel: lanes, mismatches}} against the plain versions,
@@ -1261,13 +1389,17 @@ class LaunchTap:
             out.setdefault(key, {})[name] = {
                 "lanes": int(before.shape[1]),
                 "mismatches": int((after[96:128] != plain).any(dim=0).sum()) + moved}
+        for (key, name), (x, got) in self.t1.items():
+            out.setdefault(key, {})[name] = {
+                "lanes": int(x.shape[0]),
+                "mismatches": int((got != tsha.cols_from_rows(x)).any(dim=0).sum())}
         torch.cuda.synchronize()
         return out
 
 
 def phase_bench():
     """``bench``: the port's bench's ``main()`` at full width, in process;
-    returns its launches of B1 and B2."""
+    returns its launches of B1, B2 and T1."""
     import contextlib
     import io
 
@@ -1309,11 +1441,12 @@ def phase_bench():
     missing = [s for s in BENCH_B1_STAGES if s not in vs_plain]
     assert not missing, f"bench legs that never launched B1: {missing}"
     assert "sha512_h" in vs_plain["verify-device-hash"], "the device-hash leg never launched B2"
+    assert "dh_rows_to_cols" in vs_plain["verify-device-hash"], "the device-hash leg never launched T1"
     bad = {s: k for s, ks in vs_plain.items() for k, r in ks.items() if r["mismatches"]}
     assert not bad, f"bench launches that disagree with the plain version: {bad}"
     launched = counts["launches"]
     assert launched["ed25519_verify_signed"] == launched["ed25519_verify_signed_pair"] == 0
-    return {"ed25519_verify": launched["ed25519_verify"], "sha512_h": launched["sha512_h"]}
+    return {k: launched[k] for k in ("ed25519_verify", "sha512_h", "dh_rows_to_cols")}
 
 
 # -- phase 5c: the port's close and state profilers --------------------------
@@ -1623,7 +1756,7 @@ def phase_profile_kernel():
           "seconds": time.perf_counter() - t_phase, "check_seconds": time.perf_counter() - t_check})
     expect = {"graft_entry": ("ed25519_verify",), "graft_entry_dryrun": ("ed25519_verify",),
               "profile_kernel": ("ed25519_verify", "ed25519_verify_signed"),
-              "device_hash_ab": ("ed25519_verify", "sha512_h")}
+              "device_hash_ab": ("ed25519_verify", "sha512_h", "dh_rows_to_cols")}
     for name, kernels in expect.items():
         for k in kernels:
             assert launches[name][k] > 0 and k in vs_plain[name], (name, k, launches[name], vs_plain)
@@ -1680,15 +1813,17 @@ class ShardTap:
     """Keeps every launch of one verifier's kernels while ``recording``:
     B1's input chunk and verdicts (wrapping the verifier's bound wrapper,
     so its launch count stays the wrapper's own) and, for every verifier at
-    once, B2's chunk before and h rows after its in-place launch.  ``check``
-    holds them all against the plain versions on the card."""
+    once, T1's item-major rows and chunk, and B2's chunk before and h rows
+    after its in-place launch.  ``check`` holds them all against the plain
+    versions on the card."""
 
     def __init__(self):
         from stellar_tpu_torch.ops import sha512_cuda
 
         self.mod = sha512_cuda
         self.hash_in_place = sha512_cuda.hash_in_place
-        self.b1, self.b2 = [], []
+        self.rows_to_cols = sha512_cuda.rows_to_cols
+        self.b1, self.b2, self.t1 = [], [], []
         self.recording = False
 
     def wrap(self, bv):
@@ -1710,11 +1845,17 @@ class ShardTap:
             if before is not None:
                 self.b2.append((before, p[96:128].clone()))
 
-        self.mod.hash_in_place = tapped
+        def transposed(x):
+            out = self.rows_to_cols(x)
+            if self.recording:
+                self.t1.append((x.clone(), out.clone()))
+            return out
+
+        self.mod.hash_in_place, self.mod.rows_to_cols = tapped, transposed
         return self
 
     def __exit__(self, *exc):
-        self.mod.hash_in_place = self.hash_in_place
+        self.mod.hash_in_place, self.mod.rows_to_cols = self.hash_in_place, self.rows_to_cols
 
     def check(self):
         import torch
@@ -1727,9 +1868,12 @@ class ShardTap:
         h = torch.cat([r.to(card) for _, r in self.b2], dim=1)
         want = torch.cat([tsha.h_rows_from_packed(before[:, i:i + LANES]).to(torch.uint8)
                           for i in range(0, before.shape[1], LANES)], dim=1)
+        t1 = [int((out != tsha.cols_from_rows(x)).any(dim=0).sum()) for x, out in self.t1]
         return {"ed25519_verify": b1, "sha512_h": {
             "launches": len(self.b2), "lanes": int(before.shape[1]),
-            "mismatches": int((h != want).any(dim=0).sum())}}
+            "mismatches": int((h != want).any(dim=0).sum())}, "dh_rows_to_cols": {
+            "launches": len(self.t1), "lanes": sum(int(x.shape[0]) for x, _ in self.t1),
+            "mismatches": sum(t1)}}
 
 
 def _expected_shards(bv, n):
@@ -1761,7 +1905,7 @@ def mesh_loads(fx, ledger, scp, torsion):
 
 def phase_mesh(fx, tmp, ledger, scp, torsion):
     """``mesh``: the sharded verify path on the card (module docstring).
-    Returns the sharded verifiers' B1 and B2 launches."""
+    Returns the sharded verifiers' B1, B2 and T1 launches."""
     import torch
 
     from stellar_tpu_torch.ops import ed25519 as ed
@@ -1795,7 +1939,7 @@ def phase_mesh(fx, tmp, ledger, scp, torsion):
         line["multi_card"] = "not run: 1 card"
     emit(line)
     loads = mesh_loads(fx, ledger, scp, torsion)
-    launched = {"ed25519_verify": 0, "sha512_h": 0}
+    launched = {"ed25519_verify": 0, "sha512_h": 0, "dh_rows_to_cols": 0}
     with ShardTap() as tap:
         for device_hash in (False, True):
             verifiers = {"unsharded": ed.BatchVerifier(max_batch=LANES, device="cuda",
@@ -1811,12 +1955,13 @@ def phase_mesh(fx, tmp, ledger, scp, torsion):
                 for name, bv in verifiers.items():
                     fn = bv.verify if kind == "verify" else bv.verify_torsion
                     sharded = name != "unsharded"
-                    ec.launches = sc.launches = 0
+                    ec.launches = sc.launches = sc.transpose_launches = 0
                     ed.plain_calls = tsha.plain_calls = 0
                     tap.recording = sharded
                     got = fn(items)
                     tap.recording = False
-                    counts = {"ed25519_verify": ec.launches, "sha512_h": sc.launches}
+                    counts = {"ed25519_verify": ec.launches, "sha512_h": sc.launches,
+                              "dh_rows_to_cols": sc.transpose_launches}
                     assert ed.plain_calls == tsha.plain_calls == 0, (name, load)
                     assert got == want, (
                         f"mesh {name} {load}: {sum(g != w for g, w in zip(got, want))} "
@@ -1825,8 +1970,11 @@ def phase_mesh(fx, tmp, ledger, scp, torsion):
                     if sharded:
                         live, dead = _expected_shards(bv, len(items))
                         b2 = live if device_hash and single_block else 0
-                        assert counts == {"ed25519_verify": live, "sha512_h": b2}, (
-                            name, load, counts, live)
+                        # each live shard of a device-hash verify chunk is
+                        # transposed on its own; torsion stages no rows
+                        t1 = live if device_hash and kind == "verify" else 0
+                        assert counts == {"ed25519_verify": live, "sha512_h": b2,
+                                          "dh_rows_to_cols": t1}, (name, load, counts, live)
                         run[name].update(live_shards=live, dead_shards=dead)
                         for key in launched:
                             launched[key] += counts[key]
@@ -2066,6 +2214,7 @@ def _node_counts(reset=False):
 
     if reset:
         ec.launches = ec.signed_launches = ec.signed_pair_launches = sc.launches = 0
+        sc.transpose_launches = 0
         c256.launches = c256.lane_launches = c256.pair_launches = 0
         ed.plain_calls = tsha.plain_calls = t256.plain_calls = 0
         keys.reset_stats()
@@ -2074,7 +2223,8 @@ def _node_counts(reset=False):
     return {
         "launches": {"ed25519_verify": ec.launches, "ed25519_verify_signed": ec.signed_launches,
                      "ed25519_verify_signed_pair": ec.signed_pair_launches,
-                     "sha512_h": sc.launches, "sha256_frames": c256.launches,
+                     "sha512_h": sc.launches, "dh_rows_to_cols": sc.transpose_launches,
+                     "sha256_frames": c256.launches,
                      "sha256_frames_lane": c256.lane_launches,
                      "sha256_frames_pair": c256.pair_launches},
         "plain_calls": {"ed25519": ed.plain_calls, "sha512": tsha.plain_calls,
@@ -2224,12 +2374,17 @@ def phase_node_close(fx, tmp):
         n_create = sum(len(envs) for envs in load.create_ledgers)
         assert line["txs_applied"] == n_create + NODE_TXS * (NODE_ROUNDS + 1), line["txs_applied"]
     assert card["launches"]["sha512_h"] == 0 and card_dh["launches"]["sha512_h"] > 0
+    assert card["launches"]["dh_rows_to_cols"] == 0
+    # a device-hash verify chunk launches T1 ahead of its B1 (a torsion
+    # chunk launches B1 alone)
+    assert 0 < card_dh["launches"]["dh_rows_to_cols"] <= card_dh["launches"]["ed25519_verify"]
     assert plain["launches"]["ed25519_verify"] == 0 and plain["plain_calls"]["ed25519"] > 0
     emit({"phase": "node_close", "hashes_equal": True, "bad_tx": "txBAD_AUTH",
           "ledgers": len(card["ledger_hashes"]),
           "p50_ms": {ln["leg"]: ln["p50_ms"] for ln in (card, card_dh, *meshes, signed, plain)}})
     return {"ed25519_verify": card["launches"]["ed25519_verify"] + card_dh["launches"]["ed25519_verify"],
             "sha512_h": card_dh["launches"]["sha512_h"],
+            "dh_rows_to_cols": card_dh["launches"]["dh_rows_to_cols"],
             "mesh_ed25519_verify": sum(ln["launches"]["ed25519_verify"] for ln in meshes),
             "ed25519_verify_signed": signed["launches"]["ed25519_verify_signed"],
             "ed25519_verify_signed_pair": signed["launches"]["ed25519_verify_signed_pair"]}
@@ -2691,13 +2846,18 @@ def main() -> int:
         floor_ms = launch_floor_ms()
         emit({"phase": "kernels", "name": "noop", "launch_floor_ms": floor_ms})
         b1_row, b1_packed = phase_kernels(rng, ledger1[0], floor_ms)
+        signed_rows = phase_kernel_signed(b1_packed, floor_ms)
+        del b1_packed
+        dh_lanes = sha512_lanes(rng, ledger1[0])
+        t1_row, dh_chunk = phase_kernel_transpose(*dh_lanes, floor_ms)
         rows = [
             b1_row,
-            *phase_kernel_signed(b1_packed, floor_ms),
-            phase_kernel_sha512(rng, ledger1[0]),
+            *signed_rows,
+            phase_kernel_sha512(dh_chunk, *dh_lanes),
             *phase_kernel_sha256(frames, frame_len),
+            t1_row,
         ]
-        del b1_packed
+        del dh_lanes, dh_chunk
 
         def sync(backend, items, caller):
             return backend.verify_batch(items, caller=caller)
@@ -2749,6 +2909,7 @@ def main() -> int:
 
     rows[0]["launches"] = launches["ed25519_verify"]
     rows[3]["launches"] = dh_launches["sha512_h"]
+    rows[6]["launches"] = dh_launches["dh_rows_to_cols"]
     rows[4]["launches"] = bucket_launches["lane"]
     rows[5]["launches"] = bucket_launches["pair"]
     # each path's own count, set to 0 just before it and read just after
@@ -2782,6 +2943,14 @@ def main() -> int:
                                    "bench": bench_launches["sha512_h"],
                                    "device_hash_ab": entry_launches["device_hash_ab"]["sha512_h"],
                                    "mesh_curve": entry_launches["mesh_curve"]["sha512_h"]}
+    # T1: one a device-hash chunk (and shard), B2 or not
+    rows[6]["launches_by_path"] = {
+        "main_path_device_hash": dh_launches["dh_rows_to_cols"],
+        "mesh": mesh_launches["dh_rows_to_cols"],
+        "node_close": close_launches["dh_rows_to_cols"],
+        "bench": bench_launches["dh_rows_to_cols"],
+        "device_hash_ab": entry_launches["device_hash_ab"]["dh_rows_to_cols"],
+        "mesh_curve": entry_launches["mesh_curve"]["dh_rows_to_cols"]}
     for row, kernel in ((rows[4], "lane"), (rows[5], "pair")):
         row["launches_by_path"] = {"bucket_hash": bucket_launches[kernel],
                                    "node_consensus": consensus_launches[SHA256_KERNELS[kernel]],

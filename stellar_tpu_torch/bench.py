@@ -259,13 +259,14 @@ def bench_host_stage(items, reps=3):
     t = best_of(lambda: mod.stage(items, 0, n, packed, okbuf, blacklist, 1))
     out["native_1thread_us_per_item"] = round(t * 1e6 / n, 3)
     assert okbuf.all(), "host-stage bench signatures must pass the gate"
-    # the device-hash staging residual: gate + raw copy only (the SHA-512
-    # runs on the card), which should undercut the full hash stage
+    # the device-hash staging residual: gate + raw copy only, item-major
+    # (the card transposes, and the SHA-512 runs there), which should
+    # undercut the full hash stage
     from .ops import sha512 as dsha
 
-    raw = np.empty((dsha.DH_ROWS, n), dtype=np.uint8)
+    raw = np.empty((n, dsha.DH_ROWS), dtype=np.uint8)
     t_full = out["native_us_per_item"]
-    t = best_of(lambda: mod.stage_raw(items, 0, n, raw, okbuf, blacklist))
+    t = best_of(lambda: mod.stage_rows(items, 0, n, raw, okbuf, blacklist))
     out["device_hash_stage_us_per_item"] = round(t * 1e6 / n, 3)
     assert okbuf.all(), "raw-stage bench gate verdicts changed"
     gate_only = out["device_hash_stage_us_per_item"] < t_full

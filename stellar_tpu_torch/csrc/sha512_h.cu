@@ -4,7 +4,9 @@
 // Replaces the TPU kernel stellar_tpu/ops/sha512.py::sha512_pallas (body
 // _sha_kernel → _h_rows; XLA twin h_rows_from_packed).  The plain PyTorch
 // version beside it is stellar_tpu_torch/ops/sha512.py::h_rows_from_packed;
-// the wrapper is stellar_tpu_torch/ops/sha512_cuda.py.
+// the wrapper is stellar_tpu_torch/ops/sha512_cuda.py.  Beside it, ahead of
+// it on the verify plane, dh_rows_to_cols_kernel (below) turns the host
+// stage's item-major chunk into this input layout.
 //
 // Input: the packed (160, N) uint8 device-hash staging chunk, one lane per
 // column (ops/sha512.py): rows 0:32 A, 32:64 R, 64:96 s, 96:144 M (raw
@@ -398,7 +400,86 @@ sha512_h_kernel(const uint8_t *p, uint8_t *out, int n, bool words) {
 // An empty kernel: the floor of one launch, for timing
 __global__ void noop_kernel() {}
 
+// dh_rows_to_cols_kernel: the device-hash chunk's transpose.  The host
+// stage (native/sighash.c stage_rows) writes a chunk item-major, lane j's
+// 160-byte row at rows + 160·j: spread over the 160 rows of the (160, N)
+// layout, each lane's bytes cost the host more than the rest of its
+// stage.  This kernel turns the uploaded (N, 160) buffer into the (160, N)
+// layout that sha512_h_kernel and csrc/ed25519_verify.cu read.  It
+// replaces no TPU kernel: the JAX package's host stage writes the (160, N)
+// layout itself.  Bound: bytes, 160 read and 160 written a lane (≈ 3.1 µs
+// at a 32,768-lane chunk at 3.35 TB/s); no arithmetic to speak of.
+//
+// A block of 256 threads takes 128 lanes.  Where N % 4 == 0 and the
+// pointers are aligned (every chunk width the verify plane makes past
+// its ragged tails), it reads them as 16-byte loads, neighbouring
+// threads on neighbouring addresses, into a shared tile of 41 words a
+// lane (an odd pitch); then a thread takes 4 lanes × 4 rows: it reads the
+// 4 lanes' words of those rows (a warp's 32 threads take 8 lane groups ×
+// 4 words, so its reads fall on 32 banks), transposes the 4×4 bytes with
+// 8 byte permutes and writes one word a row, so a warp writes 4 rows × 32
+// bytes, whole sectors.  Otherwise it moves single bytes, neighbouring
+// threads on neighbouring bytes of the input and then of an output row.
+constexpr int kRows = 160;
+constexpr int kTrLanes = 128;
+constexpr int kTrThreads = 256;
+constexpr int kTrWords = kRows / 4;     // a lane's row in words
+constexpr int kTrPitch = kTrWords + 1;  // odd: see the reads above
+
+__global__ void __launch_bounds__(kTrThreads)
+dh_rows_to_cols_kernel(const uint8_t *__restrict__ rows, uint8_t *__restrict__ cols, int n,
+                       bool words) {
+    __shared__ uint32_t tile[kTrLanes * kTrPitch];
+    uint8_t *const tile_b = reinterpret_cast<uint8_t *>(tile);
+    const int lane0 = blockIdx.x * kTrLanes;
+    const int live = min(kTrLanes, n - lane0);
+    const uint8_t *const src = rows + (size_t)lane0 * kRows;
+    if (words) {
+        const uint4 *const src4 = reinterpret_cast<const uint4 *>(src);
+        for (int q = threadIdx.x; q < live * (kRows / 16); q += kTrThreads) {
+            const uint4 v = src4[q];
+            uint32_t *const d = &tile[(q / (kRows / 16)) * kTrPitch + (q % (kRows / 16)) * 4];
+            d[0] = v.x;
+            d[1] = v.y;
+            d[2] = v.z;
+            d[3] = v.w;
+        }
+    } else {
+        for (int q = threadIdx.x; q < live * kRows; q += kTrThreads)
+            tile_b[(q / kRows) * 4 * kTrPitch + q % kRows] = src[q];
+    }
+    __syncthreads();
+    if (words) {
+        const int n4 = n / 4;  // words of an output row
+        uint32_t *const dst = reinterpret_cast<uint32_t *>(cols + lane0);
+        for (int p = threadIdx.x; p < (kTrLanes / 4) * kTrWords; p += kTrThreads) {
+            // a warp's 32 p: lane groups g = 8·g_hi + (p & 7), words
+            // w = 4·w_hi + (p >> 3 & 3); banks 4·(p & 7) + (p >> 3 & 3) + const
+            const int g = (p >> 5 & 3) * 8 + (p & 7);
+            const int w = (p >> 7) * 4 + (p >> 3 & 3);
+            if (4 * g >= live) continue;
+            const uint32_t *const s = &tile[4 * g * kTrPitch + w];
+            const uint32_t a = s[0], b = s[kTrPitch], c = s[2 * kTrPitch], d = s[3 * kTrPitch];
+            const uint32_t ab_lo = __byte_perm(a, b, 0x5140), ab_hi = __byte_perm(a, b, 0x7362);
+            const uint32_t cd_lo = __byte_perm(c, d, 0x5140), cd_hi = __byte_perm(c, d, 0x7362);
+            uint32_t *const o = dst + (size_t)(4 * w) * n4 + g;
+            o[0] = __byte_perm(ab_lo, cd_lo, 0x5410);
+            o[n4] = __byte_perm(ab_lo, cd_lo, 0x7632);
+            o[2 * (size_t)n4] = __byte_perm(ab_hi, cd_hi, 0x5410);
+            o[3 * (size_t)n4] = __byte_perm(ab_hi, cd_hi, 0x7632);
+        }
+    } else {
+        // live lanes only: a narrow launch (one lane, at consensus) is a
+        // single pass of 160 threads
+        for (int q = threadIdx.x; q < kRows * live; q += kTrThreads) {
+            const int r = q / live, l = q - r * live;
+            cols[(size_t)r * n + lane0 + l] = tile_b[l * 4 * kTrPitch + r];
+        }
+    }
+}
+
 static_assert(kMaxMsg == 47, "block assembly covers message bytes 0..47");
+static_assert(kRows % 16 == 0 && kRowFlag < kRows, "a lane's row is whole 16-byte loads");
 static_assert(kTileWords * 4 == 64 + kMaxMsg + 1, "the tile holds rows 0:64 and 96:144");
 
 }  // namespace
@@ -413,6 +494,18 @@ extern "C" int sha512_h_launch(const void *packed, void *out, int n, void *strea
     const int blocks = (n + kLanes - 1) / kLanes;
     sha512_h_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (const uint8_t *)packed, (uint8_t *)out, n, words);
+    return (int)cudaGetLastError();
+}
+
+// Launch the transpose over n lanes on `stream`: the (n, 160) item-major
+// rows at `rows` into the (160, n) layout at `cols` (a buffer of its own).
+// Returns cudaGetLastError() (0 on success).  Allocates nothing, does not
+// sync.
+extern "C" int dh_rows_to_cols_launch(const void *rows, void *cols, int n, void *stream) {
+    if (n <= 0) return 0;
+    const bool words = n % 4 == 0 && (uintptr_t)rows % 16 == 0 && (uintptr_t)cols % 4 == 0;
+    dh_rows_to_cols_kernel<<<(n + kTrLanes - 1) / kTrLanes, kTrThreads, 0, (cudaStream_t)stream>>>(
+        (const uint8_t *)rows, (uint8_t *)cols, n, words);
     return (int)cudaGetLastError();
 }
 

@@ -6,10 +6,11 @@ each built on first use.
 ``sighash.c`` is a CPython extension: the libsodium strict-input gate,
 h = SHA-512(R‖A‖M) mod L, and the packed transposed ``(128, stride)``
 uint8 staging layout (``(160, stride)`` with raw messages for the
-device-hash path), in one GIL-released C pass over a chunk; and the
-batched SHA-256 of the bucket-hash plane.  Its ``stage``/``stage_raw``
-take writable buffers (``w*``), so they fill a pinned torch tensor in
-place through ``tensor.numpy()``.
+device-hash path, or the same rows item-major, ``(stride, 160)``), in one
+GIL-released C pass over a chunk; and the batched SHA-256 of the
+bucket-hash plane.  Its ``stage``/``stage_raw``/``stage_rows`` take
+writable buffers (``w*``), so they fill a pinned torch tensor in place
+through ``tensor.numpy()``.
 
 The node's engines keep the JAX package's contract: each loader returns
 None (and the caller takes its pure-Python path, with the same bytes) when
@@ -216,8 +217,8 @@ _sighash_mod = None
 
 def load_sighash():
     """The compiled batch gate + SHA-512-mod-L host stage
-    (``stage``/``stage_raw(items, start, count, out, ok, blacklist,
-    threads)``) and SHA-256 batch (``sha256_batch``,
+    (``stage``/``stage_raw``/``stage_rows(items, start, count, out, ok,
+    blacklist, threads)``) and SHA-256 batch (``sha256_batch``,
     ``bucket_hash_frames``).  Builds on first call (needs -pthread for the
     internal worker pool); a failed build raises."""
     global _sighash_mod

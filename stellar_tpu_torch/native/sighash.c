@@ -1,11 +1,12 @@
 /* sighash — CPython extension: the ed25519 batch-verify HOST STAGE in C.
  *
  * A copy of the JAX package's native/sighash.c without its two test
- * hooks (_sha512_rax, _reduce512), and with an optional stamp buffer on
+ * hooks (_sha512_rax, _reduce512), with an optional stamp buffer on
  * stage() and stage_raw() (clock stamps of the GIL-held and GIL-released
- * parts, for the span tracer), built by stellar_tpu_torch/native into
- * the port's own build directory.  Entry points: stage() and stage_raw()
- * (the verify plane's host-hash and device-hash staging), sodium_verify(),
+ * parts, for the span tracer), and with stage_rows() (stage_raw()'s bytes
+ * item-major), built by stellar_tpu_torch/native into the port's own
+ * build directory.  Entry points: stage() and stage_rows() (the verify
+ * plane's host-hash and device-hash staging), stage_raw(), sodium_verify(),
  * and sha256_batch() / bucket_hash_frames() (the bucket-hash plane's
  * native backend, bucket/hashplane.py).
  *
@@ -429,7 +430,8 @@ typedef struct {
 typedef struct {
     const Item *items;
     size_t n;
-    uint8_t *out;   /* (rowsz, stride) row-major */
+    uint8_t *out;   /* (rowsz, stride) row-major; (stride, DH_ROWS) for
+                     * stage_rows() */
     size_t stride;
     size_t rowsz;   /* 128 (host-hash) or DH_ROWS (device-hash raw) */
     int raw;        /* 1 = device-hash staging (gate only, raw M) */
@@ -438,6 +440,7 @@ typedef struct {
     int nbl;
     size_t next_tile; /* atomic work counter */
     size_t rejects;   /* atomic */
+    size_t flagged;   /* atomic: stage_rows() lanes with flag 1 */
 } Job;
 
 /* row layout per item: [0:32) A  [32:64) R  [64:96) s  [96:128) h */
@@ -467,8 +470,10 @@ item_row(const Item *it, uint8_t row[128], const uint8_t *bl, int nbl)
  * Single-block items (mlen <= 47, the dominant 96-byte R‖A‖M class)
  * carry raw message bytes + mlen with flag = 1 — the device hashes;
  * multi-block residuals keep the existing C hash path (flag = 0, h in
- * rows 96:128) and merge at the same kernel. */
-static int
+ * rows 96:128) and merge at the same kernel.  Always inlined, so the
+ * per-lane loops of both passes (run_job_tiles, run_job_records) make no
+ * call. */
+static inline __attribute__((always_inline)) int
 item_row_raw(const Item *it, uint8_t row[DH_ROWS], const uint8_t *bl,
              int nbl)
 {
@@ -533,6 +538,41 @@ run_job_tiles(void *arg)
     }
     if (rej)
         __atomic_fetch_add(&j->rejects, rej, __ATOMIC_RELAXED);
+}
+
+/* stage_rows()'s pass: the same device-hash rows, each written in place
+ * as lane i's DH_ROWS bytes at out + i * DH_ROWS.  Lanes lie item-major,
+ * so the writes run on in one stream.  The transposed layout spreads each
+ * 64-lane tile over DH_ROWS rows a stride apart, more write streams than
+ * a core's prefetcher follows; the card transposes instead
+ * (csrc/sha512_h.cu, dh_rows_to_cols_kernel).  In a section of its own,
+ * which the linker lays after .text, so this pass moves none of the
+ * functions emitted before it: their loops run ~20 % slower at some
+ * offsets (stage_raw's when this pass came first, PERF.md). */
+static void __attribute__((section(".text.stage_rows")))
+run_job_records(void *arg)
+{
+    Job *j = arg;
+    size_t ntiles = (j->n + TILE - 1) / TILE;
+    size_t rej = 0, flagged = 0, t;
+    while ((t = __atomic_fetch_add(&j->next_tile, 1, __ATOMIC_RELAXED)) <
+           ntiles) {
+        size_t i, hi = (t + 1) * TILE;
+        if (hi > j->n)
+            hi = j->n;
+        for (i = t * TILE; i < hi; i++) {
+            uint8_t *row = j->out + i * DH_ROWS;
+            int ok = item_row_raw(&j->items[i], row, j->bl, j->nbl);
+            j->ok[i] = (uint8_t)ok;
+            if (!ok)
+                rej++;
+            flagged += row[DH_ROW_FLAG];
+        }
+    }
+    if (rej)
+        __atomic_fetch_add(&j->rejects, rej, __ATOMIC_RELAXED);
+    if (flagged)
+        __atomic_fetch_add(&j->flagged, flagged, __ATOMIC_RELAXED);
 }
 
 /* -- persistent worker pool (created on first large batch) ---------- */
@@ -896,6 +936,8 @@ enum { N_STAMPS = 5 };
  *           the (rowsz, stride) transposed staging layout (stride >=
  *           count); columns [count, stride) are zeroed (bucket padding).
  *           rowsz = 128 for stage(), DH_ROWS for stage_raw().
+ *           stage_rows() takes the (stride, DH_ROWS) item-major layout
+ *           instead, and zeroes the records [count, stride).
  * ok        writable uint8 buffer, >= count: per-item gate verdicts
  * blacklist k*32 bytes of sign-masked small-order encodings
  * threads   0 = auto (pool when count >= 2048 and >1 core), 1 = inline
@@ -908,16 +950,20 @@ enum { N_STAMPS = 5 };
  *           read.  The staged bytes and the verdicts are the same either
  *           way.
  */
+enum { STAGE_HOST, STAGE_RAW, STAGE_ROWS };
+
 static PyObject *
-stage_common(PyObject *args, int raw)
+stage_common(PyObject *args, int mode)
 {
     PyObject *seq, *fast = NULL;
     Py_ssize_t start, count, stride;
     Py_buffer out = {0}, okb = {0}, bl = {0}, sb = {0};
     int threads = 0;
     Item *items = NULL;
-    size_t rejects = 0;
+    size_t rejects = 0, flagged = 0;
+    int raw = mode != STAGE_HOST;
     size_t rowsz = raw ? DH_ROWS : 128;
+    void (*pass)(void *) = mode == STAGE_ROWS ? run_job_records : run_job_tiles;
     Py_ssize_t j;
     size_t r;
     uint64_t st[N_STAMPS] = {0};
@@ -991,20 +1037,24 @@ stage_common(PyObject *args, int raw)
         job.nbl = (int)(bl.len / 32);
         job.next_tile = 0;
         job.rejects = 0;
+        job.flagged = 0;
         if (sb.obj)
             st[1] = mono_ns();
         Py_BEGIN_ALLOW_THREADS
         if (threads == 1 || count < PAR_MIN || hw_threads() < 2) {
-            run_job_tiles(&job);
+            pass(&job);
         } else if (pthread_mutex_trylock(&pool_busy) == 0) {
-            run_parallel(run_job_tiles, &job);
+            run_parallel(pass, &job);
             pthread_mutex_unlock(&pool_busy);
         } else {
             /* the pool is mid-job for another caller: run inline */
-            run_job_tiles(&job);
+            pass(&job);
         }
-        /* zero the bucket-padding columns so padded lanes are inert */
-        if (stride > count)
+        /* zero the bucket-padding lanes so padded lanes are inert */
+        if (stride > count && mode == STAGE_ROWS)
+            memset(job.out + (size_t)count * DH_ROWS, 0,
+                   (size_t)(stride - count) * DH_ROWS);
+        else if (stride > count)
             for (r = 0; r < rowsz; r++)
                 memset(job.out + (size_t)r * job.stride + count, 0,
                        (size_t)(stride - count));
@@ -1014,6 +1064,7 @@ stage_common(PyObject *args, int raw)
         if (sb.obj)
             st[3] = mono_ns();
         rejects = job.rejects;
+        flagged = job.flagged;
     }
 
     for (j = 0; j < count; j++) {
@@ -1031,6 +1082,8 @@ stage_common(PyObject *args, int raw)
         memcpy(sb.buf, st, sizeof(st));
         PyBuffer_Release(&sb);
     }
+    if (mode == STAGE_ROWS)
+        return Py_BuildValue("(nn)", (Py_ssize_t)rejects, (Py_ssize_t)flagged);
     return PyLong_FromSize_t(rejects);
 
 fail:
@@ -1057,7 +1110,7 @@ static PyObject *
 sighash_stage(PyObject *self, PyObject *args)
 {
     (void)self;
-    return stage_common(args, 0);
+    return stage_common(args, STAGE_HOST);
 }
 
 /* stage_raw(items, start, count, out, ok, blacklist, threads=0, stamps)
@@ -1069,7 +1122,20 @@ static PyObject *
 sighash_stage_raw(PyObject *self, PyObject *args)
 {
     (void)self;
-    return stage_common(args, 1);
+    return stage_common(args, STAGE_RAW);
+}
+
+/* stage_rows(items, start, count, out, ok, blacklist, threads=0, stamps)
+ * -> (rejects, flagged) — stage_raw()'s bytes, item-major: lane i's
+ * DH_ROWS-byte row at out[i * DH_ROWS:(i + 1) * DH_ROWS], so out is
+ * (stride, DH_ROWS); the records [count, stride) are zeroed.  flagged
+ * counts the lanes with flag 1, the ones the device hashes: a caller
+ * skips the hash stage where it is 0 without reading the flags back. */
+static PyObject *
+sighash_stage_rows(PyObject *self, PyObject *args)
+{
+    (void)self;
+    return stage_common(args, STAGE_ROWS);
 }
 
 /* sodium_verify(fn_addr, items, ok, threads=0) -> None
@@ -1356,6 +1422,10 @@ static PyMethodDef methods[] = {
      "stage_raw(items, start, count, out, ok, blacklist, threads=0, stamps)"
      " -> rejects: gate-only device-hash staging (raw single-block M bytes;"
      " multi-block residuals hashed here, flag row 0); stamps as stage()'s"},
+    {"stage_rows", sighash_stage_rows, METH_VARARGS,
+     "stage_rows(items, start, count, out, ok, blacklist, threads=0, stamps)"
+     " -> (rejects, flagged): stage_raw()'s rows item-major, a (stride, 160)"
+     " out; flagged counts the flag-1 lanes; stamps as stage()'s"},
     {"sodium_verify", sighash_sodium_verify, METH_VARARGS,
      "sodium_verify(fn_addr, items, ok, threads=0): batch libsodium"
      " strict verify over the worker pool, GIL released; verdicts land"

@@ -370,17 +370,33 @@ _STAGE_SPANS = ("ed25519.stage_prologue", "ed25519.stage_compute",
 _MIN_DEVICE_BATCH = 16
 
 
-class _Staged(NamedTuple):
-    """One staged chunk: a ``(shard, first lane, packed)`` triple for each
-    shard that holds a live lane (the one shard without a mesh), each
-    ``packed`` a ``(128, lanes)`` upload tensor (``(160, lanes)`` for a
-    device-hash verify chunk), plus the host gate verdicts that mask the
-    device results at drain time."""
+# the staging layouts of a chunk: LAYOUT_COLS, a (128, lanes) tensor with a
+# lane a column (A, R, s, h: host hash, torsion); LAYOUT_ROWS, a device-hash
+# chunk's (lanes, 160) item-major rows (``sighash.stage_rows``), which the
+# card transposes to the (160, lanes) layout of ``ops/sha512.py`` for B2 and B1
+LAYOUT_COLS, LAYOUT_ROWS = "cols", "rows"
 
-    shards: tuple         # (shard, first lane, (rows, lanes) uint8 pinned for cuda)
+
+class _Shard(NamedTuple):
+    """One shard's part of a staged chunk."""
+
+    shard: int            # index into the verifier's devices
+    lo: int               # its first lane in the chunk
+    n: int                # its live lanes
+    packed: torch.Tensor  # its upload tensor, in the chunk's layout (pinned for cuda)
+    flagged: int          # its lanes with flag 1, the ones B2 hashes (0 in LAYOUT_COLS)
+
+
+class _Staged(NamedTuple):
+    """One staged chunk: a ``_Shard`` for each shard that holds a live
+    lane (the one shard without a mesh), plus the host gate verdicts that
+    mask the device results at drain time."""
+
+    shards: tuple         # of _Shard
     ok: np.ndarray        # (n,) bool — strict-input gate results
     n: int                # live lanes
     bufs: tuple           # staging-pool tokens, one a shard; released after drain
+    layout: str           # LAYOUT_COLS or LAYOUT_ROWS
 
 
 class _StagingPool:
@@ -437,10 +453,11 @@ class BatchVerifier:
 
     ``device_hash`` (default: ``STELLAR_TPU_DEVICE_HASH=1`` in the
     environment, else off) moves h = SHA-512(R‖A‖M) mod L onto the card:
-    chunks stage the (160, n) raw layout (``sighash.stage_raw``), and the
-    SHA-512 kernel writes h in place ahead of the verify kernel whenever a
-    live lane has a single-block message (flag 1).  Verdicts are the same
-    either way.
+    chunks stage the raw rows item-major (``sighash.stage_rows``, a
+    (n, 160) buffer), the card transposes them to the (160, n) layout, and
+    the SHA-512 kernel writes h in place ahead of the verify kernel
+    whenever a live lane has a single-block message (flag 1; the stage
+    counts them).  Verdicts are the same either way.
 
     The other knobs read the environment as the JAX package's verifier
     does when their argument is None: ``native_hash`` (default
@@ -474,7 +491,8 @@ class BatchVerifier:
     stager's start); ``ed25519.host_hash``, holding ``ed25519.pool_alloc``
     on a pool miss and, on a real clock, the C stage's ``stage_prologue``,
     ``stage_compute``, ``stage_gil_wait`` and ``stage_epilogue`` from its
-    clock stamps, with ``stage_glue`` on either side of the call;
+    clock stamps, with ``stage_glue`` on either side of the call (its
+    attributes: ``layout`` and ``flagged``, the lanes B2 hashes);
     ``ed25519.device_dispatch``, holding ``result_alloc`` and ``launch``;
     ``ed25519.drain``, holding ``drain_wait`` and ``drain_copy``."""
 
@@ -718,11 +736,11 @@ class BatchVerifier:
         identity encoding, s = 0, h = L (host-precomputed — no hash)."""
         if n == 0:
             return None
-        return self._stage_shards(encs, start, n, ROWS, self._fill_torsion_into)[0]
+        return self._stage_shards(encs, start, n, LAYOUT_COLS, self._fill_torsion_into)[0]
 
-    def _fill_torsion_into(self, encs, start, n, packed, okbuf) -> int:
+    def _fill_torsion_into(self, encs, start, n, packed, okbuf) -> Tuple[int, int]:
         self._fill_torsion(encs, start, n, packed.numpy(), okbuf)
-        return 0
+        return 0, 0
 
     @staticmethod
     def _fill_torsion(encs, start, n, packed, okbuf) -> None:
@@ -818,43 +836,54 @@ class BatchVerifier:
         """Host stage over ``items[start:start+n]``: strict-input gate +
         h = SHA-512(R‖A‖M) mod L + the packed transposed (128, n) upload
         layout, written straight into a pooled (pinned) buffer.  With
-        device_hash: gate + the raw (160, n) layout, hashing only messages
-        longer than one block (``stage_raw``).  One such pass a shard, into
-        the shard's own buffer: the chunk is never repacked on the host."""
+        device_hash: gate + the raw rows item-major, (n, 160), hashing only
+        messages longer than one block (``stage_rows``).  One such pass a
+        shard, into the shard's own buffer: the chunk is never repacked on
+        the host."""
         if n == 0:
             return None
         sp = self._tracer.begin("ed25519.host_hash")
-        staged, rejects = self._stage_shards(items, start, n, self._rows, self._stage_into)
-        self._tracer.end(sp, items=n, rejects=rejects, device_hash=self.device_hash)
+        layout = LAYOUT_ROWS if self.device_hash else LAYOUT_COLS
+        staged, rejects = self._stage_shards(items, start, n, layout, self._stage_into)
+        self._tracer.end(sp, items=n, rejects=rejects, device_hash=self.device_hash,
+                         layout=layout, flagged=sum(sh.flagged for sh in staged.shards))
         if rejects:
             with self._calls_lock:  # stager threads update concurrently
                 self.n_gate_rejects += int(rejects)
         return staged
 
-    def _stage_into(self, items, start, n, packed, okbuf) -> int:
-        """One host-stage pass into a (rows, n) pooled view, routed by
-        layout: the C stage (GIL released) unless ``native_hash`` pinned
-        the Python one; returns the gate's rejects."""
+    def _stage_into(self, items, start, n, packed, okbuf) -> Tuple[int, int]:
+        """One host-stage pass into a pooled view, (n, 160) item-major with
+        device_hash, else (128, n): the C stage (GIL released) unless
+        ``native_hash`` pinned the Python one; returns the gate's rejects
+        and the lanes with flag 1."""
         if self._sighash is None:
-            stage = self._stage_py_raw if self.device_hash else self._stage_py
-            return stage(items, start, n, packed.numpy(), okbuf)
-        stage = self._sighash.stage_raw if self.device_hash else self._sighash.stage
+            if not self.device_hash:
+                return self._stage_py(items, start, n, packed.numpy(), okbuf), 0
+            rows = packed.numpy()
+            # the (160, n) layout's writes land item-major through the view
+            rejects = self._stage_py_raw(items, start, n, rows.T, okbuf)
+            return rejects, int(np.count_nonzero(rows[:, sha512.ROW_FLAG]))
+        # stage_rows returns (rejects, flagged), stage the rejects alone
+        stage = self._sighash.stage_rows if self.device_hash else self._sighash.stage
         tracer = self._tracer
         if not (tracer.enabled and tracer.real_clock):
-            return stage(items, start, n, packed.numpy(), okbuf, _BLACKLIST, self._hash_threads)
-        # the C stage's clock stamps (CLOCK_MONOTONIC ns, the tracer's
-        # clock): four children of ed25519.host_hash, and ed25519.stage_glue
-        # for this frame's Python on either side of the call
-        entered = time.monotonic()
-        stamps = np.zeros(len(_STAGE_SPANS) + 1, dtype=np.uint64)
-        rejects = stage(items, start, n, packed.numpy(), okbuf, _BLACKLIST,
+            res = stage(items, start, n, packed.numpy(), okbuf, _BLACKLIST, self._hash_threads)
+        else:
+            # the C stage's clock stamps (CLOCK_MONOTONIC ns, the tracer's
+            # clock): four children of ed25519.host_hash, and
+            # ed25519.stage_glue for this frame's Python on either side of
+            # the call
+            entered = time.monotonic()
+            stamps = np.zeros(len(_STAGE_SPANS) + 1, dtype=np.uint64)
+            res = stage(items, start, n, packed.numpy(), okbuf, _BLACKLIST,
                         self._hash_threads, stamps)
-        t = (stamps / 1e9).tolist()
-        tracer.record("ed25519.stage_glue", entered, t[0])
-        for k, name in enumerate(_STAGE_SPANS):
-            tracer.record(name, t[k], t[k + 1], items=n)
-        tracer.record("ed25519.stage_glue", t[-1], time.monotonic())
-        return rejects
+            t = (stamps / 1e9).tolist()
+            tracer.record("ed25519.stage_glue", entered, t[0])
+            for k, name in enumerate(_STAGE_SPANS):
+                tracer.record(name, t[k], t[k + 1], items=n)
+            tracer.record("ed25519.stage_glue", t[-1], time.monotonic())
+        return res if self.device_hash else (res, 0)
 
     @staticmethod
     def _gate_chunk(items, start, n, packed, okbuf, keep_rejected):
@@ -908,7 +937,8 @@ class BatchVerifier:
         as ``sighash.stage_raw`` does: a single-block message uploads raw
         with its length and flag 1, a longer one is hashed here (hashlib)
         with flag 0 (the JAX package's ``_stage_py_raw``); a gate-rejected
-        lane stays all zero."""
+        lane stays all zero.  ``packed`` may be a view: the transpose of an
+        (n, 160) buffer takes ``sighash.stage_rows``' bytes."""
         passed = cls._gate_chunk(items, start, n, packed, okbuf, keep_rejected=False)
         for j, pk, msg, sig in passed:
             if len(msg) <= sha512.MAX_DEVICE_MSG:
@@ -920,23 +950,29 @@ class BatchVerifier:
                 packed[96:128, j] = cls._h_bytes(pk, msg, sig)
         return n - len(passed)
 
-    def _stage_shards(self, items, start, n, rows, fill) -> Tuple[_Staged, int]:
+    def _stage_shards(self, items, start, n, layout, fill) -> Tuple[_Staged, int]:
         """Staging -> (the staged chunk, the gate's rejects): each shard
         with a live lane gets its own pooled buffer, filled by ``fill`` over
-        the shard's live range only (a (rows, live lanes) view).  Live lanes
-        lie shard-major over the bucket, so the tail shard is short and dead
-        shards stage nothing; without a mesh the one shard is the chunk."""
+        the shard's live range only (a view of its live lanes in
+        ``layout``: (lanes, 160) or (128, lanes)); ``fill`` returns its
+        rejects and flag-1 lanes.  Live lanes lie shard-major over the
+        bucket, so the tail shard is short and dead shards stage nothing;
+        without a mesh the one shard is the chunk."""
         shards, bufs = [], []
         ok = np.zeros(n, dtype=bool)
         rejects = 0
         for k, lo, cnt in self._shard_ranges(n):
             buf = self._pool.acquire()
             bufs.append(buf)
-            packed = buf[0][: rows * cnt].view(rows, cnt)
-            rejects += fill(items, start + lo, cnt, packed, buf[1])
+            if layout == LAYOUT_ROWS:
+                packed = buf[0][: sha512.DH_ROWS * cnt].view(cnt, sha512.DH_ROWS)
+            else:
+                packed = buf[0][: ROWS * cnt].view(ROWS, cnt)
+            rej, flagged = fill(items, start + lo, cnt, packed, buf[1])
+            rejects += rej
             ok[lo : lo + cnt] = buf[1][:cnt].astype(bool)
-            shards.append((k, lo, packed))
-        return _Staged(tuple(shards), ok, n, tuple(bufs)), rejects
+            shards.append(_Shard(k, lo, cnt, packed, flagged))
+        return _Staged(tuple(shards), ok, n, tuple(bufs), layout), rejects
 
     def _release(self, staged: Optional[_Staged]) -> None:
         if staged is None:
@@ -957,21 +993,23 @@ class BatchVerifier:
             s = streams[shard] = torch.cuda.Stream(self._devices()[shard])
         return s
 
-    def _run_kernels(self, packed: torch.Tensor, device: torch.device) -> torch.Tensor:
+    def _run_kernels(self, packed: torch.Tensor, device: torch.device,
+                     layout: str = LAYOUT_COLS, flagged: int = 0) -> torch.Tensor:
         """One staged host tensor through the kernels on ``device`` ->
         (n,) bool verdicts.  On the card: ONE copy to the device, then, for
-        a device-hash chunk, the SHA-512 kernel in place when a lane has
-        flag 1 (the host reads the flag row of its own staging buffer, so
-        an all-flag-0 chunk skips the launch), and the verify kernel over
-        the first 128 rows — all on the current device and stream."""
-        device_hash = packed.shape[0] == sha512.DH_ROWS
+        a device-hash chunk (LAYOUT_ROWS), the transpose into the (160, n)
+        layout and the SHA-512 kernel in place when the host stage counted
+        ``flagged`` lanes with flag 1 (an all-flag-0 chunk skips the
+        launch), and the verify kernel over the first 128 rows — all on the
+        current device and stream."""
         if device.type != "cuda":
-            if device_hash:
-                return _verify_packed_device_hash(packed)
+            if layout == LAYOUT_ROWS:
+                return _verify_packed_device_hash(sha512_cuda.rows_to_cols(packed))
             return self._verify_packed(packed)
         dev = packed.to(device, non_blocking=True)
-        if device_hash:
-            if packed[sha512.ROW_FLAG].numpy().any():
+        if layout == LAYOUT_ROWS:
+            dev = sha512_cuda.rows_to_cols(dev)
+            if flagged:
                 sha512_cuda.hash_in_place(dev)
             dev = dev[:ROWS]
         return self._verify_packed(dev)
@@ -987,26 +1025,25 @@ class BatchVerifier:
             return None
         dsp = self._tracer.begin("ed25519.device_dispatch")
         cuda = self.device.type == "cuda"
-        parts = tuple(
-            (k, lo, p) for k, lo, p in staged.shards if staged.ok[lo : lo + p.shape[1]].any()
-        )
+        parts = tuple(sh for sh in staged.shards if staged.ok[sh.lo : sh.lo + sh.n].any())
         # one host result for the chunk; the lanes of a shard that launched
         # nothing are all gate-rejected, and the drain masks them False
         with self._tracer.span("ed25519.result_alloc"):
             host = torch.empty(staged.n, dtype=torch.bool, pin_memory=cuda)
         events = []
         with self._tracer.span("ed25519.launch", shards=len(parts)):
-            for k, lo, packed in parts:
+            for k, lo, cnt, packed, flagged in parts:
                 dev = self._devices()[k]
-                out = host[lo : lo + packed.shape[1]]
+                out = host[lo : lo + cnt]
                 if not cuda:
-                    out.copy_(self._run_kernels(packed, dev))
+                    out.copy_(self._run_kernels(packed, dev, staged.layout, flagged))
                     continue
                 stream = self._stream(k)
                 # the stream makes its device current; the wrappers make the
                 # tensor's device current around each launch
                 with torch.cuda.stream(stream):
-                    out.copy_(self._run_kernels(packed, dev), non_blocking=True)
+                    out.copy_(self._run_kernels(packed, dev, staged.layout, flagged),
+                              non_blocking=True)
                     done = torch.cuda.Event()
                     done.record(stream)
                 events.append(done)

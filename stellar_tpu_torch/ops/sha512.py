@@ -8,8 +8,14 @@ it reads, a copy of the JAX package's ``ops/sha512.py`` semantics.  With
 single-block items (preimage R‖A‖M of at most 111 bytes, M at most
 ``MAX_DEVICE_MSG`` = 47 bytes — the dominant 96-byte tx-hash class) upload
 their raw message bytes and the card computes h; longer messages are
-hashed by the C host stage (``native/sighash.c`` ``stage_raw``) and merge
+hashed by the C host stage (``native/sighash.c`` ``stage_rows``) and merge
 at the same kernel through the flag row.
+
+The host stage writes a chunk item-major, an (N, ``DH_ROWS``) buffer with
+one lane's rows a row of it (``stage_rows``; ``stage_raw`` writes the same
+bytes transposed), and the card turns it into the layout below
+(``csrc/sha512_h.cu`` ``dh_rows_to_cols_kernel``; ``cols_from_rows`` is its
+plain version).
 
 Device-hash packed staging layout (uint8, ``DH_ROWS`` = 160 rows/lane):
 
@@ -366,6 +372,12 @@ def h_rows_from_packed(p):
         return p[96:128].to(torch.int32)
     rows = list(p.to(torch.int64).unbind(0))
     return _h_rows(rows).to(torch.int32)
+
+
+def cols_from_rows(x):
+    """(N, 160) uint8 item-major device-hash rows -> a new (160, N) uint8
+    staging chunk: the plain version of ``dh_rows_to_cols_kernel``."""
+    return x.view(-1, DH_ROWS).t().contiguous()
 
 
 def reduce_digest(digest: bytes) -> bytes:

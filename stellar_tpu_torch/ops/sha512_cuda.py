@@ -10,12 +10,16 @@ library with a plain C entry point, loaded with ``ctypes``, at first use
   verify kernel's (128, N) input.
 - ``h_rows(p)`` — the same function into a new (32, N) uint8 tensor (the
   tests and chip_smoke.py's comparison).
+- ``rows_to_cols(x)`` — the library's second kernel, the verify plane's
+  first launch of a device-hash chunk: the host stage's item-major
+  (N, 160) rows into a new (160, N) tensor, the layout above.
 - ``launch_noop(device)`` — an empty kernel on the current stream, the
   floor of one launch when timing (not counted in ``launches``).
 
-On a CPU tensor both run the plain PyTorch version
-(``ops/sha512.py::h_rows_from_packed``); on a CUDA tensor they launch the
-kernel or raise.  ``launches`` counts the kernel launches.
+On a CPU tensor they run the plain PyTorch versions
+(``ops/sha512.py::h_rows_from_packed``, ``cols_from_rows``); on a CUDA
+tensor they launch the kernel or raise.  ``launches`` counts the SHA-512
+kernel's launches, ``transpose_launches`` the transpose's.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ _STEM = "libsha512_h"
 
 # kernel launches since import (or since the caller last reset it to 0)
 launches = 0
+transpose_launches = 0
 _count_lock = threading.Lock()
 _lib_lock = threading.Lock()
 _lib = None
@@ -56,6 +61,10 @@ def load_library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.sha512_h_launch.restype = ctypes.c_int
+        lib.dh_rows_to_cols_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.dh_rows_to_cols_launch.restype = ctypes.c_int
         lib.sha512_h_noop_launch.argtypes = [ctypes.c_void_p]
         lib.sha512_h_noop_launch.restype = ctypes.c_int
         lib.sha512_h_error_string.argtypes = [ctypes.c_int]
@@ -107,6 +116,31 @@ def h_rows(p: torch.Tensor) -> torch.Tensor:
     _check(p)
     out = torch.empty((32, p.shape[1]), dtype=torch.uint8, device=p.device)
     _launch(p, out)
+    return out
+
+
+def rows_to_cols(x: torch.Tensor) -> torch.Tensor:
+    """(N, 160) uint8 item-major rows -> a new (160, N) uint8 chunk."""
+    global transpose_launches
+    if x.device.type == "cpu":
+        return sha512.cols_from_rows(x)
+    if x.dtype != torch.uint8 or x.dim() != 2 or x.shape[1] != sha512.DH_ROWS:
+        raise ValueError(
+            f"dh_rows_to_cols wants an (N, 160) uint8 tensor, got {tuple(x.shape)} {x.dtype}"
+        )
+    if not x.is_contiguous():
+        raise ValueError("dh_rows_to_cols wants a contiguous tensor")
+    n = x.shape[0]
+    out = torch.empty((sha512.DH_ROWS, n), dtype=torch.uint8, device=x.device)
+    if n == 0:
+        return out
+    lib = load_library()
+    with launch_device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _raise_on(lib, lib.dh_rows_to_cols_launch(x.data_ptr(), out.data_ptr(), n, stream),
+                  "dh_rows_to_cols kernel")
+    with _count_lock:
+        transpose_launches += 1
     return out
 
 

@@ -116,7 +116,7 @@ def _floor_ms(arr) -> float:
 def _upload(bv, items):
     """``items`` staged by ``bv``'s host stage, copied to its device once."""
     staged = bv._stage_chunk(items, 0, len(items))
-    arr = staged.shards[0][2].to(bv.device)
+    arr = staged.shards[0].packed.to(bv.device)
     bv._release(staged)
     return arr
 
@@ -372,7 +372,7 @@ def mesh_leg(n_devices: int, per_chip: int, reps: int, cards: bool = False,
         "device_calls": bv.n_device_calls,
         "launches": {"ed25519_verify": ec.launches, "ed25519_verify_signed": ec.signed_launches,
                      "ed25519_verify_signed_pair": ec.signed_pair_launches,
-                     "sha512_h": sc.launches},
+                     "sha512_h": sc.launches, "dh_rows_to_cols": sc.transpose_launches},
         "plain_calls": {"ed25519": ed.plain_calls, "sha512": tsha.plain_calls},
         "reps_s": times,
         "best_s": best,

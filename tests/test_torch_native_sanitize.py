@@ -10,7 +10,7 @@ on the normal builds, and every output must equal: a sanitized build
 computes what the shipped one does.  The port's twin of
 ``tests/test_native_build.py::test_sanitized_build_differentials`` (whose
 ``sighash.c`` has two test hooks that the port's lacks: the port's script
-runs ``stage``, ``stage_raw``, ``sha256_batch`` and
+runs ``stage``, ``stage_raw``, ``stage_rows``, ``sha256_batch`` and
 ``bucket_hash_frames``).
 
 The script imports no torch (``ref25519`` is loaded by file), so it needs
@@ -128,7 +128,7 @@ cx.append(outcome(lambda b: mod.unpack(prog, b).to_xdr(), b"\xff" * 64))
 cx.append(outcome(lambda b: mod.unpack(prog, b).to_xdr(), b""))
 out["cxdrpack"] = dig(cx)
 
-# -- sighash: stage / stage_raw over hostile lanes, SHA-256 batches, frame walks
+# -- sighash: stage / stage_raw / stage_rows over hostile lanes, SHA-256 batches, frame walks
 sig_mod = native.load_sighash()
 out["artifacts"]["sighash"] = sig_mod.__file__
 bl = b"".join(ref.small_order_blacklist())
@@ -150,12 +150,14 @@ for i in range(79):
         pk = bytes(rng.randrange(256) for _ in range(32))
     items.append((pk, msg, sig))
 sh = []
-for stage, rows in ((sig_mod.stage, 128), (sig_mod.stage_raw, 160)):
+for stage, rows in ((sig_mod.stage, 128), (sig_mod.stage_raw, 160), (sig_mod.stage_rows, 160)):
     for start, count in ((0, 80), (3, 41), (79, 1)):
         buf = bytearray(rows * count)
         ok = bytearray(count)
         rejects = stage(items, start, count, buf, ok, bl, 0)
         sh.append((rejects, dig(buf), dig(ok)))
+    buf = bytearray(rows * 47)  # seven padding lanes past the 40 staged
+    sh.append((stage(items, 5, 40, buf, bytearray(47), bl, 1), dig(buf)))
     for bad in ([(b"short", b"m", b"s")], [(b"\x00" * 32, b"m")], [(b"\x00" * 32, "str", b"\x00" * 64)]):
         sh.append(outcome(stage, bad, 0, 1, bytearray(rows), bytearray(1), bl, 0))
     sh.append(outcome(stage, items, 70, 20, bytearray(rows * 20), bytearray(20), bl, 0))

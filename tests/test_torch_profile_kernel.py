@@ -135,7 +135,8 @@ def test_mesh_curve_on_the_cpu_rig(on_cpu, tmp_path, capsys):
         assert leg["mixed_oracle_exact"] and leg["kernel_backend"] == "plain"
         assert leg["device_calls"] >= 1 and leg["plain_calls"]["ed25519"] >= 1
         assert leg["launches"] == dict.fromkeys(("ed25519_verify", "ed25519_verify_signed",
-                                                 "ed25519_verify_signed_pair", "sha512_h"), 0)
+                                                 "ed25519_verify_signed_pair", "sha512_h",
+                                                 "dh_rows_to_cols"), 0)
     assert rec["oracle"].startswith("repeated-device rig ([cpu] * n")
     ret = rec["legs"][1]["verifies_per_sec_per_chip"] / rec["legs"][0]["verifies_per_sec_per_chip"]
     assert rec["per_chip_retention_at_max_devices"] == pytest.approx(ret)

@@ -30,6 +30,7 @@ from stellar_tpu_torch.crypto import SecretKey, make_backend, sodium  # noqa: E4
 from stellar_tpu_torch.crypto.sigcache import VerifySigCache  # noqa: E402
 from stellar_tpu_torch.ops import ed25519 as ted  # noqa: E402
 from stellar_tpu_torch.ops import ed25519_cuda  # noqa: E402
+from stellar_tpu_torch.ops import ref25519 as tref  # noqa: E402
 from stellar_tpu_torch.ops import sha512 as tsha  # noqa: E402
 from stellar_tpu_torch.ops import sha512_cuda  # noqa: E402
 from torch_host_cuda import build_host_kernel  # noqa: E402
@@ -137,6 +138,69 @@ def test_stage_raw_byte_exact_with_jax(jx):
     assert not tp[:, n:].any()  # padding columns are inert
 
 
+def _gate_lanes(seed=94000):
+    """A lane of every class the strict gate and the row layout tell
+    apart: empty, 32-byte, 47-byte (the longest one block) and multi-block
+    messages; a wrong S (the gate passes it, B1 refuses); S + L; each
+    small-order encoding as A and as R, with and without the sign bit (the
+    two non-canonical aliases p and p + 1 among them); keys and
+    signatures a byte short and a byte long."""
+    sk = SecretKey.pseudo_random_for_testing(seed)
+    lanes = []
+    for mlen in (0, 32, 47, 48, 200):
+        msg = bytes((seed + j) % 256 for j in range(mlen))
+        lanes.append((sk.public_raw, msg, sk.sign(msg)))
+    pk, msg, sig = lanes[1]
+    bad_s = bytearray(sig)
+    bad_s[40] ^= 1
+    s = int.from_bytes(sig[32:], "little")
+    lanes += [(pk, msg, bytes(bad_s)), (pk, msg, sig[:32] + (s + L).to_bytes(32, "little"))]
+    for enc in tref.small_order_blacklist():
+        for e in (enc, enc[:31] + bytes([enc[31] | 0x80])):
+            lanes += [(e, msg, sig), (pk, msg, e + sig[32:])]
+    lanes += [(pk[:31], msg, sig), (pk + b"\0", msg, sig), (pk, msg, sig[:63]), (pk, msg, sig + b"\0")]
+    return lanes
+
+
+@pytest.mark.parametrize("threads", [0, 1])
+@pytest.mark.parametrize("count", [1, 63, 64, 65, 4097])
+def test_stage_rows_is_stage_raw_item_major(count, threads):
+    """stage_rows writes stage_raw's bytes item-major: its (stride, 160)
+    buffer transposed is stage_raw's (160, stride) one, padding lanes
+    included; the verdicts and the rejects match, and ``flagged`` is the
+    count of flag-1 lanes.  4097 lanes with threads 0 take the pool."""
+    base = _gate_lanes() + _valid_items(9) + _hostile_items()
+    items = [base[i % len(base)] for i in range(count)]
+    stride = count + 3
+    mod = tnative.load_sighash()
+    cols = np.full((tsha.DH_ROWS, stride), 0xAB, dtype=np.uint8)
+    ok_cols = np.full(stride, 7, dtype=np.uint8)
+    rej_cols = mod.stage_raw(items, 0, count, cols, ok_cols, ted._BLACKLIST, threads)
+    rows = np.full((stride, tsha.DH_ROWS), 0xCD, dtype=np.uint8)
+    ok_rows = np.full(stride, 7, dtype=np.uint8)
+    rej_rows, flagged = mod.stage_rows(items, 0, count, rows, ok_rows, ted._BLACKLIST, threads)
+    np.testing.assert_array_equal(rows.T, cols)
+    np.testing.assert_array_equal(ok_rows[:count], ok_cols[:count])
+    assert rej_rows == rej_cols == count - int(ok_cols[:count].sum())
+    want = sum(1 for (_, msg, _), ok in zip(items, ok_cols) if ok and len(msg) <= tsha.MAX_DEVICE_MSG)
+    assert flagged == int(cols[tsha.ROW_FLAG].sum()) == want
+    assert not rows[count:].any()
+    if count >= len(base):
+        assert 0 < flagged < count - rej_rows and rej_rows > 0
+
+
+def test_stage_rows_refuses_buffers_that_do_not_fit():
+    items = _valid_items(4)
+    mod = tnative.load_sighash()
+    ok = np.zeros(4, dtype=np.uint8)
+    with pytest.raises(ValueError, match="160"):
+        mod.stage_rows(items, 0, 4, np.zeros(4 * tsha.DH_ROWS - 1, np.uint8), ok, ted._BLACKLIST)
+    with pytest.raises(ValueError, match="too small"):
+        mod.stage_rows(items, 0, 4, np.zeros((3, tsha.DH_ROWS), np.uint8), ok, ted._BLACKLIST)
+    with pytest.raises(ValueError, match="beyond"):
+        mod.stage_rows(items, 1, 4, np.zeros((4, tsha.DH_ROWS), np.uint8), ok, ted._BLACKLIST)
+
+
 def test_h_rows_match_jax_and_hashlib(jx):
     p, want = _random_lanes(seed=7)
     got = tsha.h_rows_from_packed(torch.from_numpy(p))
@@ -197,6 +261,10 @@ extern "C" void host_h(const uint8_t *p, uint8_t *out, int n, int words) {
     host_launch((n + kLanes - 1) / kLanes, kThreads, 32,
                 [&] { sha512_h_kernel(p, out, n, words != 0); });
 }
+extern "C" void host_rows_to_cols(const uint8_t *rows, uint8_t *cols, int n, int words) {
+    host_launch((n + kTrLanes - 1) / kTrLanes, kTrThreads, 32,
+                [&] { dh_rows_to_cols_kernel(rows, cols, n, words != 0); });
+}
 extern "C" void host_mod_l(const uint32_t *x, uint32_t *r) {
     uint32_t xx[16], rr[8];
     for (int k = 0; k < 16; k++) xx[k] = x[k];
@@ -213,6 +281,8 @@ def host_kernel(tmp_path_factory):
     )
     lib.host_h.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     lib.host_h.restype = None
+    lib.host_rows_to_cols.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    lib.host_rows_to_cols.restype = None
     lib.host_mod_l.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.host_mod_l.restype = None
     return lib
@@ -315,6 +385,44 @@ def test_kernel_source_mod_l_edges(host_kernel):
         r = np.zeros(8, dtype="<u4")
         host_kernel.host_mod_l(x.ctypes.data, r.ctypes.data)
         assert r.tobytes() == (v % L).to_bytes(32, "little"), hex(v)
+
+
+@pytest.mark.parametrize("n", [1, 63, 128, 129, 904, 1028])
+def test_transpose_kernel_source_matches_plain_version(host_kernel, n):
+    """dh_rows_to_cols_kernel over (n, 160) random rows, as its launch runs
+    it (blocks of 128 lanes, 256 threads), equals the plain version and the
+    numpy transpose; where n % 4 == 0 on the word path and the byte path
+    both.  Nothing past the (160, n) output is written."""
+    x = np.random.default_rng(n).integers(0, 256, (n, tsha.DH_ROWS), dtype=np.uint8)
+    plain = tsha.cols_from_rows(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(plain, x.T)
+    for words in {n % 4 == 0, False}:
+        out = np.full(tsha.DH_ROWS * n + 64, 0x5A, dtype=np.uint8)
+        host_kernel.host_rows_to_cols(x.ctypes.data, out.ctypes.data, n, int(words))
+        np.testing.assert_array_equal(out[: tsha.DH_ROWS * n].reshape(tsha.DH_ROWS, n), plain)
+        assert (out[tsha.DH_ROWS * n :] == 0x5A).all()
+
+
+def test_stage_rows_through_the_transpose_is_the_kernels_input(host_kernel):
+    """A stage_rows chunk transposed by the kernel source is stage_raw's
+    chunk, and the SHA-512 kernel source gives it the plain h."""
+    items = _gate_lanes() + _valid_items(36)
+    n = len(items)
+    rows = np.zeros((n, tsha.DH_ROWS), dtype=np.uint8)
+    tnative.load_sighash().stage_rows(items, 0, n, rows, np.zeros(n, np.uint8), ted._BLACKLIST, 0)
+    cols = np.zeros((tsha.DH_ROWS, n), dtype=np.uint8)
+    host_kernel.host_rows_to_cols(rows.ctypes.data, cols.ctypes.data, n, int(n % 4 == 0))
+    raw, _, _ = _staged(items, stride=n)
+    np.testing.assert_array_equal(cols, raw)
+    np.testing.assert_array_equal(_host_h(host_kernel, cols), _plain(raw))
+
+
+def test_rows_to_cols_routes_cpu_tensors_to_plain_version():
+    x = torch.from_numpy(np.random.default_rng(13).integers(0, 256, (37, tsha.DH_ROWS), dtype=np.uint8))
+    launches = sha512_cuda.transpose_launches
+    got = sha512_cuda.rows_to_cols(x)
+    assert got.shape == (tsha.DH_ROWS, 37) and got.is_contiguous()
+    assert torch.equal(got, x.t()) and sha512_cuda.transpose_launches == launches
 
 
 def test_wrapper_routes_cpu_tensors_to_plain_version():
@@ -422,3 +530,84 @@ def test_batch_verifier_device_hash_on_card():
     launches, calls = sha512_cuda.launches, tsha.plain_calls
     assert bv.verify(items) == want
     assert sha512_cuda.launches == launches + 2 and tsha.plain_calls == calls
+
+
+def _tiled_lanes(n):
+    """n lanes tiled from the gate's classes and signed payments-shaped
+    lanes (a 32-byte message), with their verdicts by construction: the
+    card's machine has no libsodium, so each distinct lane is signed once."""
+    base = _gate_lanes() + _valid_items(40, mlens=(32, 0, 47, 48))
+    want = [tref.verify(pk, msg, sig) for pk, msg, sig in base]
+    items = [base[i % len(base)] for i in range(n)]
+    return items, [want[i % len(base)] for i in range(n)]
+
+
+@pytest.mark.cuda
+def test_transpose_kernel_matches_plain_version_on_card():
+    """The kernel on the card equals its plain version: from an aligned
+    input (the word path where n % 4 == 0) and from one a byte off (the
+    byte path), and captured in a CUDA graph and replayed, as a graph
+    timing launches it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    for n in (1, 63, 64, 65, 4096, 4097, 32768):
+        x = torch.from_numpy(np.random.default_rng(n).integers(0, 256, (n, tsha.DH_ROWS), dtype=np.uint8))
+        want = tsha.cols_from_rows(x)
+        launches = sha512_cuda.transpose_launches
+        got = sha512_cuda.rows_to_cols(x.cuda())
+        torch.cuda.synchronize()
+        assert sha512_cuda.transpose_launches == launches + 1
+        assert torch.equal(got.cpu(), want), n
+        flat = torch.empty(tsha.DH_ROWS * n + 1, dtype=torch.uint8, device="cuda")
+        flat[1:].copy_(x.reshape(-1))
+        assert torch.equal(sha512_cuda.rows_to_cols(flat[1:].view(n, tsha.DH_ROWS)).cpu(), want), n
+        dev = x.cuda()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(3):
+                replayed = sha512_cuda.rows_to_cols(dev)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed.cpu(), want), n
+    with pytest.raises(ValueError):
+        sha512_cuda.rows_to_cols(x.cuda()[:, :128])  # not 160 bytes a lane
+    with pytest.raises(ValueError):
+        sha512_cuda.rows_to_cols(x.cuda()[::2])  # not contiguous
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [904, 32768])
+def test_batch_verifier_item_major_device_hash_on_card(n):
+    """Device hash over the item-major stage: one transpose, one B2 and one
+    B1 launch a chunk, the verdicts of host hashing and of the reference."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    items, want = _tiled_lanes(n)
+    dev = ted.BatchVerifier(max_batch=n, device_hash=True)
+    host = ted.BatchVerifier(max_batch=n)
+    counts = (sha512_cuda.transpose_launches, sha512_cuda.launches, ed25519_cuda.launches)
+    got = dev.verify(items)
+    assert (sha512_cuda.transpose_launches, sha512_cuda.launches, ed25519_cuda.launches) == (
+        counts[0] + 1, counts[1] + 1, counts[2] + 1)
+    assert got == host.verify(items) == want
+    # a chunk of multi-block messages only: transposed, no B2
+    long_items = [it for it in items[:64] if len(it[1]) > tsha.MAX_DEVICE_MSG]
+    b2 = sha512_cuda.launches
+    assert dev.verify(long_items) == host.verify(long_items)
+    assert sha512_cuda.launches == b2
+
+
+@pytest.mark.cuda
+def test_two_shard_mesh_item_major_device_hash_on_card():
+    """[cuda:0] * 2: each shard stages its own item-major buffer and the
+    card transposes each; verdicts equal the unsharded verifier's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from stellar_tpu_torch.parallel.mesh import make_mesh
+
+    items, want = _tiled_lanes(1001)
+    bv = ted.BatchVerifier(max_batch=1024, mesh=make_mesh([torch.device("cuda", 0)] * 2),
+                           device_hash=True)
+    launches = sha512_cuda.transpose_launches
+    assert bv.verify(items) == want
+    assert sha512_cuda.transpose_launches == launches + 2

@@ -493,9 +493,9 @@ class _StageArgs:
         self._mod = mod
         self.nargs = []
 
-    def stage_raw(self, *args):
+    def stage_rows(self, *args):
         self.nargs.append(len(args))
-        return self._mod.stage_raw(*args)
+        return self._mod.stage_rows(*args)
 
 
 def _inside(child, parent):

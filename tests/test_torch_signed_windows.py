@@ -397,31 +397,42 @@ def test_wrapper_routes_cpu_tensors_to_the_signed_plain_version(monkeypatch):
 # -- the knobs the JAX verifier reads -----------------------------------------
 
 
-@pytest.mark.parametrize("device_hash", [False, True], ids=["host_hash", "device_hash"])
-def test_python_stage_equals_the_c_stage(device_hash):
+@pytest.mark.parametrize("device_hash,item_major", [(False, False), (True, False), (True, True)],
+                         ids=["host_hash", "device_hash", "device_hash_item_major"])
+def test_python_stage_equals_the_c_stage(device_hash, item_major):
     """_stage_py / _stage_py_raw against sighash.stage / stage_raw: the
-    packed buffer, the gate verdicts and the reject count, byte for byte."""
+    packed buffer, the gate verdicts and the reject count, byte for byte;
+    item-major, the verifier's Python route (``_stage_into`` with the C
+    stage off) against sighash.stage_rows, the flag-1 count too."""
     items = _plane_items()
     n, rows = len(items), tsha.DH_ROWS if device_hash else ted.ROWS
     c_stage = tnative.load_sighash()
     outs = []
     for python in (True, False):
-        packed = np.full((rows, n), 0xA5, dtype=np.uint8)
+        packed = np.full((n, rows) if item_major else (rows, n), 0xA5, dtype=np.uint8)
         ok = np.full(n, 9, dtype=np.uint8)
-        if python:
+        flagged = None
+        if item_major and python:
+            bv = ted.BatchVerifier(device="cpu", max_batch=n, native_hash=False, device_hash=True)
+            rejects, flagged = bv._stage_into(items, 0, n, torch.from_numpy(packed), ok)
+        elif item_major:
+            rejects, flagged = c_stage.stage_rows(items, 0, n, packed, ok, ted._BLACKLIST, 0)
+        elif python:
             fn = ted.BatchVerifier._stage_py_raw if device_hash else ted.BatchVerifier._stage_py
             rejects = fn(items, 0, n, packed, ok)
         else:
             fn = c_stage.stage_raw if device_hash else c_stage.stage
             rejects = fn(items, 0, n, packed, ok, ted._BLACKLIST, 0)
-        outs.append((packed, ok, rejects))
-    (p_py, ok_py, r_py), (p_c, ok_c, r_c) = outs
+        outs.append((packed.T if item_major else packed, ok, rejects, flagged))
+    (p_py, ok_py, r_py, f_py), (p_c, ok_c, r_c, f_c) = outs
     np.testing.assert_array_equal(p_py, p_c)
     np.testing.assert_array_equal(ok_py, ok_c)
     assert r_py == r_c == len(items) - int(ok_c.sum()) and r_c >= 5
     if device_hash:  # both single-block (flag 1) and host-hashed (flag 0) lanes
         flags = p_c[tsha.ROW_FLAG][ok_c.astype(bool)]
         assert flags.any() and not flags.all()
+    if item_major:
+        assert f_py == f_c == int(flags.sum())
 
 
 @pytest.mark.parametrize("device_hash", [False, True], ids=["host_hash", "device_hash"])

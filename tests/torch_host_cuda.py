@@ -22,7 +22,7 @@ Two preludes:
   ``__reduce_max_sync`` the same exchange read whole.  Every thread of a
   group must reach every shuffle, as on the card.
 
-Both preludes define ``__byte_perm`` and ``__ldg``.
+Both preludes define ``__byte_perm``, ``__ldg`` and ``uint4``.
 """
 
 from __future__ import annotations
@@ -49,6 +49,7 @@ using std::min;
 #define __restrict__
 #define __shared__ static
 struct Dim3 { int x, y, z; };
+struct alignas(16) uint4 { uint32_t x, y, z, w; };
 // a load through the read-only data cache
 template <typename T>
 static inline T __ldg(const T *p) { return *p; }

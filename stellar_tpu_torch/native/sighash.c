@@ -428,23 +428,85 @@ typedef struct {
 } Item;
 
 typedef struct {
-    const Item *items;
+    PyObject *const *tups; /* the lanes' item tuples, a strong ref each */
     size_t n;
     uint8_t *out;   /* (rowsz, stride) row-major; (stride, DH_ROWS) for
                      * stage_rows() */
     size_t stride;
     size_t rowsz;   /* 128 (host-hash) or DH_ROWS (device-hash raw) */
     int raw;        /* 1 = device-hash staging (gate only, raw M) */
-    uint8_t *ok;    /* n bytes */
+    uint8_t *ok;    /* n bytes; GIL_LANE marks a lane the pass left */
     const uint8_t *bl;
     int nbl;
     size_t next_tile; /* atomic work counter */
     size_t rejects;   /* atomic */
     size_t flagged;   /* atomic: stage_rows() lanes with flag 1 */
+    size_t gil_lanes; /* atomic: lanes marked GIL_LANE */
 } Job;
 
-/* row layout per item: [0:32) A  [32:64) R  [64:96) s  [96:128) h */
-static int
+/* ok[i] of a lane that the GIL-released pass left to stage_gil_lanes: a
+ * slot of its tuple is not exactly bytes.  Its row stays zero until then. */
+#define GIL_LANE 2
+
+/* lane t's Item, read through its tuple with the GIL released.  The stage
+ * holds a reference on the tuple, which holds its slots, and neither a
+ * tuple nor a bytes object ever changes, so nothing read here can change
+ * or be freed whatever other threads do to the caller's sequence.  Only
+ * exact bytes pass, told by the type's address alone: the class of a
+ * bytes subclass instance can be reassigned, freeing the old class, so
+ * its type object is not read here.  Returns 0 for such a lane. */
+static inline __attribute__((always_inline)) int
+lane_item(PyObject *t, Item *it)
+{
+    PyObject *const *s =
+        ((PyTupleObject *)t)->ob_item + ((PyVarObject *)t)->ob_size - 3;
+    PyObject *pk = s[0], *msg = s[1], *sig = s[2];
+    if (Py_TYPE(pk) != &PyBytes_Type || Py_TYPE(msg) != &PyBytes_Type ||
+        Py_TYPE(sig) != &PyBytes_Type)
+        return 0;
+    it->pk = (const uint8_t *)((PyBytesObject *)pk)->ob_sval;
+    it->pk_len = ((PyVarObject *)pk)->ob_size;
+    it->msg = (const uint8_t *)((PyBytesObject *)msg)->ob_sval;
+    it->msg_len = ((PyVarObject *)msg)->ob_size;
+    it->sig = (const uint8_t *)((PyBytesObject *)sig)->ob_sval;
+    it->sig_len = ((PyVarObject *)sig)->ob_size;
+    return 1;
+}
+
+/* The lanes name their tuples in the caller's order, so the pass chases
+ * two pointers a lane to memory that no prefetcher predicts: the tuple,
+ * then its three bytes objects.  It warms them ahead: lane i + 2 * PF_D's
+ * tuple, and lane i + PF_D's objects through its tuple, by then warm (the
+ * stage's reference keeps both alive, as for lane_item): each object's
+ * header and the line of its last byte read.  On the benchmark cell's
+ * host CPU 8, 16 and 24 lanes gave the same times, and the last lines
+ * saved 0.2-0.5 ms of a 32,768-lane pass (PERF.md). */
+#define PF_D 16
+
+static inline __attribute__((always_inline)) void
+prefetch_lanes(PyObject *const *tups, size_t i, size_t n)
+{
+    if (i + 2 * PF_D < n) {
+        const char *u = (const char *)tups[i + 2 * PF_D];
+        __builtin_prefetch(u);      /* its header */
+        __builtin_prefetch(u + 40); /* its slots, where they cross a line */
+    }
+    if (i + PF_D < n) {
+        PyObject *u = tups[i + PF_D];
+        PyObject *const *s =
+            ((PyTupleObject *)u)->ob_item + ((PyVarObject *)u)->ob_size - 3;
+        __builtin_prefetch(s[0]);                   /* pk: 32 bytes at +32 */
+        __builtin_prefetch((const char *)s[0] + 63);
+        __builtin_prefetch(s[1]);                   /* msg: a 32-byte hash */
+        __builtin_prefetch((const char *)s[1] + 63);
+        __builtin_prefetch(s[2]);                   /* sig: 64 bytes at +32 */
+        __builtin_prefetch((const char *)s[2] + 95);
+    }
+}
+
+/* row layout per item: [0:32) A  [32:64) R  [64:96) s  [96:128) h.
+ * Always inlined, as item_row_raw is. */
+static inline __attribute__((always_inline)) int
 item_row(const Item *it, uint8_t row[128], const uint8_t *bl, int nbl)
 {
     uint8_t digest[64];
@@ -505,13 +567,16 @@ item_row_raw(const Item *it, uint8_t row[DH_ROWS], const uint8_t *bl,
     return 1;
 }
 
-static void
+/* stage() and stage_raw()'s pass, over 64-lane tiles.  Like
+ * run_job_records, in a section of its own (after .text), so that what
+ * changes in .text moves neither pass. */
+static void __attribute__((section(".text.stage_tiles")))
 run_job_tiles(void *arg)
 {
     Job *j = arg;
     uint8_t rows[TILE][DH_ROWS];
     size_t ntiles = (j->n + TILE - 1) / TILE;
-    size_t rej = 0, t, rowsz = j->rowsz;
+    size_t rej = 0, gil = 0, t, rowsz = j->rowsz;
     while ((t = __atomic_fetch_add(&j->next_tile, 1, __ATOMIC_RELAXED)) <
            ntiles) {
         size_t lo = t * TILE;
@@ -521,9 +586,17 @@ run_job_tiles(void *arg)
             hi = j->n;
         cnt = hi - lo;
         for (i = lo; i < hi; i++) {
-            int ok = j->raw
-                ? item_row_raw(&j->items[i], rows[i - lo], j->bl, j->nbl)
-                : item_row(&j->items[i], rows[i - lo], j->bl, j->nbl);
+            Item it;
+            int ok;
+            prefetch_lanes(j->tups, i, j->n);
+            if (!lane_item(j->tups[i], &it)) {
+                memset(rows[i - lo], 0, rowsz);
+                j->ok[i] = GIL_LANE;
+                gil++;
+                continue;
+            }
+            ok = j->raw ? item_row_raw(&it, rows[i - lo], j->bl, j->nbl)
+                        : item_row(&it, rows[i - lo], j->bl, j->nbl);
             j->ok[i] = (uint8_t)ok;
             if (!ok)
                 rej++;
@@ -538,6 +611,8 @@ run_job_tiles(void *arg)
     }
     if (rej)
         __atomic_fetch_add(&j->rejects, rej, __ATOMIC_RELAXED);
+    if (gil)
+        __atomic_fetch_add(&j->gil_lanes, gil, __ATOMIC_RELAXED);
 }
 
 /* stage_rows()'s pass: the same device-hash rows, each written in place
@@ -554,7 +629,7 @@ run_job_records(void *arg)
 {
     Job *j = arg;
     size_t ntiles = (j->n + TILE - 1) / TILE;
-    size_t rej = 0, flagged = 0, t;
+    size_t rej = 0, flagged = 0, gil = 0, t;
     while ((t = __atomic_fetch_add(&j->next_tile, 1, __ATOMIC_RELAXED)) <
            ntiles) {
         size_t i, hi = (t + 1) * TILE;
@@ -562,7 +637,16 @@ run_job_records(void *arg)
             hi = j->n;
         for (i = t * TILE; i < hi; i++) {
             uint8_t *row = j->out + i * DH_ROWS;
-            int ok = item_row_raw(&j->items[i], row, j->bl, j->nbl);
+            Item it;
+            int ok;
+            prefetch_lanes(j->tups, i, j->n);
+            if (!lane_item(j->tups[i], &it)) {
+                memset(row, 0, DH_ROWS);
+                j->ok[i] = GIL_LANE;
+                gil++;
+                continue;
+            }
+            ok = item_row_raw(&it, row, j->bl, j->nbl);
             j->ok[i] = (uint8_t)ok;
             if (!ok)
                 rej++;
@@ -573,6 +657,8 @@ run_job_records(void *arg)
         __atomic_fetch_add(&j->rejects, rej, __ATOMIC_RELAXED);
     if (flagged)
         __atomic_fetch_add(&j->flagged, flagged, __ATOMIC_RELAXED);
+    if (gil)
+        __atomic_fetch_add(&j->gil_lanes, gil, __ATOMIC_RELAXED);
 }
 
 /* -- persistent worker pool (created on first large batch) ---------- */
@@ -909,6 +995,63 @@ borrow_bytes(PyObject *o, const uint8_t **p, Py_ssize_t *len)
     return NULL;
 }
 
+enum { STAGE_HOST, STAGE_RAW, STAGE_ROWS };
+
+/* tuple t's last three slots as an Item, with the GIL held: borrow_bytes'
+ * check (a bytes subclass passes) without its reference, since the stage
+ * holds t.  -1 with its TypeError at the first slot that is not bytes. */
+static int
+lane_slots(PyObject *t, Item *it)
+{
+    Py_ssize_t sz = PyTuple_GET_SIZE(t);
+    PyObject *o;
+    if (!(o = borrow_bytes(PyTuple_GET_ITEM(t, sz - 3), &it->pk, &it->pk_len)))
+        return -1;
+    Py_DECREF(o);
+    if (!(o = borrow_bytes(PyTuple_GET_ITEM(t, sz - 2), &it->msg,
+                           &it->msg_len)))
+        return -1;
+    Py_DECREF(o);
+    if (!(o = borrow_bytes(PyTuple_GET_ITEM(t, sz - 1), &it->sig,
+                           &it->sig_len)))
+        return -1;
+    Py_DECREF(o);
+    return 1;
+}
+
+/* The lanes the GIL-released pass left (ok[i] == GIL_LANE), staged in lane
+ * order once the GIL is back, each row written where the pass would have
+ * written it.  -1 with the first lane's TypeError. */
+static int
+stage_gil_lanes(Job *j, int mode)
+{
+    size_t i, r, rej = 0, flagged = 0;
+    for (i = 0; i < j->n; i++) {
+        uint8_t row[DH_ROWS];
+        Item it;
+        int ok;
+        if (j->ok[i] != GIL_LANE)
+            continue;
+        if (lane_slots(j->tups[i], &it) < 0)
+            return -1;
+        ok = j->raw ? item_row_raw(&it, row, j->bl, j->nbl)
+                    : item_row(&it, row, j->bl, j->nbl);
+        j->ok[i] = (uint8_t)ok;
+        if (!ok)
+            rej++;
+        if (mode == STAGE_ROWS) {
+            memcpy(j->out + i * DH_ROWS, row, DH_ROWS);
+            flagged += row[DH_ROW_FLAG];
+        } else {
+            for (r = 0; r < j->rowsz; r++)
+                j->out[r * j->stride + i] = row[r];
+        }
+    }
+    j->rejects += rej;
+    j->flagged += flagged;
+    return 0;
+}
+
 /* Called through a pointer, so the module imports no symbol of its own
  * for the stamps: a new PLT entry moves every function after it by 16
  * bytes, and at that offset the gate's loops ran ~25 % slower on an
@@ -944,14 +1087,18 @@ enum { N_STAMPS = 5 };
  * stamps    optional writable buffer of 5 uint64: CLOCK_MONOTONIC ns at
  *           [0] entry, [1] just before the GIL is released, [2] just
  *           before it is taken back, [3] just after, [4] exit.  [0, 1) is
- *           the GIL-held prologue (argument parsing, the tuple walk, the
- *           increfs), [1, 2) the compute, [2, 3) the wait for the GIL,
- *           [3, 4) the epilogue (the decrefs).  Not given: no clock is
- *           read.  The staged bytes and the verdicts are the same either
- *           way.
+ *           the GIL-held prologue (argument parsing, the copy of the item
+ *           pointers with one incref a tuple), [1, 2) the compute (which
+ *           reads each lane's bytes through its tuple), [2, 3) the wait
+ *           for the GIL, [3, 4) the epilogue (the lanes left to the GIL,
+ *           the decrefs).  A sixth uint64, where the buffer holds one,
+ *           takes the count of those lanes.  Not given: no clock is read.
+ *           The staged bytes and the verdicts are the same either way.
+ *
+ * A lane whose three slots are exact bytes is read with the GIL released;
+ * any other lane is staged after the GIL is back, a bytes subclass as
+ * bytes, and anything else raises TypeError (out and ok then hold zeros).
  */
-enum { STAGE_HOST, STAGE_RAW, STAGE_ROWS };
-
 static PyObject *
 stage_common(PyObject *args, int mode)
 {
@@ -959,8 +1106,9 @@ stage_common(PyObject *args, int mode)
     Py_ssize_t start, count, stride;
     Py_buffer out = {0}, okb = {0}, bl = {0}, sb = {0};
     int threads = 0;
-    Item *items = NULL;
-    size_t rejects = 0, flagged = 0;
+    PyObject **tups = NULL;
+    Py_ssize_t held = 0; /* tups[0, held) hold a reference */
+    size_t rejects = 0, flagged = 0, gil_lanes = 0;
     int raw = mode != STAGE_HOST;
     size_t rowsz = raw ? DH_ROWS : 128;
     void (*pass)(void *) = mode == STAGE_ROWS ? run_job_records : run_job_tiles;
@@ -999,34 +1147,34 @@ stage_common(PyObject *args, int mode)
         PyErr_SetString(PyExc_ValueError, "start+count beyond items");
         goto fail;
     }
-    items = PyMem_Malloc((count ? count : 1) * sizeof(Item));
-    if (items == NULL) {
+    tups = PyMem_Malloc((count ? count : 1) * sizeof(PyObject *));
+    if (tups == NULL) {
         PyErr_NoMemory();
         goto fail;
     }
-    memset(items, 0, (count ? count : 1) * sizeof(Item));
-    for (j = 0; j < count; j++) {
-        PyObject *t = PySequence_Fast_GET_ITEM(fast, start + j);
-        Py_ssize_t sz;
-        if (!PyTuple_Check(t) || (sz = PyTuple_GET_SIZE(t)) < 3) {
+    /* one reference a lane, on its tuple: it keeps the tuple, and so its
+     * slots, alive while the pass reads them without the GIL */
+    for (held = 0; held < count; held++) {
+        PyObject *t = PySequence_Fast_GET_ITEM(fast, start + held);
+        if (!PyTuple_Check(t) || PyTuple_GET_SIZE(t) < 3) {
+            Item it;
+            /* an earlier lane's slot error comes first, as when every
+             * slot was checked here */
+            for (j = 0; j < held; j++)
+                if (lane_slots(tups[j], &it) < 0)
+                    goto fail;
             PyErr_SetString(PyExc_TypeError,
                             "items must be tuples of >= 3 slots "
                             "(..., pk, msg, sig)");
             goto fail;
         }
-        items[j].pk_o = borrow_bytes(PyTuple_GET_ITEM(t, sz - 3),
-                                     &items[j].pk, &items[j].pk_len);
-        items[j].msg_o = borrow_bytes(PyTuple_GET_ITEM(t, sz - 2),
-                                      &items[j].msg, &items[j].msg_len);
-        items[j].sig_o = borrow_bytes(PyTuple_GET_ITEM(t, sz - 1),
-                                      &items[j].sig, &items[j].sig_len);
-        if (!items[j].pk_o || !items[j].msg_o || !items[j].sig_o)
-            goto fail;
+        Py_INCREF(t);
+        tups[held] = t;
     }
 
     {
         Job job;
-        job.items = items;
+        job.tups = tups;
         job.n = (size_t)count;
         job.out = (uint8_t *)out.buf;
         job.stride = (size_t)stride;
@@ -1038,6 +1186,7 @@ stage_common(PyObject *args, int mode)
         job.next_tile = 0;
         job.rejects = 0;
         job.flagged = 0;
+        job.gil_lanes = 0;
         if (sb.obj)
             st[1] = mono_ns();
         Py_BEGIN_ALLOW_THREADS
@@ -1063,16 +1212,20 @@ stage_common(PyObject *args, int mode)
         Py_END_ALLOW_THREADS
         if (sb.obj)
             st[3] = mono_ns();
+        gil_lanes = job.gil_lanes;
+        if (gil_lanes && stage_gil_lanes(&job, mode) < 0) {
+            /* no lane of a call that raised passes, nor carries bytes */
+            memset(out.buf, 0, (size_t)out.len);
+            memset(okb.buf, 0, (size_t)count);
+            goto fail;
+        }
         rejects = job.rejects;
         flagged = job.flagged;
     }
 
-    for (j = 0; j < count; j++) {
-        Py_DECREF(items[j].pk_o);
-        Py_DECREF(items[j].msg_o);
-        Py_DECREF(items[j].sig_o);
-    }
-    PyMem_Free(items);
+    for (j = 0; j < count; j++)
+        Py_DECREF(tups[j]);
+    PyMem_Free(tups);
     Py_DECREF(fast);
     PyBuffer_Release(&out);
     PyBuffer_Release(&okb);
@@ -1080,6 +1233,10 @@ stage_common(PyObject *args, int mode)
     if (sb.obj) {
         st[4] = mono_ns();
         memcpy(sb.buf, st, sizeof(st));
+        if (sb.len >= (Py_ssize_t)(sizeof(st) + sizeof(uint64_t))) {
+            uint64_t g = (uint64_t)gil_lanes;
+            memcpy((uint8_t *)sb.buf + sizeof(st), &g, sizeof(g));
+        }
         PyBuffer_Release(&sb);
     }
     if (mode == STAGE_ROWS)
@@ -1087,13 +1244,9 @@ stage_common(PyObject *args, int mode)
     return PyLong_FromSize_t(rejects);
 
 fail:
-    if (items != NULL) /* allocated only after count was validated >= 0 */
-        for (j = 0; j < count; j++) {
-            Py_XDECREF(items[j].pk_o);
-            Py_XDECREF(items[j].msg_o);
-            Py_XDECREF(items[j].sig_o);
-        }
-    PyMem_Free(items);
+    for (j = 0; j < held; j++)
+        Py_DECREF(tups[j]);
+    PyMem_Free(tups);
     Py_XDECREF(fast);
     if (out.obj)
         PyBuffer_Release(&out);
@@ -1417,7 +1570,8 @@ static PyMethodDef methods[] = {
      "stage(items, start, count, out, ok, blacklist, threads=0, stamps) -> "
      "rejects: gate + SHA-512(R||A||M) mod L + transposed staging; stamps,"
      " a writable buffer of 5 uint64, takes CLOCK_MONOTONIC ns at entry,"
-     " GIL release, GIL request, GIL back and exit"},
+     " GIL release, GIL request, GIL back and exit, and a sixth uint64 the"
+     " count of lanes staged with the GIL held (a slot not exactly bytes)"},
     {"stage_raw", sighash_stage_raw, METH_VARARGS,
      "stage_raw(items, start, count, out, ok, blacklist, threads=0, stamps)"
      " -> rejects: gate-only device-hash staging (raw single-block M bytes;"

@@ -361,7 +361,8 @@ def _verify_packed_device_hash(p, signed=None):
 _BLACKLIST = b"".join(ref.small_order_blacklist())
 ROWS = 128  # packed staging rows: A, R, s, h
 # the C stage's parts between its five clock stamps (sighash.c stage()):
-# GIL held, GIL released, the wait to take it back, GIL held
+# GIL held, GIL released, the wait to take it back, GIL held; the stamp
+# buffer's sixth slot takes the lanes it staged with the GIL held
 _STAGE_SPANS = ("ed25519.stage_prologue", "ed25519.stage_compute",
                 "ed25519.stage_gil_wait", "ed25519.stage_epilogue")
 # least bucket of a chunk under a mesh (the JAX verifier's default
@@ -738,9 +739,9 @@ class BatchVerifier:
             return None
         return self._stage_shards(encs, start, n, LAYOUT_COLS, self._fill_torsion_into)[0]
 
-    def _fill_torsion_into(self, encs, start, n, packed, okbuf) -> Tuple[int, int]:
+    def _fill_torsion_into(self, encs, start, n, packed, okbuf) -> Tuple[int, int, int]:
         self._fill_torsion(encs, start, n, packed.numpy(), okbuf)
-        return 0, 0
+        return 0, 0, 0
 
     @staticmethod
     def _fill_torsion(encs, start, n, packed, okbuf) -> None:
@@ -844,29 +845,35 @@ class BatchVerifier:
             return None
         sp = self._tracer.begin("ed25519.host_hash")
         layout = LAYOUT_ROWS if self.device_hash else LAYOUT_COLS
-        staged, rejects = self._stage_shards(items, start, n, layout, self._stage_into)
+        staged, rejects, gil_lanes = self._stage_shards(items, start, n, layout,
+                                                        self._stage_into)
+        # gil_lanes: the lanes staged with the GIL held, where it was read
         self._tracer.end(sp, items=n, rejects=rejects, device_hash=self.device_hash,
-                         layout=layout, flagged=sum(sh.flagged for sh in staged.shards))
+                         layout=layout, flagged=sum(sh.flagged for sh in staged.shards),
+                         **({} if gil_lanes is None else {"gil_lanes": gil_lanes}))
         if rejects:
             with self._calls_lock:  # stager threads update concurrently
                 self.n_gate_rejects += int(rejects)
         return staged
 
-    def _stage_into(self, items, start, n, packed, okbuf) -> Tuple[int, int]:
+    def _stage_into(self, items, start, n, packed, okbuf) -> Tuple[int, int, Optional[int]]:
         """One host-stage pass into a pooled view, (n, 160) item-major with
         device_hash, else (128, n): the C stage (GIL released) unless
-        ``native_hash`` pinned the Python one; returns the gate's rejects
-        and the lanes with flag 1."""
+        ``native_hash`` pinned the Python one; returns the gate's rejects,
+        the lanes with flag 1 and the lanes staged with the GIL held (the
+        C stage's count where its stamps are read, else None; every lane
+        of the Python stage)."""
         if self._sighash is None:
             if not self.device_hash:
-                return self._stage_py(items, start, n, packed.numpy(), okbuf), 0
+                return self._stage_py(items, start, n, packed.numpy(), okbuf), 0, n
             rows = packed.numpy()
             # the (160, n) layout's writes land item-major through the view
             rejects = self._stage_py_raw(items, start, n, rows.T, okbuf)
-            return rejects, int(np.count_nonzero(rows[:, sha512.ROW_FLAG]))
+            return rejects, int(np.count_nonzero(rows[:, sha512.ROW_FLAG])), n
         # stage_rows returns (rejects, flagged), stage the rejects alone
         stage = self._sighash.stage_rows if self.device_hash else self._sighash.stage
         tracer = self._tracer
+        gil_lanes = None
         if not (tracer.enabled and tracer.real_clock):
             res = stage(items, start, n, packed.numpy(), okbuf, _BLACKLIST, self._hash_threads)
         else:
@@ -875,15 +882,16 @@ class BatchVerifier:
             # ed25519.stage_glue for this frame's Python on either side of
             # the call
             entered = time.monotonic()
-            stamps = np.zeros(len(_STAGE_SPANS) + 1, dtype=np.uint64)
+            stamps = np.zeros(len(_STAGE_SPANS) + 2, dtype=np.uint64)
             res = stage(items, start, n, packed.numpy(), okbuf, _BLACKLIST,
                         self._hash_threads, stamps)
-            t = (stamps / 1e9).tolist()
+            gil_lanes = int(stamps[-1])
+            t = (stamps[:-1] / 1e9).tolist()
             tracer.record("ed25519.stage_glue", entered, t[0])
             for k, name in enumerate(_STAGE_SPANS):
                 tracer.record(name, t[k], t[k + 1], items=n)
             tracer.record("ed25519.stage_glue", t[-1], time.monotonic())
-        return res if self.device_hash else (res, 0)
+        return (*res, gil_lanes) if self.device_hash else (res, 0, gil_lanes)
 
     @staticmethod
     def _gate_chunk(items, start, n, packed, okbuf, keep_rejected):
@@ -950,17 +958,18 @@ class BatchVerifier:
                 packed[96:128, j] = cls._h_bytes(pk, msg, sig)
         return n - len(passed)
 
-    def _stage_shards(self, items, start, n, layout, fill) -> Tuple[_Staged, int]:
-        """Staging -> (the staged chunk, the gate's rejects): each shard
-        with a live lane gets its own pooled buffer, filled by ``fill`` over
-        the shard's live range only (a view of its live lanes in
-        ``layout``: (lanes, 160) or (128, lanes)); ``fill`` returns its
-        rejects and flag-1 lanes.  Live lanes lie shard-major over the
-        bucket, so the tail shard is short and dead shards stage nothing;
-        without a mesh the one shard is the chunk."""
+    def _stage_shards(self, items, start, n, layout, fill) -> Tuple[_Staged, int, Optional[int]]:
+        """Staging -> (the staged chunk, the gate's rejects, the lanes
+        staged with the GIL held or None): each shard with a live lane gets
+        its own pooled buffer, filled by ``fill`` over the shard's live
+        range only (a view of its live lanes in ``layout``: (lanes, 160) or
+        (128, lanes)); ``fill`` returns its rejects, flag-1 lanes and
+        GIL-held lanes.  Live lanes lie shard-major over the bucket, so the
+        tail shard is short and dead shards stage nothing; without a mesh
+        the one shard is the chunk."""
         shards, bufs = [], []
         ok = np.zeros(n, dtype=bool)
-        rejects = 0
+        rejects, gil_lanes = 0, 0
         for k, lo, cnt in self._shard_ranges(n):
             buf = self._pool.acquire()
             bufs.append(buf)
@@ -968,11 +977,12 @@ class BatchVerifier:
                 packed = buf[0][: sha512.DH_ROWS * cnt].view(cnt, sha512.DH_ROWS)
             else:
                 packed = buf[0][: ROWS * cnt].view(ROWS, cnt)
-            rej, flagged = fill(items, start + lo, cnt, packed, buf[1])
+            rej, flagged, gil = fill(items, start + lo, cnt, packed, buf[1])
             rejects += rej
+            gil_lanes = None if gil is None or gil_lanes is None else gil_lanes + gil
             ok[lo : lo + cnt] = buf[1][:cnt].astype(bool)
             shards.append(_Shard(k, lo, cnt, packed, flagged))
-        return _Staged(tuple(shards), ok, n, tuple(bufs), layout), rejects
+        return _Staged(tuple(shards), ok, n, tuple(bufs), layout), rejects, gil_lanes
 
     def _release(self, staged: Optional[_Staged]) -> None:
         if staged is None:

@@ -11,7 +11,11 @@ computes what the shipped one does.  The port's twin of
 ``tests/test_native_build.py::test_sanitized_build_differentials`` (whose
 ``sighash.c`` has two test hooks that the port's lacks: the port's script
 runs ``stage``, ``stage_raw``, ``stage_rows``, ``sha256_batch`` and
-``bucket_hash_frames``).
+``bucket_hash_frames``).  The C stage reads each lane's bytes through its
+tuple with the GIL released, so the script also gives it bytes-subclass and
+refused lanes, and a list that another thread rebinds during the call; the
+sanitized child allocates objects with ``malloc``, so that reading a freed
+one is caught.
 
 The script imports no torch (``ref25519`` is loaded by file), so it needs
 only the toolchain.  Skips, with the reason, where the toolchain cannot
@@ -35,7 +39,7 @@ MODE = "address,undefined"
 ENGINES = ("bucketmerge", "cxdrpack", "sighash", "halfagg", "applycore")
 
 _CHILD = r"""
-import base64, hashlib, importlib.util, json, os, random, shutil, struct, sys, tempfile
+import base64, hashlib, importlib.util, json, os, random, shutil, struct, sys, tempfile, threading
 
 import stellar_tpu_torch.native as native
 
@@ -162,6 +166,63 @@ for stage, rows in ((sig_mod.stage, 128), (sig_mod.stage_raw, 160), (sig_mod.sta
         sh.append(outcome(stage, bad, 0, 1, bytearray(rows), bytearray(1), bl, 0))
     sh.append(outcome(stage, items, 70, 20, bytearray(rows * 20), bytearray(20), bl, 0))
     sh.append(outcome(stage, items, 0, 8, bytearray(rows * 4), bytearray(8), bl, 0))
+
+
+# a bytes subclass in each slot (staged once the GIL is back), then a
+# bytearray, a str and a short tuple among 2,400 lanes (pool workers on)
+class SubBytes(bytes):
+    pass
+
+
+wide = [items[i % 80] for i in range(2400)]
+for stage, rows in ((sig_mod.stage, 128), (sig_mod.stage_raw, 160), (sig_mod.stage_rows, 160)):
+    for slot in range(3):
+        lanes = [tuple(SubBytes(x) if k == slot else x for k, x in enumerate(t)) if i % 97 == 5
+                 else t for i, t in enumerate(wide)]
+        buf, ok, stamps = bytearray(rows * 2400), bytearray(2400), bytearray(48)
+        sh.append((stage(lanes, 0, 2400, buf, ok, bl, 0, stamps), dig(buf), dig(ok),
+                   int.from_bytes(stamps[40:], "little")))
+    for bad in ((b"\x00" * 32, bytearray(b"m"), b"\x00" * 64), (b"\x00" * 32, b"m", "s" * 64),
+                (b"\x00" * 32, b"m")):
+        lanes = wide[:1500] + [bad] + wide[1500:]
+        buf, ok = bytearray(b"\xa5" * rows * 2401), bytearray(b"\x09" * 2401)
+        sh.append((outcome(stage, lanes, 0, 2401, buf, ok, bl, 0), dig(buf), dig(ok)))
+
+
+# another thread rebinds the list's slots to fresh tuples of other bytes
+# while stage_rows runs over it, dropping the tuples the call was given:
+# the list's slots are their only other references.  It rebinds from the
+# last lane down, the pass reads from the first up, so they meet.  The
+# staged bytes are those of the tuples the list held at the call.
+def fresh(t):
+    return tuple(bytes(bytearray(x)) for x in t)
+
+other = fresh(items[1])
+prev_interval = sys.getswitchinterval()
+sys.setswitchinterval(0.5)  # the other thread runs while the stage lets go of the GIL
+for rnd in range(3):
+    lanes = [fresh(items[(i * 7 + rnd) % 80]) for i in range(32768)]
+    want_buf, want_ok = bytearray(160 * 32768), bytearray(32768)
+    want = sig_mod.stage_rows([fresh(t) for t in lanes], 0, 32768, want_buf, want_ok, bl, 1)
+    go, stop = threading.Event(), threading.Event()
+
+    def rebind(lanes=lanes, go=go, stop=stop):
+        go.wait()
+        i = 0
+        while not stop.is_set():
+            lanes[32767 - i % 32768] = (other[0], other[1], bytes(bytearray(other[2])))
+            i += 1
+
+    th = threading.Thread(target=rebind)
+    th.start()
+    buf, ok = bytearray(160 * 32768), bytearray(32768)
+    go.set()
+    got = sig_mod.stage_rows(lanes, 0, 32768, buf, ok, bl, 1)
+    stop.set()
+    th.join()
+    assert (got, buf, ok) == (want, want_buf, want_ok), rnd
+    sh.append((got, dig(buf), dig(ok)))
+sys.setswitchinterval(prev_interval)
 msgs = [bytes(rng.randrange(256) for _ in range(n)) for n in (0, 1, 55, 56, 63, 64, 65, 119, 120, 1000)]
 dout = bytearray(32 * len(msgs))
 sig_mod.sha256_batch(msgs, dout)
@@ -258,6 +319,8 @@ def runs():
         # leak accounting means nothing for a short child under CPython's
         # allocator; any real error aborts
         "ASAN_OPTIONS": "detect_leaks=0,abort_on_error=1",
+        # objects on malloc, so that the sanitizer sees a freed one read
+        "PYTHONMALLOC": "malloc",
         "UBSAN_OPTIONS": "halt_on_error=1,print_stacktrace=1",
     })
     return normal, sanitized

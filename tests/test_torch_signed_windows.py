@@ -414,7 +414,7 @@ def test_python_stage_equals_the_c_stage(device_hash, item_major):
         flagged = None
         if item_major and python:
             bv = ted.BatchVerifier(device="cpu", max_batch=n, native_hash=False, device_hash=True)
-            rejects, flagged = bv._stage_into(items, 0, n, torch.from_numpy(packed), ok)
+            rejects, flagged, _ = bv._stage_into(items, 0, n, torch.from_numpy(packed), ok)
         elif item_major:
             rejects, flagged = c_stage.stage_rows(items, 0, n, packed, ok, ted._BLACKLIST, 0)
         elif python:
